@@ -1,0 +1,61 @@
+"""The paper's own configuration: the multiplierless in-filter acoustic
+classifier (30-filter multirate MP FIR bank + MP kernel machine), as
+deployed on the Spartan-7 FPGA (Table I)."""
+
+from repro_torch.core.filterbank import FilterBankConfig
+
+FILTERBANK = FilterBankConfig(
+    fs=16000.0,
+    num_octaves=6,
+    filters_per_octave=5,     # 30 filters, Table III
+    bp_taps=16,               # BP window size 16
+    lp_taps=6,                # LP window size 6
+    mode="mp",
+    gamma_f=4.0,
+)
+
+# deployment quantization (Fig. 8: stable down to 8 bits)
+QUANT_BITS = 8
+
+# reduced same-family config for quick runs
+FILTERBANK_SMOKE = FILTERBANK._replace(fs=4000.0, num_octaves=3,
+                                       filters_per_octave=3)
+
+
+def make_pipeline(smoke: bool = False, seed: int = 0,
+                  quant_bits: int | None = None, num_classes: int = 10,
+                  stream_impl: str = "pallas", device=None,
+                  use_pallas: bool = True, numerics: str = "float"):
+    """A deployable ``InFilterPipeline`` at the paper's configuration.
+
+    The classifier is drawn from ``torch.Generator().manual_seed(seed)``
+    with identity standardization: serving runs and benchmarks exercise the
+    datapath, not accuracy. The main path goes through the CUDA kernels by
+    default: ``stream_impl="pallas"`` runs the session step through the
+    stream kernel ("xla" is the torch-op cascade) and ``use_pallas=True``
+    runs one-shot ``apply(x)`` through the bank kernels. ``device`` is
+    ``cuda`` unless given; without a card this raises unless
+    ``device="cpu"``. ``numerics="fixed"`` is not ported yet and raises.
+    """
+    import torch
+
+    from repro_torch.core import kernel_machine as km
+    from repro_torch.core.filterbank import FilterBank
+    from repro_torch.core.pipeline import InFilterPipeline
+    from repro_torch.device import resolve_device
+
+    device = resolve_device(device)
+    if stream_impl not in ("xla", "pallas"):
+        raise ValueError(f"unknown stream_impl {stream_impl!r}: "
+                         "expected 'xla' or 'pallas'")
+    if numerics not in ("float", "fixed"):
+        raise ValueError(f"unknown numerics {numerics!r}: "
+                         "expected 'float' or 'fixed'")
+    cfg = (FILTERBANK_SMOKE if smoke else FILTERBANK)._replace(
+        stream_impl=stream_impl, use_pallas=use_pallas, numerics=numerics,
+        quant_bits=quant_bits)
+    fb = FilterBank(cfg, device=device)
+    P = cfg.num_filters
+    clf = km.init_params(torch.Generator().manual_seed(seed), P, num_classes)
+    return InFilterPipeline.from_filterbank(fb, clf, torch.zeros(P),
+                                            torch.ones(P))

@@ -1,0 +1,213 @@
+"""Margin Propagation (MP) primitives in PyTorch (inference forms).
+
+``z = MP(L, gamma)`` solves the reverse water-filling constraint
+
+    sum_i [L_i - z]_+  =  gamma,        gamma > 0
+
+along the last axis. The solvers here are the counterparts of
+``repro.core.mp``: the exact sort-based closed form (forward only; its
+autograd rule comes with the training slice), the add/compare/halve
+bisection the hardware runs, and the monotone Newton scheme the software
+hot path uses.
+
+Every float reduction inside a fixed-iteration solver goes through
+:func:`tree_sum`, an explicit adjacent-pair add tree. The streaming
+parity contract (session step through the CUDA kernel == the torch-op
+cascade, and single-chunk streaming == one-shot) rests on every path
+adding the same operands in the same order; the CUDA kernels reproduce
+this exact tree.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "tree_sum",
+    "mp_exact",
+    "mp_bisect",
+    "mp_newton",
+    "mpabs",
+    "mpabs_newton",
+    "mp_dot",
+    "mp_conv1d",
+    "mp_conv1d_bank",
+    "DEFAULT_BISECT_ITERS",
+    "DEFAULT_NEWTON_ITERS",
+]
+
+DEFAULT_BISECT_ITERS = 26  # |interval| * 2^-26 < 1e-7 * gamma: fp32-parity
+DEFAULT_NEWTON_ITERS = 12  # monotone Newton: lands exactly on the root
+
+
+def tree_sum(h: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a FIXED adjacent-pair tree.
+
+    Zero-pad to a power of two, then add ``h[..., 0::2] + h[..., 1::2]``
+    until one value is left. This is not the half-split tree GPU
+    reductions usually use: adjacent pairs are what the reference adds,
+    and bitwise parity between the paths depends on keeping it.
+    """
+    n = h.shape[-1]
+    if n == 0:
+        return h.new_zeros(h.shape[:-1])
+    p = 1
+    while p < n:
+        p <<= 1
+    if p != n:
+        h = F.pad(h, (0, p - n))
+    while h.shape[-1] > 1:
+        h = h[..., 0::2] + h[..., 1::2]
+    return h[..., 0]
+
+
+def _gamma(gamma, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(gamma, dtype=like.dtype, device=like.device)
+
+
+def mp_exact(L: torch.Tensor, gamma) -> torch.Tensor:
+    """Exact reverse water-filling along the last axis (forward only).
+
+    L: (..., m); gamma: scalar or broadcastable to (...,). Returns (...,).
+    """
+    m = L.shape[-1]
+    g = _gamma(gamma, L)
+    s = torch.sort(L, dim=-1, descending=True).values
+    cs = torch.cumsum(s, dim=-1)
+    k = torch.arange(1, m + 1, dtype=L.dtype, device=L.device)
+    z_k = (cs - g[..., None]) / k
+    k_star = torch.clamp((s > z_k).sum(-1), min=1)
+    cs_sel = torch.gather(cs, -1, (k_star - 1)[..., None])[..., 0]
+    return (cs_sel - g) / k_star.to(L.dtype)
+
+
+def mp_bisect(L: torch.Tensor, gamma,
+              iters: int = DEFAULT_BISECT_ITERS) -> torch.Tensor:
+    """MP by bisection on ``[max L - gamma, max L]`` (add/compare/halve)."""
+    g = _gamma(gamma, L)
+    hi = L.amax(-1)
+    lo = hi - g
+    for _ in range(iters):
+        mid = (lo + hi) * 0.5
+        h = tree_sum(torch.clamp_min(L - mid[..., None], 0))
+        too_low = h > g
+        lo = torch.where(too_low, mid, lo)
+        hi = torch.where(too_low, hi, mid)
+    return (lo + hi) * 0.5
+
+
+def mp_newton(L: torch.Tensor, gamma,
+              iters: int = DEFAULT_NEWTON_ITERS) -> torch.Tensor:
+    """MP by monotone Newton from the left of the root:
+    ``z += (h(z) - gamma) / k(z)``, k the count of operands above z."""
+    g = _gamma(gamma, L)
+    z = L.amax(-1) - g
+    for _ in range(iters):
+        zc = z[..., None]
+        s = tree_sum(torch.clamp_min(L - zc, 0))
+        k = (L > zc).sum(-1).to(L.dtype)  # integer count: exact
+        z = z + (s - g) / torch.clamp_min(k, 1.0)
+    return z
+
+
+def mpabs_newton(u: torch.Tensor, gamma,
+                 iters: int = DEFAULT_NEWTON_ITERS) -> torch.Tensor:
+    """MP([u; -u], gamma) by monotone Newton, without the concatenation:
+    the |u| branch plus the -|u| branch, each tree-summed."""
+    g = _gamma(gamma, u)
+    a = u.abs()
+    z = a.amax(-1) - g
+    for _ in range(iters):
+        zc = z[..., None]
+        s = (tree_sum(torch.clamp_min(a - zc, 0))
+             + tree_sum(torch.clamp_min(-a - zc, 0)))
+        k = ((a > zc).sum(-1) + (-a > zc).sum(-1)).to(u.dtype)
+        z = z + (s - g) / torch.clamp_min(k, 1.0)
+    return z
+
+
+def mpabs(u: torch.Tensor, gamma, exact: bool = True,
+          iters: int = DEFAULT_BISECT_ITERS) -> torch.Tensor:
+    """MP([u; -u], gamma) along the last axis. ``exact=False`` bisects on
+    the u and -u branches without materializing the concatenation."""
+    if exact:
+        return mp_exact(torch.cat([u, -u], dim=-1), gamma)
+    g = _gamma(gamma, u)
+    hi = u.abs().amax(-1)
+    lo = hi - g
+    for _ in range(iters):
+        mid = (lo + hi) * 0.5
+        m = mid[..., None]
+        h = (tree_sum(torch.clamp_min(u - m, 0))
+             + tree_sum(torch.clamp_min(-u - m, 0)))
+        too_low = h > g
+        lo = torch.where(too_low, mid, lo)
+        hi = torch.where(too_low, hi, mid)
+    return (lo + hi) * 0.5
+
+
+def mp_dot(x: torch.Tensor, w: torch.Tensor, gamma,
+           exact: bool = True) -> torch.Tensor:
+    """Multiplierless <x, w> (paper eq. 9): mpabs(w + x) - mpabs(w - x)."""
+    return mpabs(w + x, gamma, exact=exact) - mpabs(w - x, gamma, exact=exact)
+
+
+def _mp_dot_fast(x: torch.Tensor, w: torch.Tensor, gamma,
+                 solver: str) -> torch.Tensor:
+    """Fixed-iteration mp_dot for the feature-extraction hot path. The
+    operand order (``w + x``, ``w - x``) is the reference's."""
+    if solver == "newton":
+        return mpabs_newton(w + x, gamma) - mpabs_newton(w - x, gamma)
+    if solver == "bisect":
+        return (mpabs(w + x, gamma, exact=False)
+                - mpabs(w - x, gamma, exact=False))
+    raise ValueError(f"unknown MP solver: {solver!r}")
+
+
+def mp_conv1d(x: torch.Tensor, h: torch.Tensor, gamma, exact: bool = True,
+              solver: str = "newton", pad: bool = True) -> torch.Tensor:
+    """Multiplierless FIR: y(n) = MP-dot(h, x[n-M+1..n]).
+
+    x (..., N), h (M,). ``pad=True`` left-pads with M-1 zeros so y has N
+    positions (zeroed registers at start); ``pad=False`` computes only the
+    valid positions, (..., N-M+1), window n = x[n..n+M-1]. Shared
+    positions match bitwise.
+    """
+    M = h.shape[0]
+    xp = F.pad(x, (M - 1, 0)) if pad else x
+    win = xp.unfold(-1, M, 1)                      # (..., n_out, M)
+    hr = h.flip(0)
+    if exact:
+        return mp_dot(win, hr, gamma, exact=True)
+    return _mp_dot_fast(win, hr, gamma, solver)
+
+
+def mp_conv1d_bank(x: torch.Tensor, H: torch.Tensor, gamma,
+                   exact: bool = True, chunk_n: int | None = 1024,
+                   solver: str = "newton", pad: bool = True) -> torch.Tensor:
+    """Multi-filter MP FIR: x (..., N), H (F, M) -> y (..., F, n_out).
+
+    Long signals are solved ``chunk_n`` output positions at a time to bound
+    the (F, B, Q, M) operand tensor; each position's solve sees the same
+    window whatever the chunking, so results match ``mp_conv1d`` per band.
+    """
+    Fn, M = H.shape
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1])
+    xp = F.pad(x2, (M - 1, 0)) if pad else x2
+    n_out = xp.shape[-1] - M + 1
+    hr = H.flip(-1).reshape(Fn, 1, 1, M)
+
+    def solve(win):  # (B, Q, M) -> (F, B, Q)
+        if exact:
+            return mp_dot(win[None], hr, gamma, exact=True)
+        return _mp_dot_fast(win[None], hr, gamma, solver)
+
+    win = xp.unfold(-1, M, 1)                      # (B, n_out, M) view
+    if chunk_n is None or n_out <= chunk_n:
+        y = solve(win)
+    else:
+        y = torch.cat([solve(win[:, q:q + chunk_n])
+                       for q in range(0, n_out, chunk_n)], dim=-1)
+    return y.movedim(0, 1).reshape(*lead, Fn, n_out)

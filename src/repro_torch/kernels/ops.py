@@ -1,0 +1,101 @@
+"""Public wrappers around the MP FIR kernels: leading batch dims, layouts,
+and the per-octave cascade of the session step.
+
+Every function here reaches a kernel wrapper in ``kernels.fir_mp``, which
+launches the CUDA kernel for CUDA tensors and runs the plain PyTorch
+version for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel, fir_mp_kernel,
+                                         fir_mp_stream_octave)
+from repro_torch.kernels.ref import DEFAULT_ITERS
+
+__all__ = ["fir_mp", "fir_mp_accumulate", "fir_mp_bank",
+           "fir_mp_bank_accumulate", "fir_mp_stream"]
+
+
+def fir_mp(x: torch.Tensor, h: torch.Tensor, gamma, *,
+           iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """In-filter MP FIR: x (..., N), h (M,) -> y (..., N)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    return fir_mp_kernel(x2, h, gamma, iters=iters).reshape(x.shape)
+
+
+def fir_mp_accumulate(x: torch.Tensor, h: torch.Tensor, gamma, *,
+                      iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """Fused FIR + HWR + accumulate: x (..., N), h (M,) -> s (...)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    s = fir_mp_kernel(x2, h, gamma, accumulate=True, iters=iters)
+    return s.reshape(x.shape[:-1])
+
+
+def fir_mp_bank(x: torch.Tensor, H: torch.Tensor, gamma, *,
+                iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """Multi-filter MP FIR: x (..., N), H (F, M) -> y (..., F, N)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    y = fir_mp_bank_kernel(x2, H, gamma, iters=iters)
+    return y.reshape(*x.shape[:-1], H.shape[0], x.shape[-1])
+
+
+def fir_mp_bank_accumulate(x: torch.Tensor, H: torch.Tensor, gamma, *,
+                           iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """Fused bank FIR + HWR + accumulate: x (..., N), H (F, M) -> (..., F)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    s = fir_mp_bank_kernel(x2, H, gamma, accumulate=True, iters=iters)
+    return s.reshape(*x.shape[:-1], H.shape[0])
+
+
+def fir_mp_stream(chunk: torch.Tensor, n: torch.Tensor, delays: tuple,
+                  consumed: tuple, acc: torch.Tensor, amax: torch.Tensor,
+                  bp_taps: tuple, lp_taps: tuple, gamma, *,
+                  solver: str = "newton", update_amax: bool = True):
+    """The multirate session step through the stream kernel, one launch
+    per octave.
+
+    chunk (S, L), invalid tails zeroed (and quantized, if deployed
+    quantized — then pass the already-updated running amax and
+    ``update_amax=False``; otherwise the octave-0 kernel updates amax
+    itself). n (S,) valid counts (0 for inert slots); ``delays`` /
+    ``consumed`` per-octave registers; acc (S, P); ``bp_taps[o]`` (F, M),
+    ``lp_taps[o]`` (M_lp,).
+
+    Per octave: the decimator phase is ``consumed % 2``, the next octave's
+    valid count ``max(0, (n - start + 1) // 2)`` and its signal
+    ``y_next[:, :(L + 1) // 2]``. Returns ``(delays', consumed', acc',
+    amax')``; a slot with n == 0 gets its registers back bit for bit.
+    """
+    num_octaves = len(delays)
+    S, L = chunk.shape
+    F = bp_taps[0].shape[0]
+    x_o = chunk
+    n_o = n.to(torch.int32)
+    l_o = L
+    new_delays, new_consumed, acc_cols = [], [], []
+    amax_out = amax
+    for o in range(num_octaves):
+        start_o = torch.remainder(consumed[o], 2).to(torch.int32)
+        emit = o < num_octaves - 1
+        lp = lp_taps[o] if emit else chunk.new_zeros(1)
+        acc_o = acc[:, o * F:(o + 1) * F]
+        amax_in = amax if o == 0 else chunk.new_zeros(S)
+        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave(
+            x_o, n_o, start_o, delays[o], acc_o, amax_in, bp_taps[o], lp,
+            gamma, scale=2.0 ** o, solver=solver, emit_next=emit,
+            update_amax=(update_amax and o == 0))
+        if o == 0 and update_amax:
+            amax_out = amax_new
+        new_delays.append(delay_new)
+        new_consumed.append(consumed[o] + n_o)
+        acc_cols.append(acc_new)
+        if emit:
+            l_next = (l_o + 1) // 2
+            x_o = y_next[:, :l_next]
+            n_o = torch.clamp_min(
+                torch.div(n_o - start_o + 1, 2, rounding_mode="floor"), 0)
+            l_o = l_next
+    return (tuple(new_delays), tuple(new_consumed),
+            torch.cat(acc_cols, dim=1), amax_out)

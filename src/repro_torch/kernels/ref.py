@@ -1,0 +1,146 @@
+"""Plain PyTorch versions of the CUDA kernels.
+
+Each function computes what its kernel computes, with the same float
+arithmetic in the same order, from torch ops. The wrappers in
+``kernels.fir_mp`` run these for CPU tensors; the tests hold them against
+the reference's Pallas kernels (interpret mode), and ``chip_smoke.py``
+holds each CUDA kernel against its plain version on the card.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core import mp as mp_mod
+from repro_torch.core.filterbank import accumulate_block_len
+
+__all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
+           "fir_mp_bank_accumulate", "fir_mp", "fir_mp_accumulate",
+           "fir_mp_stream_octave", "tile_sum"]
+
+DEFAULT_ITERS = 26   # bisection steps of the one-shot bank kernel
+BANK_TILE = 256      # positions per CTA of the bank kernel
+
+
+def tile_sum(h: torch.Tensor, tile: int = BANK_TILE) -> torch.Tensor:
+    """Sum over the last axis as the bank kernel adds it: an adjacent-pair
+    tree per tile of ``tile`` positions (zero-padded), then the tile sums
+    in ascending order."""
+    n = h.shape[-1]
+    nt = -(-n // tile)
+    h = F.pad(h, (0, nt * tile - n))
+    s = mp_mod.tree_sum(h.reshape(*h.shape[:-1], nt, tile))
+    out = s[..., 0]
+    for k in range(1, nt):
+        out = out + s[..., k]
+    return out
+
+
+def fir_mp_bank(x: torch.Tensor, H: torch.Tensor, gamma,
+                iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """x (B, N), H (F, M) -> y (B, F, N): the bank kernel's bisection.
+
+    Shift k of the row (zero left fill) pairs with tap k: u = x + h,
+    v = x - h; both states bisect on [max|.| - gamma, max|.|] with the
+    constraint summed sequentially over k (``hu + max(u - mid, 0) +
+    max(-u - mid, 0)``), and y = (lo_u + hi_u)/2 - (lo_v + hi_v)/2.
+    """
+    Fn, M = H.shape
+    N = x.shape[-1]
+    g = torch.as_tensor(gamma, dtype=x.dtype, device=x.device)
+    xp = F.pad(x, (M - 1, 0))
+    xs = [xp[:, None, M - 1 - k:M - 1 - k + N] for k in range(M)]  # x[n-k]
+    hk = [H[None, :, k, None] for k in range(M)]                    # (1,F,1)
+    hi_u = (xs[0] + hk[0]).abs()
+    hi_v = (xs[0] - hk[0]).abs()
+    for k in range(1, M):
+        hi_u = torch.maximum(hi_u, (xs[k] + hk[k]).abs())
+        hi_v = torch.maximum(hi_v, (xs[k] - hk[k]).abs())
+    lo_u, lo_v = hi_u - g, hi_v - g
+    for _ in range(iters):
+        mid_u = (lo_u + hi_u) * 0.5
+        mid_v = (lo_v + hi_v) * 0.5
+        hu = torch.zeros_like(mid_u)
+        hv = torch.zeros_like(mid_v)
+        for k in range(M):
+            u = xs[k] + hk[k]
+            v = xs[k] - hk[k]
+            hu = hu + torch.clamp_min(u - mid_u, 0) + torch.clamp_min(-u - mid_u, 0)
+            hv = hv + torch.clamp_min(v - mid_v, 0) + torch.clamp_min(-v - mid_v, 0)
+        tu, tv = hu > g, hv > g
+        lo_u = torch.where(tu, mid_u, lo_u)
+        hi_u = torch.where(tu, hi_u, mid_u)
+        lo_v = torch.where(tv, mid_v, lo_v)
+        hi_v = torch.where(tv, hi_v, mid_v)
+    return (lo_u + hi_u) * 0.5 - (lo_v + hi_v) * 0.5
+
+
+def fir_mp_bank_accumulate(x: torch.Tensor, H: torch.Tensor, gamma,
+                           iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """x (B, N), H (F, M) -> s (B, F) = sum_n max(y, 0) in the kernel's
+    per-tile tree order."""
+    return tile_sum(torch.clamp_min(fir_mp_bank(x, H, gamma, iters), 0))
+
+
+def fir_mp(x: torch.Tensor, h: torch.Tensor, gamma,
+           iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """x (B, N), h (M,) -> y (B, N): the bank with one filter."""
+    return fir_mp_bank(x, h[None], gamma, iters)[:, 0]
+
+
+def fir_mp_accumulate(x: torch.Tensor, h: torch.Tensor, gamma,
+                      iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """x (B, N), h (M,) -> s (B,)."""
+    return fir_mp_bank_accumulate(x, h[None], gamma, iters)[:, 0]
+
+
+def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
+                         scale: float = 1.0, solver: str = "newton",
+                         emit_next: bool = True, update_amax: bool = False):
+    """One octave of the stateful session step, as the stream kernel runs
+    it: blocks of LB = accumulate_block_len(L) positions in ascending
+    order, all slots at once.
+
+    x (S, L) chunk; n (S,) valid counts; start (S,) ÷2 phases; delay
+    (S, T1); acc (S, F); amax (S,); H (F, M); lp (M_lp,). Returns
+    ``(acc', delay', amax', y_next | None)``, y_next (S, NB * LB // 2).
+    """
+    S, L = x.shape
+    Fn, M = H.shape
+    T1 = delay.shape[1]
+    M_lp = lp.shape[0]
+    LB = accumulate_block_len(L)
+    NB = -(-L // LB)
+    xp = F.pad(x, (0, NB * LB - L))
+    n = n.long()
+    start = start.long()
+    dev = x.device
+    rows = torch.arange(S, device=dev)[:, None]
+    w_bp = H.flip(-1).reshape(1, Fn, 1, M)
+    w_lp = lp.flip(0)
+    widx = (2 * torch.arange(LB // 2, device=dev)[:, None]
+            + torch.arange(M_lp, device=dev)[None, :])      # (LB/2, M_lp)
+    tail = torch.arange(T1, device=dev)[None, :]
+    pos_in = torch.arange(LB, device=dev)
+    part = x.new_zeros(S, Fn)
+    y_next = []
+    for b in range(NB):
+        blk = xp[:, b * LB:(b + 1) * LB]
+        if update_amax:
+            amax = torch.maximum(amax, blk.abs().amax(-1))
+        bufv = torch.cat([delay[:, T1 - (M - 1):], blk], dim=1)
+        win = bufv.unfold(-1, M, 1)[:, None]                # (S, 1, LB, M)
+        y = mp_mod._mp_dot_fast(win, w_bp, gamma, solver)  # (S, F, LB)
+        pos = b * LB + pos_in
+        hwr = torch.where(pos < n[:, None, None], torch.clamp_min(y, 0), 0.0)
+        part = part + mp_mod.tree_sum(hwr)
+        if emit_next:
+            bufl = torch.cat([delay[:, T1 - (M_lp - 1):], blk], dim=1)
+            winl = bufl[rows[:, :, None], start[:, None, None] + widx[None]]
+            y_next.append(mp_mod._mp_dot_fast(winl, w_lp, gamma, solver))
+        v = torch.clamp(n - b * LB, 0, LB)
+        bufd = torch.cat([delay, blk], dim=1)
+        delay = bufd[rows, v[:, None] + tail]
+    acc = acc + part * scale
+    return acc, delay, amax, (torch.cat(y_next, dim=1) if emit_next else None)
