@@ -267,12 +267,59 @@ def serve(pipe, audio, rounds: int, packet: int):
     return server, p, secs
 
 
+def step_breakdown(pipe, state, S: int) -> dict:
+    """Where a serve step's time goes, on one (S, 256) wave of 160-sample
+    packets: the whole session step, its octave cascade (6 stream kernel
+    launches and the glue around them) and the kernel machine readout, each
+    timed alone with CUDA events; then the step under torch.profiler for
+    the device's busy share and its top kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dev = pipe.device
+    g = torch.Generator().manual_seed(1)
+    chunk = torch.randn(S, 256, generator=g).to(dev)
+    valid = torch.full((S,), 160, dtype=torch.int32, device=dev)
+    chunk[:, 160:] = 0
+    phi = (state.acc - pipe.mu) / pipe.sigma
+    out = dict(
+        session_step_ms=cuda_ms(
+            lambda: pipe._session_step(state, chunk, valid), 20),
+        cascade_ms=cuda_ms(
+            lambda: pipe._cascade_pallas(state, chunk, valid), 20),
+        readout_ms=cuda_ms(lambda: pipe.clf(phi, exact=False), 20))
+    reps = 10
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            pipe._session_step(state, chunk, valid)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kern = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    busy_us = sum(t for t, _ in kern)
+    out["profiled_step_ms"] = wall / reps * 1e3
+    out["device_busy_share"] = (busy_us * 1e-6 / wall) if busy_us else None
+    out["device_kernels_per_step"] = (
+        sum(e.count for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA) / reps)
+    out["stream_kernel_device_us_per_step"] = sum(
+        t for t, k in kern if "fir_mp_stream_octave_kernel" in k) / reps
+    out["top_device_us_per_step"] = [[k[:60], t / reps] for t, k in kern[:6]]
+    return out
+
+
 def phase_serve(audio):
     import torch
     from repro_torch.configs.esc10_mp import make_pipeline
     from repro_torch.kernels import LAUNCHES, reset_launches
     pipe = make_pipeline()                   # full 30-band bank, on cuda
-    assert pipe.config.num_filters == 30 and pipe.device.type == "cuda"
+    if pipe.config.num_filters != 30 or pipe.device.type != "cuda":
+        raise AssertionError("make_pipeline() must give the 30-band bank "
+                             "on cuda")
     serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
     reset_launches()
     server, p, secs = serve(pipe, audio, 50, 160)
@@ -291,12 +338,13 @@ def phase_serve(audio):
                              f"{SERVE_TOL}")
     S = audio.shape[0]
     step_ms = sorted(secs)[len(secs) // 2] * 1e3
+    breakdown = step_breakdown(pipe, server.state, S)
     out = dict(phase="serve", streams=S, waves=waves,
                stream_kernel_launches=launches, step_ms_median=step_ms,
                step_ms_mean=sum(secs) / len(secs) * 1e3,
                streams_per_s=S * len(secs) / sum(secs),
                plain_step_ms_median=sorted(secs_plain)[len(secs) // 2] * 1e3,
-               max_abs_diff_vs_plain=d)
+               max_abs_diff_vs_plain=d, **breakdown)
     log(out)
     return launches
 

@@ -57,13 +57,13 @@ def session_from_numpy(leaves, device=None) -> SessionState:
     first two tuples, as the reference's ``SessionState`` holds them."""
     dev = resolve_device(device)
     delays, consumed, acc, amax, count, active = leaves
-    f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)
-    i32 = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
     return SessionState(
         delays=tuple(f32(d) for d in delays),
         consumed=tuple(i32(c) for c in consumed),
         acc=f32(acc), amax=f32(amax), count=i32(count),
-        active=torch.as_tensor(np.asarray(active, bool), device=dev))
+        active=torch.tensor(np.asarray(active, bool), device=dev))
 
 
 def session_to_numpy(state: SessionState) -> tuple:

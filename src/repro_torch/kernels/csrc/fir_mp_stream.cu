@@ -46,20 +46,28 @@ constexpr int kMaxWarps = 16;      // LB <= 512
 constexpr int kLP = 8;             // low-pass operand lanes (M_lp <= 8)
 constexpr unsigned kFull = 0xffffffffu;
 
-// tree_sum: zero-padded adjacent-pair tree over P lanes (P a power of 2).
+// tree_sum: adjacent-pair tree over P lanes (P a power of 2, unused lanes
+// zero): the sum of lanes [B, B + W) is tree(left half) + tree(right half),
+// which is exactly the level-by-level pairing h[0::2] + h[1::2]. Written
+// as a compile-time recursion: in-place level updates (t[i] = t[2i] +
+// t[2i+1]) kept the lane arrays in local memory (see PERF.md).
+template <int B, int W, int P>
+__device__ __forceinline__ float tree_at(const float (&t)[P]) {
+  if constexpr (W == 1)
+    return t[B];
+  else
+    return tree_at<B, W / 2>(t) + tree_at<B + W / 2, W / 2>(t);
+}
+
 template <int P>
-__device__ __forceinline__ float tree_sum(float (&t)[P]) {
-#pragma unroll
-  for (int w = P; w > 1; w >>= 1) {
-#pragma unroll
-    for (int i = 0; i < w / 2; ++i) t[i] = t[2 * i] + t[2 * i + 1];
-  }
-  return t[0];
+__device__ __forceinline__ float tree_sum(const float (&t)[P]) {
+  return tree_at<0, P>(t);
 }
 
 // mpabs_newton: MP([u; -u], gamma) over the first M of P lanes.
 template <int P>
-__device__ float mpabs_newton(const float (&u)[P], int M, float gamma) {
+__device__ __forceinline__ float mpabs_newton(const float (&u)[P], int M,
+                                              float gamma) {
   float a[P];
   float amax = -INFINITY;
 #pragma unroll
@@ -91,7 +99,8 @@ __device__ float mpabs_newton(const float (&u)[P], int M, float gamma) {
 
 // mpabs (bisection): MP([u; -u], gamma) on [max|u| - gamma, max|u|].
 template <int P>
-__device__ float mpabs_bisect(const float (&u)[P], int M, float gamma) {
+__device__ __forceinline__ float mpabs_bisect(const float (&u)[P], int M,
+                                              float gamma) {
   float hi = -INFINITY;
 #pragma unroll
   for (int k = 0; k < P; ++k)
@@ -115,8 +124,9 @@ __device__ float mpabs_bisect(const float (&u)[P], int M, float gamma) {
 
 // _mp_dot_fast: mpabs(w + x) - mpabs(w - x); solver 0 Newton, 1 bisect.
 template <int P>
-__device__ float mp_dot_fast(const float (&x)[P], const float (&w)[P], int M,
-                             float gamma, int solver) {
+__device__ __forceinline__ float mp_dot_fast(const float (&x)[P],
+                                             const float (&w)[P], int M,
+                                             float gamma, int solver) {
   float u[P], v[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
@@ -129,7 +139,8 @@ __device__ float mp_dot_fast(const float (&x)[P], const float (&w)[P], int M,
 }
 
 template <int PB>
-__global__ void fir_mp_stream_octave_kernel(
+__global__ void __launch_bounds__(512)  // <= 128 registers at LB = 512
+fir_mp_stream_octave_kernel(
     const float* __restrict__ x, const int* __restrict__ n,
     const int* __restrict__ start, const float* __restrict__ delay,
     const float* __restrict__ acc, const float* __restrict__ amax,

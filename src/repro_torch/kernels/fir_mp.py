@@ -38,15 +38,24 @@ def reset_launches() -> None:
 
 
 def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors, False for CPU ones; raises otherwise or on
-    a mix."""
-    kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
+    """True for CUDA tensors (all on one card), False for CPU ones; raises
+    otherwise or on a mix."""
+    devices = {t.device for t in tensors}
+    if {d.type for d in devices} == {"cpu"}:
         return False
-    if kinds == {"cuda"}:
+    if len(devices) == 1 and next(iter(devices)).type == "cuda":
         return True
-    raise ValueError(f"the MP FIR kernels take all-CUDA or all-CPU tensors, "
-                     f"got devices {sorted(kinds)}")
+    got = sorted(map(str, devices))
+    raise ValueError(f"the MP FIR kernels take all-CUDA (one card) or "
+                     f"all-CPU tensors, got devices {got}")
+
+
+def _expect(name: str, t: torch.Tensor, shape: tuple) -> None:
+    """The kernels index by these shapes: refuse anything else before a
+    pointer reaches them."""
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
 
 
 def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
@@ -96,6 +105,10 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
     Fn, M = H.shape
     T1 = delay.shape[1]
     M_lp = lp.shape[0]
+    for name, t, shape in (("n", n, (S,)), ("start", start, (S,)),
+                           ("delay", delay, (S, T1)), ("acc", acc, (S, Fn)),
+                           ("amax", amax, (S,)), ("lp", lp, (M_lp,))):
+        _expect(name, t, shape)
     LB = accumulate_block_len(L)
     NB = -(-L // LB)
     x, delay, acc, amax, H, lp = (
@@ -123,6 +136,9 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
 def _bank_launch(x, H, gamma, accumulate, iters, key):
     from repro_torch.kernels._build import load
     x, H = _f32(x, "x"), _f32(H, "H")
+    if x.ndim != 2 or H.ndim != 2:
+        raise ValueError(f"x must be (B, N) and H (F, M), got "
+                         f"{tuple(x.shape)} and {tuple(H.shape)}")
     B, N = x.shape
     Fn, M = H.shape
     if accumulate:

@@ -115,9 +115,9 @@ def test_wrappers_route_cpu_tensors_to_plain_versions():
 def test_wrappers_refuse_other_devices():
     x = torch.empty(2, 16, device="meta")
     H = torch.empty(3, 16, device="meta")
-    with pytest.raises(ValueError, match="all-CUDA or all-CPU"):
+    with pytest.raises(ValueError, match="all-CUDA \\(one card\\) or all-CPU"):
         fir_mp_bank_kernel(x, H, 4.0)
-    with pytest.raises(ValueError, match="all-CUDA or all-CPU"):
+    with pytest.raises(ValueError, match="all-CUDA \\(one card\\) or all-CPU"):
         fir_mp_kernel(torch.zeros(2, 16), H[0], 4.0)
     with pytest.raises(ValueError, match="unknown MP solver"):
         fir_mp_stream_octave(*[torch.zeros(1)] * 8, 4.0, solver="sgd")
