@@ -11,8 +11,9 @@ nothing of the reference package). Phases, each failing loudly:
 2. build   — compiles every CUDA source (one nvcc each, in parallel).
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: max abs diff, kernel ms (CUDA events,
-             warmed up, many launches), plain ms. Tolerance: every output
-             within 1e-5 * (1 + max |plain|).
+             warmed up, many launches), plain ms, and the launches this
+             phase made. Tolerance: every output within
+             1e-5 * (1 + max |plain|).
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
              slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
              16 kHz). The stream kernel must launch 6 times per wave; the
@@ -124,9 +125,10 @@ def phase_stream_kernel(fb, gen):
     8; valid counts mixed (0 and odd included), random phases."""
     import torch
     from repro_torch.core.filterbank import accumulate_block_len
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
     from repro_torch.kernels.fir_mp import fir_mp_stream_octave
     dev = torch.device("cuda")
+    reset_launches()
     c = fb.config
     S, L, T1 = 256, 256, max(c.bp_taps, c.lp_taps) - 1
     F = c.filters_per_octave
@@ -180,7 +182,8 @@ def phase_stream_kernel(fb, gen):
     b_ms, b_by = bound_ms(ops, nbytes)
     row = dict(name="fir_mp_stream_octave", shapes=f"S={S} L={L}..{Lo}",
                max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by)
+               bound_by=b_by,
+               launches_here=LAUNCHES["fir_mp_stream_octave"])
     log({"kernel_vs_plain": row})
     return row
 
@@ -190,9 +193,10 @@ def phase_bank_kernels(fb, x):
     the one-shot path's shapes: B = 8 rows, N = 16000 then each octave's
     decimated length."""
     import torch
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
     from repro_torch.kernels.fir_mp import fir_mp_bank_kernel, fir_mp_kernel
     c = fb.config
+    reset_launches()
     B, N = x.shape
     F = c.filters_per_octave
     rows = {}
@@ -238,6 +242,7 @@ def phase_bank_kernels(fb, x):
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("ops"), r.pop("nbytes"))
         r["shapes"] = f"B={B} N={N}..{x_o.shape[1]}"
+        r["launches_here"] = LAUNCHES[r["name"]]
         log({"kernel_vs_plain": r})
     return rows
 

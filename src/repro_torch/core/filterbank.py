@@ -320,12 +320,3 @@ class FilterBank:
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         return multirate_accumulate(x, self._bp_by_octave, self._lp,
                                     self.config)
-
-    def features(self, x, mu=None, sigma=None):
-        """Standardized kernel vector Phi (B, P); mu/sigma from x when not
-        given (training statistics, ddof=1)."""
-        s = self.accumulate(x)
-        if mu is None:
-            mu = s.mean(0)
-            sigma = s.std(0, correction=1) + 1e-6
-        return (s - mu) / sigma, mu, sigma

@@ -106,10 +106,6 @@ class InFilterPipeline(nn.Module):
         """Per ÷2 stage: (M_lp,) anti-aliasing taps."""
         return tuple(getattr(self, f"lp_{o}") for o in range(self.num_lp))
 
-    @property
-    def num_bands(self) -> int:
-        return self.config.num_filters
-
     def _tensor(self, x) -> torch.Tensor:
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
@@ -136,9 +132,6 @@ class InFilterPipeline(nn.Module):
                                dtype=torch.int32, device=self.device)
         state, p, phi = self._session_step(state, x, valid)
         return (p, phi, state) if return_features else (p, state)
-
-    def forward(self, x):
-        return self.apply(x)
 
     def predict(self, x):
         """Alias for stateless ``apply(x)``."""
@@ -169,7 +162,8 @@ class InFilterPipeline(nn.Module):
                   torch.as_tensor(amax, **f32).expand(capacity).clone())
         active_t = (torch.ones(capacity, dtype=torch.bool, device=dev)
                     if active is None else
-                    torch.as_tensor(active, dtype=torch.bool, device=dev))
+                    torch.as_tensor(active, dtype=torch.bool,
+                                    device=dev).clone())
         return SessionState(
             delays=tuple(torch.zeros(capacity, self._delay_len, **f32)
                          for _ in range(c.num_octaves)),

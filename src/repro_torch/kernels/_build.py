@@ -3,10 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. Libraries live in ``kernels/build/<hash>/`` (listed in
-``.gitignore``; ``REPRO_TORCH_BUILD_DIR`` overrides it), keyed by a hash of
-the sources and flags, so a checkout builds everything on its first call
-and an edited source rebuilds. :func:`build_all` starts one ``nvcc`` per
-source, all at once.
+``.gitignore``), keyed by a hash of the source and flags, so a checkout
+builds everything on its first call and an edited source rebuilds.
+:func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` so the compiler cannot
 contract adds into FMAs and reshape the float add DAG, and no fast math
@@ -54,8 +53,7 @@ def nvcc_path() -> str:
 
 
 def _build_dir(name: str) -> Path:
-    root = os.environ.get("REPRO_TORCH_BUILD_DIR")
-    root = Path(root) if root else Path(__file__).resolve().parent / "build"
+    root = Path(__file__).resolve().parent / "build"
     digest = hashlib.sha256(
         (CSRC / f"{name}.cu").read_bytes() + " ".join(FLAGS).encode()
     ).hexdigest()[:16]

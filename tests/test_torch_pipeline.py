@@ -96,6 +96,29 @@ def test_single_chunk_stream_is_oneshot_bitwise(impl):
     assert state.count.tolist() == [300, 300]
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_chunking_invariance_and_cascades_agree(seed):
+    """Any chunking lands on the one-shot accumulators to f32 round-off
+    (the per-chunk sums add in another order), and the kernel cascade
+    equals the torch-op cascade bit for bit under every chunking."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((3, 400)).astype(np.float32)
+    cuts = np.sort(rng.choice(np.arange(1, 400), 6, replace=False))
+    bounds = [0, *cuts.tolist(), 400]
+    accs = {}
+    for impl in ("xla", "pallas"):
+        pipe = make_pipeline(smoke=True, device="cpu", stream_impl=impl,
+                             use_pallas=False)
+        state = pipe.init_session(3)
+        for a, b in zip(bounds[:-1], bounds[1:]):
+            _, state = pipe.apply(x[:, a:b], state)
+        accs[impl] = state.acc
+        assert state.count.tolist() == [400] * 3
+    assert torch.equal(accs["xla"], accs["pallas"])
+    whole = pipe.apply(x, pipe.init_session(3))[1].acc
+    torch.testing.assert_close(accs["pallas"], whole, rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("impl", ["xla", "pallas"])
 def test_inactive_and_zero_valid_slots_are_inert(impl):
     pipe = make_pipeline(smoke=True, device="cpu", stream_impl=impl)
