@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.configs.esc10_mp import FILTERBANK, make_pipeline
 from repro_torch.core.filterbank import FilterBank
+from repro_torch.core.pipeline import InFilterPipeline
 from repro_torch.kernels import LAUNCHES, ref, reset_launches
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel, fir_mp_kernel,
                                         fir_mp_stream_octave)
@@ -81,12 +82,20 @@ def test_bank_kernels_match_plain(dev, bank, B, N):
     assert (LAUNCHES["fir_mp_bank"], LAUNCHES["fir_mp"]) == (2, 2)
 
 
-def test_session_step_through_the_kernel_matches_torch_ops(dev):
+@pytest.mark.parametrize("quant_bits,solver", [(None, "newton"),
+                                               (8, "newton"),
+                                               (None, "bisect")])
+def test_session_step_through_the_kernel_matches_torch_ops(dev, quant_bits,
+                                                           solver):
     x = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (16, 700)).astype(np.float32)).to(dev)
     out = {}
     for impl in ("pallas", "xla"):
-        pipe = make_pipeline(stream_impl=impl, use_pallas=False)
+        base = make_pipeline(stream_impl=impl, use_pallas=False,
+                             quant_bits=quant_bits)
+        pipe = InFilterPipeline(base.config._replace(solver=solver),
+                                base.bp_taps, base.lp_taps, base.mu,
+                                base.sigma, base.clf.params)
         state = pipe.init_session(16)
         reset_launches()
         for i in range(0, 700, 160):
