@@ -149,13 +149,14 @@ int launch(const float* x, const float* H, float* out, float* partial, int B,
 
 // x (B, N), H (F, M) -> out (B, F, N), or (B, F) when accumulate; partial
 // is (B, F, ceil(N / 256)) scratch, used only when accumulate. Returns 0,
-// a cudaError_t code, or -1 for shapes outside what it takes (M <= 32,
-// B, N, F >= 1, B and F <= 65535).
+// a cudaError_t code, or -1 for shapes outside what it takes (M <= 16,
+// B, N, F >= 1, B and F <= 65535). The 8-lane body serves the 6-tap
+// low-pass, the 16-lane body the 16-tap band-pass.
 extern "C" int fir_mp_bank_launch(const void* x, const void* H, void* out,
                                   void* partial, int B, int N, int F, int M,
                                   float gamma, int iters, int accumulate,
                                   void* stream) {
-  if (B < 1 || N < 1 || F < 1 || M < 1 || M > 32 || B > 65535 || F > 65535 ||
+  if (B < 1 || N < 1 || F < 1 || M < 1 || M > 16 || B > 65535 || F > 65535 ||
       iters < 0)
     return -1;
 #define FIR_MP_BANK_ARGS                                                 \
@@ -163,7 +164,6 @@ extern "C" int fir_mp_bank_launch(const void* x, const void* H, void* out,
       static_cast<float*>(out), static_cast<float*>(partial), B, N, F, M, \
       gamma, iters, accumulate, static_cast<cudaStream_t>(stream)
   if (M <= 8) return launch<8>(FIR_MP_BANK_ARGS);
-  if (M <= 16) return launch<16>(FIR_MP_BANK_ARGS);
-  return launch<32>(FIR_MP_BANK_ARGS);
+  return launch<16>(FIR_MP_BANK_ARGS);
 #undef FIR_MP_BANK_ARGS
 }

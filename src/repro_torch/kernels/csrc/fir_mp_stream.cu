@@ -272,9 +272,10 @@ int launch(const float* x, const int* n, const int* start, const float* delay,
 }  // namespace
 
 // Returns 0 on success, a cudaError_t code if the launch failed, or -1 if
-// the shapes are outside what this kernel takes (M <= 32, M_lp <= 8,
+// the shapes are outside what this kernel takes (M <= 16, M_lp <= 8,
 // M - 1 <= T1 and M_lp - 1 <= T1, T1 < 32, F <= 32, even LB <= 512,
-// solver 0 or 1).
+// solver 0 or 1). Only the 16-lane body is built: every configuration in
+// the repo has 16 band-pass taps.
 extern "C" int fir_mp_stream_octave_launch(
     const void* x, const void* n, const void* start, const void* delay,
     const void* acc, const void* amax, const void* H, const void* lp,
@@ -282,20 +283,16 @@ extern "C" int fir_mp_stream_octave_launch(
     int L, int LB, int F, int M, int T1, int M_lp, float gamma, float scale,
     int solver, int emit_next, int update_amax, void* stream) {
   if (S < 1 || L < 1 || LB < 2 || LB > 512 || (LB & (LB - 1)) || F < 1 ||
-      F > 32 || M < 1 || M > 32 || M_lp < 1 || M_lp > kLP || T1 > 31 ||
+      F > 32 || M < 1 || M > 16 || M_lp < 1 || M_lp > kLP || T1 > 31 ||
       M - 1 > T1 || M_lp - 1 > T1 || (solver != 0 && solver != 1))
     return -1;
-#define FIR_MP_STREAM_ARGS                                                  \
-  static_cast<const float*>(x), static_cast<const int*>(n),                \
-      static_cast<const int*>(start), static_cast<const float*>(delay),    \
-      static_cast<const float*>(acc), static_cast<const float*>(amax),     \
-      static_cast<const float*>(H), static_cast<const float*>(lp),         \
-      static_cast<float*>(acc_out), static_cast<float*>(delay_out),        \
-      static_cast<float*>(amax_out), static_cast<float*>(y_next), S, L, LB, \
-      F, M, T1, M_lp, gamma, scale, solver, emit_next, update_amax,        \
-      static_cast<cudaStream_t>(stream)
-  if (M <= 8) return launch<8>(FIR_MP_STREAM_ARGS);
-  if (M <= 16) return launch<16>(FIR_MP_STREAM_ARGS);
-  return launch<32>(FIR_MP_STREAM_ARGS);
-#undef FIR_MP_STREAM_ARGS
+  return launch<16>(
+      static_cast<const float*>(x), static_cast<const int*>(n),
+      static_cast<const int*>(start), static_cast<const float*>(delay),
+      static_cast<const float*>(acc), static_cast<const float*>(amax),
+      static_cast<const float*>(H), static_cast<const float*>(lp),
+      static_cast<float*>(acc_out), static_cast<float*>(delay_out),
+      static_cast<float*>(amax_out), static_cast<float*>(y_next), S, L, LB, F,
+      M, T1, M_lp, gamma, scale, solver, emit_next, update_amax,
+      static_cast<cudaStream_t>(stream));
 }

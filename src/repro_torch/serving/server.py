@@ -16,7 +16,6 @@ contract come with the serving slice (ROADMAP.md §1, "Serving").
 
 from __future__ import annotations
 
-import time
 from typing import Iterable, Union
 
 import numpy as np
@@ -49,8 +48,7 @@ class StreamServer:
     """
 
     def __init__(self, pipeline: InFilterPipeline, capacity: int = 64, *,
-                 max_chunk: int = 4096, min_chunk: int = 16,
-                 max_history: int = 64, clock=None):
+                 max_chunk: int = 4096, min_chunk: int = 16):
         if capacity < 1:
             raise ValueError("capacity must be >= 1")
         if not (0 < min_chunk <= max_chunk):
@@ -69,12 +67,10 @@ class StreamServer:
         self.capacity = capacity
         self.max_chunk = max_chunk
         self.min_chunk = min_chunk
-        self._clock = clock if clock is not None else time.monotonic
         self._state = pipeline.init_session(
             capacity, active=np.zeros((capacity,), bool))
         self._free = list(range(capacity - 1, -1, -1))  # pop() -> slot 0
         self._sessions: dict[str, Session] = {}
-        self._max_history = max_history
         self.bucket_counts: dict[int, int] = {}
         self.steps_run = 0
 
@@ -123,9 +119,7 @@ class StreamServer:
         if not self._free:
             raise RuntimeError(f"server at capacity ({self.capacity})")
         slot = self._free.pop()
-        now = self._clock()
-        sess = Session(id=session_id, slot=slot, opened_at=now,
-                       last_fed=now, max_history=self._max_history)
+        sess = Session(id=session_id, slot=slot)
         pl.clear_slots(self._state, [slot])
         pl.set_active(self._state, [slot], True)
         self._sessions[session_id] = sess
@@ -195,13 +189,12 @@ class StreamServer:
                 for e in finals:
                     row = p_host[self._sessions[e[0]].slot]
                     e[3] = row
-        now = self._clock()
         results = []
         for sid, _, total, row in entries:
             sess = self._sessions[sid]
             label = int(np.argmax(row))
             seen_total = sess.samples_seen + total
-            sess.record(Decision(seen_total, label, float(row[label])), now)
+            sess.record(Decision(seen_total, label, float(row[label])))
             results.append(FeedResult(sid, label, float(row[label]),
                                       seen_total))
         return results

@@ -11,7 +11,9 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, List, Optional
 
-__all__ = ["Decision", "Session", "FeedRequest", "FeedResult"]
+__all__ = ["Decision", "Session", "FeedRequest", "FeedResult", "HISTORY_LEN"]
+
+HISTORY_LEN = 64    # decisions kept per session, newest last
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,18 +30,13 @@ class Session:
     slot-batched ``SessionState`` on the device)."""
     id: str
     slot: int
-    opened_at: float
-    last_fed: float
     samples_seen: int = 0
     history: List[Decision] = dataclasses.field(default_factory=list)
-    max_history: int = 64
 
-    def record(self, decision: Decision, now: float) -> None:
+    def record(self, decision: Decision) -> None:
         self.samples_seen = decision.samples_seen
-        self.last_fed = now
         self.history.append(decision)
-        if len(self.history) > self.max_history:
-            del self.history[: len(self.history) - self.max_history]
+        del self.history[:-HISTORY_LEN]
 
     @property
     def last_decision(self) -> Optional[Decision]:

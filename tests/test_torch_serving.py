@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.configs.esc10_mp import make_pipeline
 from repro_torch.serving import FeedRequest, StreamServer, bucket_length
+from repro_torch.serving.session import HISTORY_LEN, Decision, Session
 
 
 def _audio(rows, n, seed=0):
@@ -65,6 +66,22 @@ def test_long_chunks_split_and_requests_keep_order():
     assert [r.samples_seen for r in res] == [70, 100]
     assert server.stats()["buckets"] == {16: 1, 32: 3}
     assert int(server.state.count[0]) == 100
+    history = server.session("a").history
+    assert [(d.samples_seen, d.label, d.confidence) for d in history] == \
+        [(r.samples_seen, r.label, r.confidence) for r in res]
+    assert server.session("a").last_decision == history[-1]
+
+
+def test_session_history_keeps_the_newest_decisions():
+    sess = Session(id="a", slot=0)
+    assert sess.last_decision is None
+    for k in range(HISTORY_LEN + 6):
+        sess.record(Decision(k + 1, k % 3, 0.5))
+    assert len(sess.history) == HISTORY_LEN
+    assert sess.history[0].samples_seen == 7
+    assert sess.last_decision == Decision(HISTORY_LEN + 6, (HISTORY_LEN + 5) % 3,
+                                          0.5)
+    assert sess.samples_seen == HISTORY_LEN + 6
 
 
 def test_bucket_ladder_validation():
