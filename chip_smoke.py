@@ -24,6 +24,20 @@ nothing of the reference package). Phases, each failing loudly:
              8 x 16000 samples against the plain path (use_pallas=False,
              solver="bisect"): phi within 1e-4 * (1 + max |phi|), p within
              5e-3 (the two paths bisect with different sum orders).
+6. int kernels — the fixed-point twin (numerics="fixed") at full width,
+             its program calibrated on the seeded clips: the int stream
+             kernel on the 6 octaves of one wave (S = 256, L = 256, mixed
+             valid counts) and the int bank kernel on the 6 + 5 calls of one
+             ``apply`` (B = 8, N = 16000), each against its plain version.
+             Gate: every output exactly equal, int32.
+7. fixed serve — the serve phase's 256 sessions x 50 packets through a
+             fixed pipeline: 6 int stream launches per wave; the final codes
+             and accumulators exactly those of the torch-op integer cascade
+             (stream_impl="xla") on the same feeds, and of one-shot
+             ``infer_q`` on the 8000 samples each stream was fed.
+8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int bank kernel
+             (11 launches) against the torch-op path: p and phi codes
+             exactly equal.
 
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -42,6 +56,7 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 F32_OPS_PER_S = 33.5e12   # H100 SXM f32 lane ops/s (67 TFLOP/s, FMA = 2)
+INT32_OPS_PER_S = 16.7e12  # H100 SXM int32 lanes: 64/SM x 132 SMs x 1.98 GHz
 HBM_BYTES_PER_S = 3.35e12
 KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-5
@@ -99,8 +114,18 @@ def ops_bisect(M: int, iters: int = 26) -> int:
     return 3 * M + 1 + iters * (2 + 4 * M + 2 * M - 1 + 3) + 2
 
 
-def bound_ms(ops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = ops / F32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+def ops_int_dot(M: int, iters: int) -> int:
+    """int32 ops of one fxp_mp_dot over M lanes: operands (add or sub,
+    then a two-sided clamp) for u and v; per mpabs the init (abs, max per
+    lane, sub) and per step mid (add, shift), 2M x (sub, max) plus 2M
+    adds, compare, 2 selects; then the final sub."""
+    mpabs = 2 * M + 1 + iters * (2 + 6 * M + 3)
+    return 6 * M + 2 * mpabs + 1
+
+
+def bound_ms(ops: float, nbytes: float,
+             ops_per_s: float = F32_OPS_PER_S) -> tuple[float, str]:
+    t_ops, t_bytes = ops / ops_per_s, nbytes / HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -272,34 +297,36 @@ def serve(pipe, audio, rounds: int, packet: int):
     return server, p, secs
 
 
-def step_breakdown(pipe, state, S: int) -> dict:
-    """Where a serve step's time goes, on one (S, 256) wave of 160-sample
-    packets: the whole session step, its octave cascade (6 stream kernel
-    launches and the glue around them) and the kernel machine readout, each
-    timed alone with CUDA events; then the step under torch.profiler for
-    the device's busy share and its top kernels."""
+def wave(pipe, S: int):
+    """One (S, 256) wave of 160-sample packets on the card: (chunk, valid)."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     dev = pipe.device
     g = torch.Generator().manual_seed(1)
     chunk = torch.randn(S, 256, generator=g).to(dev)
     valid = torch.full((S,), 160, dtype=torch.int32, device=dev)
     chunk[:, 160:] = 0
-    phi = (state.acc - pipe.mu) / pipe.sigma
-    out = dict(
-        session_step_ms=cuda_ms(
-            lambda: pipe._session_step(state, chunk, valid), 20),
-        cascade_ms=cuda_ms(
-            lambda: pipe._cascade_pallas(state, chunk, valid), 20),
-        readout_ms=cuda_ms(lambda: pipe.clf(phi, exact=False), 20))
+    return chunk, valid
+
+
+def step_breakdown(step, cascade, readout, kernel: str) -> dict:
+    """Where a serve step's time goes, on one wave: the whole session step,
+    its octave cascade (6 stream kernel launches and the glue around them)
+    and the kernel machine readout, each timed alone with CUDA events; then
+    the step under torch.profiler for the device's busy share and its top
+    kernels (``kernel`` names the stream kernel's symbol)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = dict(session_step_ms=cuda_ms(step, 20),
+               cascade_ms=cuda_ms(cascade, 20),
+               readout_ms=cuda_ms(readout, 20))
     reps = 10
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(reps):
-            pipe._session_step(state, chunk, valid)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     kern = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
@@ -312,7 +339,7 @@ def step_breakdown(pipe, state, S: int) -> dict:
         sum(e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA) / reps)
     out["stream_kernel_device_us_per_step"] = sum(
-        t for t, k in kern if "fir_mp_stream_octave_kernel" in k) / reps
+        t for t, k in kern if kernel in k) / reps
     out["top_device_us_per_step"] = [[k[:60], t / reps] for t, k in kern[:6]]
     return out
 
@@ -343,7 +370,13 @@ def phase_serve(audio):
                              f"{SERVE_TOL}")
     S = audio.shape[0]
     step_ms = sorted(secs)[len(secs) // 2] * 1e3
-    breakdown = step_breakdown(pipe, server.state, S)
+    state = server.state
+    chunk, valid = wave(pipe, S)
+    phi = (state.acc - pipe.mu) / pipe.sigma
+    breakdown = step_breakdown(
+        lambda: pipe._session_step(state, chunk, valid),
+        lambda: pipe._cascade_pallas(state, chunk, valid),
+        lambda: pipe.clf(phi, exact=False), "fir_mp_stream_octave_kernel")
     out = dict(phase="serve", streams=S, waves=waves,
                stream_kernel_launches=launches, step_ms_median=step_ms,
                step_ms_mean=sum(secs) / len(secs) * 1e3,
@@ -390,6 +423,237 @@ def phase_oneshot(x):
     return launches
 
 
+# -- the fixed-point twin (numerics="fixed") -----------------------------------
+
+
+def exact(got, want, what: str) -> None:
+    """Integer outputs must be equal, int32, bit for bit."""
+    import torch
+    torch.cuda.synchronize()
+    if got.dtype != torch.int32 or want.dtype != torch.int32 \
+            or not torch.equal(got, want):
+        d = (got.long() - want.long()).abs().max()
+        raise AssertionError(f"{what}: not exactly equal (max |diff| "
+                             f"{int(d)}, dtypes {got.dtype} {want.dtype})")
+
+
+def fixed_pipeline(cal, **kw):
+    """The full-width fixed pipeline on cuda, calibrated on ``cal``."""
+    from repro_torch.configs.esc10_mp import make_pipeline
+    pipe = make_pipeline(numerics="fixed", **kw)
+    if pipe.config.num_filters != 30 or pipe.device.type != "cuda":
+        raise AssertionError("make_pipeline(numerics='fixed') must give the "
+                             "30-band bank on cuda")
+    return pipe, pipe.calibrate_fixed(cal)
+
+
+def phase_int_stream_kernel(prog, gen):
+    """fir_mp_stream_octave_q vs plain at one wave's six octave shapes:
+    S = 256 slots, L = 256 then 128, ..., 8; valid counts mixed (0 and odd
+    included), random phases, register codes in their 8-bit range."""
+    import torch
+    from repro_torch.core.filterbank import accumulate_block_len
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.fir_mp import fir_mp_stream_octave_q
+    dev = torch.device("cuda")
+    reset_launches()
+    stages = prog.bank.octaves
+    S, L, T1 = 256, 256, 15
+    ms, plain_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0
+    i32 = dict(generator=gen, dtype=torch.int32)
+    for o, st in enumerate(stages):
+        Fn, M = st.bp_q.shape
+        Lo = -(-L // 2 ** o)
+        n = torch.randint(0, Lo + 1, (S,), **i32)
+        n[:8] = 0
+        n[8:16] = Lo
+        n[16:24] = torch.arange(8, dtype=torch.int32) * 2 % Lo + 1  # odd
+        x = torch.randint(st.in_spec.qmin, st.in_spec.qmax + 1, (S, Lo),
+                          **i32)
+        if o == 0:   # the main path zeroes invalid tails of the chunk
+            x = torch.where(torch.arange(Lo)[None] < n[:, None], x, 0)
+        emit = st.lp_q is not None
+        args = [t.to(dev) for t in (
+            x, n, torch.randint(0, 2, (S,), **i32),
+            torch.randint(st.in_spec.qmin, st.in_spec.qmax + 1, (S, T1),
+                          **i32),
+            torch.randint(0, 1 << 22, (S, Fn), **i32),
+            torch.randint(0, 128, (S,), **i32))]
+        kw = dict(stage=st, next_spec=stages[o + 1].in_spec if emit else None,
+                  emit_next=emit, update_amax=(o == 0))
+        got = fir_mp_stream_octave_q(*args, **kw)
+        want = ref.fir_mp_stream_octave_q(*args, **kw)
+        for g, w, what in zip(got, want, ("acc", "delay", "amax", "y_next")):
+            if w is not None:
+                exact(g, w, f"fir_mp_stream_octave_q octave {o} {what}")
+        inert = args[1] == 0
+        for g, w in ((got[0], args[4]), (got[1], args[3])):
+            if not torch.equal(g[inert], w[inert]):
+                raise AssertionError(f"octave {o}: an n == 0 slot moved")
+        ms += cuda_ms(lambda: fir_mp_stream_octave_q(*args, **kw), 50)
+        plain_ms += cuda_ms(lambda: ref.fir_mp_stream_octave_q(*args, **kw),
+                            3)
+        nv = n.long()
+        kept = (torch.clamp_min(nv - args[2].cpu().long() + 1, 0) // 2
+                if emit else nv * 0)
+        ops += (int(nv.sum()) * Fn * (ops_int_dot(M, st.iters_bp) + 2)
+                + int(kept.sum()) * (ops_int_dot(st.lp_q.shape[1],
+                                                 st.iters_lp) + 4
+                                     if emit else 0))
+        nbytes += 4 * (S * Lo + 2 * S + 2 * S * T1 + 2 * S * Fn + 2 * S
+                       + Fn * M + (st.lp_q.shape[1] + S * (Lo + 1) // 2
+                                   if emit else 0))
+    b_ms, b_by = bound_ms(ops, nbytes, INT32_OPS_PER_S)
+    row = dict(name="fir_mp_stream_octave_q", shapes=f"S={S} L={L}..{Lo}",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by,
+               launches_here=LAUNCHES["fir_mp_stream_octave_q"])
+    log({"kernel_vs_plain": row})
+    return row
+
+
+def phase_int_bank_kernel(prog, x):
+    """fir_mp_bank_q vs plain on the 6 + 5 calls of one fixed ``apply`` on
+    x (B, N): per octave the band-pass in accumulate mode and the low-pass
+    in output mode (both modes are checked for each), on the real cascade
+    of codes."""
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.fir_mp import fir_mp_bank_q_kernel
+    reset_launches()
+    B, N = x.shape
+    ms, plain_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0
+    x_o = fx.quantize_signal(prog, x)
+    stages = prog.bank.octaves
+    for o, st in enumerate(stages):
+        N_o = x_o.shape[1]
+        calls = [(fx.rescale(x_o, st.sig_shift).contiguous(), st.bp_q,
+                  st.band_spec, st.gamma_bp, st.iters_bp, True)]
+        if st.lp_q is not None:
+            calls.append((fx.rescale(x_o, st.lp_sig_shift).contiguous(),
+                          st.lp_q, st.lp_spec, st.gamma_lp, st.iters_lp,
+                          False))
+        for xs, H, spec, g, it, main_acc in calls:
+            kw = dict(gamma_q=g, iters=it, qmin=spec.qmin, qmax=spec.qmax)
+            for acc in (True, False):
+                fn = (ref.fir_mp_bank_q_accumulate if acc
+                      else ref.fir_mp_bank_q)
+                exact(fir_mp_bank_q_kernel(xs, H, accumulate=acc, **kw),
+                      fn(xs, H, **kw),
+                      f"fir_mp_bank_q octave {o} F={H.shape[0]} "
+                      f"accumulate={acc}")
+            fn = ref.fir_mp_bank_q_accumulate if main_acc else ref.fir_mp_bank_q
+            ms += cuda_ms(lambda: fir_mp_bank_q_kernel(
+                xs, H, accumulate=main_acc, **kw), 20)
+            plain_ms += cuda_ms(lambda: fn(xs, H, **kw), 2)
+            Fn, M = H.shape
+            ops += B * N_o * Fn * (ops_int_dot(M, it) + (2 if main_acc else 0))
+            nbytes += 4 * (B * N_o + Fn * M
+                           + (B * Fn if main_acc else B * Fn * N_o))
+        if st.lp_q is not None:
+            y_lp = ref.fir_mp_bank_q(calls[1][0], st.lp_q, st.gamma_lp,
+                                     st.iters_lp, st.lp_spec.qmin,
+                                     st.lp_spec.qmax)[:, 0]
+            x_o = fx._clamp(fx.rescale(y_lp, st.lp_out_shift),
+                            stages[o + 1].in_spec)[:, ::2].contiguous()
+    b_ms, b_by = bound_ms(ops, nbytes, INT32_OPS_PER_S)
+    row = dict(name="fir_mp_bank_q", shapes=f"B={B} N={N}..{N_o}",
+               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+               bound_by=b_by, launches_here=LAUNCHES["fir_mp_bank_q"])
+    log({"kernel_vs_plain": row})
+    return row
+
+
+def phase_fixed_serve(audio, cal):
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels.ops import fir_mp_stream_q
+    pipe, prog = fixed_pipeline(cal)
+    plain, prog_plain = fixed_pipeline(cal, stream_impl="xla")
+    if [o.in_spec for o in prog.bank.octaves] != \
+            [o.in_spec for o in prog_plain.bank.octaves]:
+        raise AssertionError("the two fixed pipelines calibrated different "
+                             "octave gains on the same audio")
+    serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
+    reset_launches()
+    server, p, secs = serve(pipe, audio, 50, 160)
+    launches = LAUNCHES["fir_mp_stream_octave_q"]
+    waves = server.steps_run
+    if not (waves > 0 and launches == 6 * waves):
+        raise AssertionError(f"int stream kernel launched {launches} times "
+                             f"for {waves} waves (want 6 per wave)")
+    state = server.state
+    if state.acc.dtype != torch.int32 or state.delays[0].dtype != torch.int32:
+        raise AssertionError("fixed registers must stay int32")
+    scale = prog.out_spec.scale
+    p_q = torch.round(p / scale).to(torch.int32)
+    plain_server, p_plain, secs_plain = serve(plain, audio, 50, 160)
+    exact(p_q, torch.round(p_plain / scale).to(torch.int32),
+          "served p codes vs the torch-op integer cascade")
+    exact(state.acc, plain_server.state.acc,
+          "served accumulators vs the torch-op integer cascade")
+    S = audio.shape[0]
+    x = torch.from_numpy(audio[:, :50 * 160].copy()).cuda()
+    p_one, _, s_one = fx.infer_q(prog, fx.quantize_signal(prog, x),
+                                 use_pallas=True)
+    exact(p_q, p_one, "served p codes vs one-shot infer_q")
+    exact(state.acc, s_one, "served accumulators vs one-shot infer_q")
+    chunk, valid = wave(pipe, S)
+    xq = fx.quantize_signal(prog, chunk)
+    breakdown = step_breakdown(
+        lambda: pipe._session_step(state, chunk, valid),
+        lambda: fir_mp_stream_q(prog, xq, valid, state.delays,
+                                state.consumed, state.acc, state.amax),
+        lambda: fx.readout_q(prog, state.acc), "fir_mp_stream_q_kernel")
+    step_ms = sorted(secs)[len(secs) // 2] * 1e3
+    octaves = prog.bank.octaves
+    log(dict(phase="fixed_serve", streams=S, waves=waves,
+             signal_exp=prog.signal.exp,
+             octave_gains=[prog.signal.exp - o.in_spec.exp for o in octaves],
+             iters_bp=[o.iters_bp for o in octaves],
+             iters_lp=[o.iters_lp for o in octaves if o.lp_q is not None],
+             iters_readout=[prog.clf.iters1, prog.clf.iters_n],
+             stream_kernel_launches=launches, step_ms_median=step_ms,
+             step_ms_mean=sum(secs) / len(secs) * 1e3,
+             streams_per_s=S * len(secs) / sum(secs),
+             plain_step_ms_median=sorted(secs_plain)[len(secs) // 2] * 1e3,
+             codes_equal_plain=True, codes_equal_oneshot=True, **breakdown))
+    return launches
+
+
+def phase_fixed_oneshot(x, cal):
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    pipe, prog = fixed_pipeline(cal)
+    pipe.apply(x)                            # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    p, phi = pipe.apply(x, return_features=True)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launches = LAUNCHES["fir_mp_bank_q"]
+    if launches != 11:
+        raise AssertionError(f"fixed one-shot launched the int bank kernel "
+                             f"{launches} times (want 6 + 5)")
+    t0 = time.perf_counter()
+    p2, phi2 = fx.predict(prog, x, use_pallas=False)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    codes = lambda t, spec: torch.round(t / spec.scale).to(torch.int32)
+    exact(codes(p, prog.out_spec), codes(p2, prog.out_spec),
+          "fixed one-shot p codes vs the torch-op path")
+    exact(codes(phi, prog.phi), codes(phi2, prog.phi),
+          "fixed one-shot phi codes vs the torch-op path")
+    log(dict(phase="fixed_oneshot", shape=list(x.shape), ms=ms,
+             plain_ms=plain_ms, codes_equal_plain=True,
+             launches=dict(LAUNCHES)))
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -423,6 +687,13 @@ def main() -> int:
     serve_launches = phase_serve(clips[:256, :50 * 160])
     oneshot_launches = phase_oneshot(x1)
 
+    cal = clips[:8]
+    _, prog = fixed_pipeline(cal)
+    int_stream_row = phase_int_stream_kernel(prog, gen)
+    int_bank_row = phase_int_bank_kernel(prog, x1)
+    fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
+    fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
+
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(stream_row, route="cuda", source=src + "fir_mp_stream.cu",
@@ -436,6 +707,12 @@ def main() -> int:
              source=src + "fir_mp_bank.cu",
              replaces="src/repro/kernels/fir_mp.py:382",
              launches=oneshot_launches["fir_mp"], library_ms=None),
+        dict(int_bank_row, route="cuda", source=src + "fir_mp_bank_q.cu",
+             replaces="src/repro/kernels/fir_mp.py:515",
+             launches=fixed_oneshot_launches, library_ms=None),
+        dict(int_stream_row, route="cuda", source=src + "fir_mp_stream_q.cu",
+             replaces="src/repro/kernels/fir_mp.py:682",
+             launches=fixed_serve_launches, library_ms=None),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

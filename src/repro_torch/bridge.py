@@ -13,21 +13,30 @@ port's objects from them; it imports no JAX.
   and the five ``MPKernelMachineParams`` leaves in field order;
 * :func:`session_from_numpy` / :func:`session_to_numpy` — a
   ``SessionState`` in either direction, as a tuple of numpy leaves in the
-  reference's field order (``delays`` and ``consumed`` as tuples).
+  reference's field order (``delays`` and ``consumed`` as tuples); integer
+  registers (``numerics="fixed"``) stay int32, float ones float32;
+* :func:`program_to_numpy` / :func:`program_from_numpy` — a compiled
+  ``FixedPointProgram`` as nested dicts of numpy arrays and ints, field by
+  field. ``program_to_numpy`` reads attributes, so it takes the
+  reference's program as well as the port's.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from repro_torch.core import fixed
 from repro_torch.core.filterbank import FilterBankConfig
 from repro_torch.core.kernel_machine import MPKernelMachineParams
 from repro_torch.core.pipeline import InFilterPipeline, SessionState
+from repro_torch.core.quant import FixedPointSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["config_from_fields", "pipeline_from_numpy", "session_from_numpy",
-           "session_to_numpy"]
+           "session_to_numpy", "program_to_numpy", "program_from_numpy"]
 
 
 def config_from_fields(fields) -> FilterBankConfig:
@@ -57,12 +66,17 @@ def session_from_numpy(leaves, device=None) -> SessionState:
     first two tuples, as the reference's ``SessionState`` holds them."""
     dev = resolve_device(device)
     delays, consumed, acc, amax, count, active = leaves
-    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
     i32 = lambda a: torch.tensor(np.asarray(a, np.int32), device=dev)
+
+    def reg(a):   # int32 codes stay integers; float registers are float32
+        a = np.asarray(a)
+        return i32(a) if np.issubdtype(a.dtype, np.integer) else \
+            torch.tensor(np.asarray(a, np.float32), device=dev)
+
     return SessionState(
-        delays=tuple(f32(d) for d in delays),
+        delays=tuple(reg(d) for d in delays),
         consumed=tuple(i32(c) for c in consumed),
-        acc=f32(acc), amax=f32(amax), count=i32(count),
+        acc=reg(acc), amax=reg(amax), count=i32(count),
         active=torch.tensor(np.asarray(active, bool), device=dev))
 
 
@@ -73,3 +87,53 @@ def session_to_numpy(state: SessionState) -> tuple:
             tuple(np_(c) for c in state.consumed),
             np_(state.acc), np_(state.amax), np_(state.count),
             np_(state.active))
+
+
+# program fields by kind: specs, arrays (None allowed), the octave tuple;
+# everything else is an int (or the bank's mode string)
+_SPECS = {"signal", "acc", "in_spec", "band_spec", "lp_spec", "spec", "phi"}
+_ARRAYS = {"bp_q", "lp_q", "bp_rom", "lp_rom", "mu_q", "phi_shift_q",
+           "phi_shift2_q", "phi_sign2_q", "wp_q", "wn_q", "bpos_q", "bneg_q"}
+_NESTED = {"bank": fixed.FixedBankProgram, "clf": fixed.FixedClassifier}
+
+
+def program_to_numpy(prog) -> dict:
+    """A compiled ``FixedPointProgram`` (the port's or the reference's) as
+    nested dicts: specs as ``(bits, exp)``, arrays as numpy, ``octaves`` as
+    a list of dicts, scalars as ints."""
+    def conv(obj, cls):
+        out = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(obj, f.name)
+            if f.name in _NESTED:
+                out[f.name] = conv(v, _NESTED[f.name])
+            elif f.name == "octaves":
+                out[f.name] = [conv(o, fixed.OctaveStage) for o in v]
+            elif f.name in _SPECS:
+                out[f.name] = None if v is None else (int(v.bits), int(v.exp))
+            elif f.name in _ARRAYS:
+                out[f.name] = None if v is None else np.asarray(v)
+            else:
+                out[f.name] = v if isinstance(v, str) else int(v)
+        return out
+    return conv(prog, fixed.FixedPointProgram)
+
+
+def program_from_numpy(tree: dict) -> fixed.FixedPointProgram:
+    """The inverse of :func:`program_to_numpy`: the port's program."""
+    def build(d, cls):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = d[f.name]
+            if f.name in _NESTED:
+                kw[f.name] = build(v, _NESTED[f.name])
+            elif f.name == "octaves":
+                kw[f.name] = tuple(build(o, fixed.OctaveStage) for o in v)
+            elif f.name in _SPECS:
+                kw[f.name] = None if v is None else FixedPointSpec(*v)
+            elif f.name in _ARRAYS:
+                kw[f.name] = None if v is None else np.array(v)
+            else:
+                kw[f.name] = v
+        return cls(**kw)
+    return build(tree, fixed.FixedPointProgram)

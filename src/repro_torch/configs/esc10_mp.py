@@ -25,7 +25,8 @@ FILTERBANK_SMOKE = FILTERBANK._replace(fs=4000.0, num_octaves=3,
 def make_pipeline(smoke: bool = False, seed: int = 0,
                   quant_bits: int | None = None, num_classes: int = 10,
                   stream_impl: str = "pallas", device=None,
-                  use_pallas: bool = True, numerics: str = "float"):
+                  use_pallas: bool = True, numerics: str = "float",
+                  fixed_amax: float | None = None):
     """A deployable ``InFilterPipeline`` at the paper's configuration.
 
     The classifier is drawn from ``torch.Generator().manual_seed(seed)``
@@ -35,7 +36,10 @@ def make_pipeline(smoke: bool = False, seed: int = 0,
     stream kernel ("xla" is the torch-op cascade) and ``use_pallas=True``
     runs one-shot ``apply(x)`` through the bank kernels. ``device`` is
     ``cuda`` unless given; without a card this raises unless
-    ``device="cpu"``. ``numerics="fixed"`` is not ported yet and raises.
+    ``device="cpu"``. ``numerics="fixed"`` builds the bit-true int32 twin,
+    one-shot and session, through the integer kernels by the same two
+    switches; ``fixed_amax`` sets its static ADC full scale, or
+    ``pipe.calibrate_fixed(audio)`` calibrates it and the octave gains.
     """
     import torch
 
@@ -54,6 +58,8 @@ def make_pipeline(smoke: bool = False, seed: int = 0,
     cfg = (FILTERBANK_SMOKE if smoke else FILTERBANK)._replace(
         stream_impl=stream_impl, use_pallas=use_pallas, numerics=numerics,
         quant_bits=quant_bits)
+    if fixed_amax is not None:
+        cfg = cfg._replace(fixed_amax=float(fixed_amax))
     fb = FilterBank(cfg, device=device)
     P = cfg.num_filters
     clf = km.init_params(torch.Generator().manual_seed(seed), P, num_classes)

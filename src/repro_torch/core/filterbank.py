@@ -1,4 +1,4 @@
-"""Multirate MP FIR filter bank (paper §III-C/D), float numerics.
+"""Multirate MP FIR filter bank (paper §III-C/D).
 
 The input (fs = 16 kHz) feeds octave 0's band-pass filters directly; a
 low-pass anti-aliasing filter + ÷2 downsampler feeds each later octave.
@@ -9,6 +9,9 @@ sinc, copied from the reference so the port needs no JAX).
 Under ``use_pallas`` the MP FIR routes to the hand-written CUDA kernels
 (``repro_torch.kernels``) — on a CPU tensor those wrappers run their plain
 PyTorch versions; otherwise the torch-op solvers in ``core.mp`` run.
+With ``numerics="fixed"``, ``FilterBank.accumulate`` runs the integer
+datapath of ``core.fixed`` instead; the functions here are the float
+engine and refuse a fixed config.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import mp as mp_mod
-from repro_torch.core.quant import fake_quant, unsupported_fixed
+from repro_torch.core.quant import fake_quant
 from repro_torch.device import resolve_device
 
 __all__ = [
@@ -210,7 +213,11 @@ def quant_signal(x: torch.Tensor, cfg: "FilterBankConfig",
 
 def _require_float_numerics(cfg: "FilterBankConfig", fn: str) -> None:
     if cfg.numerics == "fixed":
-        raise unsupported_fixed(fn)
+        raise ValueError(
+            f"{fn} does not support numerics='fixed': this is the float "
+            "engine and ignores the fixed-point program; go through "
+            "FilterBank.accumulate or InFilterPipeline.apply/predict "
+            "(repro_torch.core.fixed)")
     if cfg.numerics != "float":
         raise ValueError(f"unknown numerics {cfg.numerics!r}: "
                          "expected 'float' or 'fixed'")
@@ -240,9 +247,13 @@ def multirate_accumulate(x: torch.Tensor, bp_taps, lp_taps,
 class FilterBankConfig(NamedTuple):
     """Field names and allowed values are the reference's, so a reference
     config crosses the bridge unchanged. ``use_pallas`` routes the one-shot
-    MP FIR through the CUDA bank kernels; ``stream_impl="pallas"`` runs the
-    session step through the CUDA stream kernel ("xla" is the torch-op
-    cascade). ``numerics="fixed"`` is not ported yet and raises."""
+    MP FIR through the CUDA bank kernels (float, or the integer bank kernel
+    under ``numerics="fixed"``); ``stream_impl="pallas"`` runs the session
+    step through the CUDA stream kernel of its numerics ("xla" is the
+    torch-op cascade). ``numerics="fixed"`` is the bit-true int32 twin
+    (``core.fixed``): power-of-two fixed point, add/sub/shift/compare
+    only; ``fixed_amax`` is its static ADC full scale (inputs beyond it
+    saturate)."""
     fs: float = 16000.0
     num_octaves: int = 6
     filters_per_octave: int = 5
@@ -264,7 +275,7 @@ class FilterBankConfig(NamedTuple):
 
 
 class FilterBank:
-    """Precomputed multirate filter bank (float numerics).
+    """Precomputed multirate filter bank.
 
     ``bp_taps`` / ``lp_tap_list`` hold the numpy taps (identical to the
     reference's); ``bp_by_octave`` / ``lp_filters`` the stacked tensors on
@@ -272,8 +283,14 @@ class FilterBank:
     """
 
     def __init__(self, config: FilterBankConfig, device=None):
-        _require_float_numerics(config, "FilterBank")
+        if config.numerics not in ("float", "fixed"):
+            raise ValueError(f"unknown numerics {config.numerics!r}: "
+                             "expected 'float' or 'fixed'")
+        if config.numerics == "fixed" and config.mode not in ("mp", "mac"):
+            raise ValueError(
+                f"numerics='fixed' has no {config.mode!r}-mode datapath")
         self.config = c = config
+        self._fixed_bank = None   # lazy compile_bank cache
         self.device = resolve_device(device)
         nyq = c.fs / 2.0
         self.bp_taps: list[np.ndarray] = []
@@ -315,8 +332,26 @@ class FilterBank:
         """Anti-aliasing low-pass taps per ÷2 stage."""
         return self._lp
 
+    def fixed_bank(self):
+        """The compiled integer bank program (``numerics="fixed"``), built
+        once from these float taps (``core.fixed.compile_bank``)."""
+        if self._fixed_bank is None:
+            from repro_torch.core import fixed
+            self._fixed_bank = fixed.compile_bank(
+                self.config, self._bp_by_octave, self._lp)
+        return self._fixed_bank
+
     def accumulate(self, x: torch.Tensor) -> torch.Tensor:
-        """s_p = sum_n HWR(B_p(n)) for every filter: x (B, N) -> (B, P)."""
+        """s_p = sum_n HWR(B_p(n)) for every filter: x (B, N) -> (B, P).
+
+        With ``numerics="fixed"`` this runs the integer datapath and
+        dequantizes the 32-bit accumulators."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if self.config.numerics == "fixed":
+            from repro_torch.core import fixed
+            bank = self.fixed_bank()
+            return bank.acc.dequantize(fixed.bank_accumulate_q(
+                bank, fixed.quantize_signal(bank, x),
+                use_pallas=self.config.use_pallas))
         return multirate_accumulate(x, self._bp_by_octave, self._lp,
                                     self.config)

@@ -6,8 +6,9 @@
     p  = [z+ - z]_+ - [z- - z]_+          in [-1, 1]
 
 w+ and w- are stored separately (the hardware ROMs) and relu'd on use.
-``MPKernelMachine`` is an ``nn.Module`` holding them as buffers (this slice
-serves, it does not train); ``forward(params, K)`` is the functional form.
+``MPKernelMachine`` is an ``nn.Module`` holding them as buffers (the port
+serves, it does not train yet); ``forward(params, K)`` is the functional
+form, and ``quantize_params`` the fixed-point twin's ROM contents.
 """
 
 from __future__ import annotations
@@ -15,13 +16,15 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.core.mp import mp_exact, mp_newton
+from repro_torch.core.quant import FixedPointSpec
 
 __all__ = ["MPKernelMachineParams", "MPKernelMachine", "init_params",
-           "forward"]
+           "forward", "quantize_params"]
 
 
 class MPKernelMachineParams(NamedTuple):
@@ -73,6 +76,41 @@ def forward(params: MPKernelMachineParams, K: torch.Tensor,
     z_neg = z_of(wn, wp, params.b_neg)
     z = solve(torch.stack([z_pos, z_neg], dim=-1), 1.0)
     return torch.relu(z_pos - z) - torch.relu(z_neg - z)
+
+
+def quantize_params(params: MPKernelMachineParams,
+                    rom_spec: FixedPointSpec, operand_spec: FixedPointSpec):
+    """Integer ROM contents for the fixed-point twin (``core.fixed``):
+    w+/w- relu'd (the ROMs hold nonnegative entries, as ``forward``
+    enforces), quantized onto the 8-bit ``rom_spec`` grid, then
+    shift-aligned onto the 10-bit ``operand_spec`` grid of the MP adders;
+    biases quantize directly at operand scale. Returns ``(wp_q, wn_q,
+    bpos_q, bneg_q)`` int32 numpy arrays at ``operand_spec.exp``.
+
+    Host-side numpy: the quantizing multiply is by the float32 reciprocal
+    of the scale, as ``FixedPointSpec.quantize`` does (pow2 reciprocals are
+    exact, rounding is half to even), so the codes do not depend on the
+    device."""
+    k = rom_spec.exp - operand_spec.exp
+
+    def host(x):
+        if isinstance(x, torch.Tensor):
+            x = x.detach().cpu().numpy()
+        return np.asarray(x, np.float32)
+
+    def quant(x, spec):
+        q = np.round(host(x) * np.float32(1.0 / spec.scale))
+        return np.clip(q, spec.qmin, spec.qmax).astype(np.int64)
+
+    def align(q):
+        # left shifts exact, right shifts floor like the shifter
+        return (q << k if k >= 0 else q >> (-k)).astype(np.int32)
+
+    wp_q = align(quant(np.maximum(host(params.w_pos), 0.0), rom_spec))
+    wn_q = align(quant(np.maximum(host(params.w_neg), 0.0), rom_spec))
+    bpos_q = quant(params.b_pos, operand_spec).astype(np.int32)
+    bneg_q = quant(params.b_neg, operand_spec).astype(np.int32)
+    return wp_q, wn_q, bpos_q, bneg_q
 
 
 class MPKernelMachine(nn.Module):

@@ -21,8 +21,19 @@ the one entry point:
 plain PyTorch version on the CPU), ``"xla"`` the torch-op cascade. Both
 add in the same blocked order, so they agree bit for bit.
 
-Float numerics only: ``numerics="fixed"`` raises ``NotImplementedError``
-until the fixed slice (ROADMAP.md §1).
+With ``config.numerics == "fixed"`` both paths run the bit-true int32 twin
+(``core.fixed``): audio quantizes onto the static calibrated ADC grid and
+every stage adds, subtracts, shifts and compares integers; outputs are
+dequantized at the surface. The session registers are int32 codes
+(delay lines on each octave's 8-bit register grid, 32-bit accumulators,
+the running max |ADC code|), and since the grid is static and integer
+addition associative, chunked decisions equal one-shot ``apply(x)`` bit
+for bit under any chunking, from the first chunk. ``stream_impl="pallas"``
+runs that step through the int stream kernel (``kernels.fir_mp_stream_q``),
+``"xla"`` through ``core.fixed.session_step_q``; ``use_pallas`` runs the
+one-shot bank through the int bank kernel. The program is compiled on the
+host (:meth:`InFilterPipeline.fixed_program`, or
+:meth:`InFilterPipeline.calibrate_fixed` on calibration audio).
 """
 
 from __future__ import annotations
@@ -36,7 +47,6 @@ from repro_torch.core import filterbank as fbm
 from repro_torch.core import kernel_machine as km
 from repro_torch.core import mp as mp_mod
 from repro_torch.core.filterbank import FilterBank, FilterBankConfig
-from repro_torch.core.quant import unsupported_fixed
 from repro_torch.device import resolve_device
 
 __all__ = ["InFilterPipeline", "SessionState", "clear_slots", "set_active",
@@ -46,12 +56,14 @@ __all__ = ["InFilterPipeline", "SessionState", "clear_slots", "set_active",
 class SessionState(NamedTuple):
     """Slot-batched streaming registers, stacked (S, ...).
 
-    delays:   per octave, (S, T-1) float, T = max(bp_taps, lp_taps): the
-              last T-1 samples of that octave's input (zeros at start).
+    delays:   per octave, (S, T-1), T = max(bp_taps, lp_taps): the last
+              T-1 samples of that octave's input (zeros at start).
     consumed: per octave, (S,) int32 octave samples seen; parity = phase.
     acc:      (S, P) running renormalized per-band accumulators.
     amax:     (S,) running max |input| (the quantization range under
               ``quant_bits``).
+    Float numerics carry delays/acc/amax in float32; ``numerics="fixed"``
+    carries them as int32 codes (amax: max |ADC code|, telemetry only).
     count:    (S,) int32 input samples consumed.
     active:   (S,) bool admission mask; inactive slots are inert.
     """
@@ -73,9 +85,11 @@ class InFilterPipeline(nn.Module):
     def __init__(self, config: FilterBankConfig, bp_taps, lp_taps, mu, sigma,
                  clf: km.MPKernelMachineParams, device=None):
         super().__init__()
-        if config.numerics == "fixed":
-            raise unsupported_fixed("InFilterPipeline")
+        if config.numerics not in ("float", "fixed"):
+            raise ValueError(f"unknown numerics {config.numerics!r}: "
+                             "expected 'float' or 'fixed'")
         self.config = config
+        self._fixed_prog = None          # lazy compile_pipeline cache
         self.device = resolve_device(device)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.num_octaves = len(bp_taps)
@@ -120,6 +134,11 @@ class InFilterPipeline(nn.Module):
         ``(p, state')`` or ``(p, phi, state')``."""
         x = self._tensor(x)
         if state is None:
+            if self.config.numerics == "fixed":
+                from repro_torch.core import fixed
+                p, phi = fixed.predict(self.fixed_program(), x,
+                                       use_pallas=self.config.use_pallas)
+                return (p, phi) if return_features else p
             phi = self.features(x)
             p = self.clf(phi, exact=False)
             return (p, phi) if return_features else p
@@ -138,10 +157,46 @@ class InFilterPipeline(nn.Module):
         return self.apply(x)
 
     def features(self, x, amax=None) -> torch.Tensor:
-        """audio (B, N) -> standardized kernel vector Phi (B, P)."""
+        """audio (B, N) -> standardized kernel vector Phi (B, P). Under
+        ``numerics="fixed"``: the integer path's dequantized 8-bit phi."""
+        if self.config.numerics == "fixed":
+            if amax is not None:
+                raise ValueError(
+                    "features(amax=...) has no effect under "
+                    "numerics='fixed' — the ADC full scale is the static "
+                    "config.fixed_amax / fixed_program(amax=...) "
+                    "calibration")
+            from repro_torch.core import fixed
+            prog = self.fixed_program()
+            _, phi_q, _ = fixed.infer_q(
+                prog, fixed.quantize_signal(prog, self._tensor(x)),
+                use_pallas=self.config.use_pallas)
+            return prog.phi.dequantize(phi_q)
         s = fbm.multirate_accumulate(self._tensor(x), self.bp_taps,
                                      self.lp_taps, self.config, amax=amax)
         return (s - self.mu) / self.sigma
+
+    def fixed_program(self, **overrides):
+        """The compiled integer program (lazy; cached for the call with no
+        overrides — the program ``apply``, ``features`` and the session
+        step run). ``overrides`` go to ``core.fixed.compile_pipeline``
+        (amax, signal_bits, internal_bits, phi_amax, octave_gains,
+        calibration_audio) and give a fresh, uncached program."""
+        from repro_torch.core import fixed
+        if overrides:
+            return fixed.compile_pipeline(self, **overrides)
+        if self._fixed_prog is None:
+            self._fixed_prog = fixed.compile_pipeline(self)
+        return self._fixed_prog
+
+    def calibrate_fixed(self, calibration_audio, **overrides):
+        """Compile the integer program calibrated on ``calibration_audio``
+        (ADC full scale + per-octave register pre-gains) and pin it as this
+        pipeline's program. Returns it."""
+        from repro_torch.core import fixed
+        self._fixed_prog = fixed.compile_pipeline(
+            self, calibration_audio=calibration_audio, **overrides)
+        return self._fixed_prog
 
     # -- session streaming ----------------------------------------------------
 
@@ -153,23 +208,33 @@ class InFilterPipeline(nn.Module):
                      active=None) -> SessionState:
         """Fresh state for ``capacity`` streams on this pipeline's device.
         ``amax`` pre-seeds the running range (scalar or (S,)); ``active``
-        sets the admission mask (default: all active)."""
+        sets the admission mask (default: all active). Under
+        ``numerics="fixed"`` every register is int32 and a float ``amax``
+        seed is converted to ADC codes."""
         c = self.config
         dev = self.device
-        f32 = dict(dtype=torch.float32, device=dev)
         i32 = dict(dtype=torch.int32, device=dev)
-        amax_t = (torch.zeros(capacity, **f32) if amax is None else
-                  torch.as_tensor(amax, **f32).expand(capacity).clone())
+        # the registers' type: int32 codes, or float32
+        reg = i32 if c.numerics == "fixed" else dict(dtype=torch.float32,
+                                                     device=dev)
+        if amax is None:
+            amax_t = torch.zeros(capacity, **reg)
+        elif c.numerics == "fixed":
+            amax_t = self.fixed_program().signal.quantize(
+                torch.as_tensor(amax, dtype=torch.float32, device=dev).abs()
+            ).expand(capacity).clone()
+        else:
+            amax_t = torch.as_tensor(amax, **reg).expand(capacity).clone()
         active_t = (torch.ones(capacity, dtype=torch.bool, device=dev)
                     if active is None else
                     torch.as_tensor(active, dtype=torch.bool,
                                     device=dev).clone())
         return SessionState(
-            delays=tuple(torch.zeros(capacity, self._delay_len, **f32)
+            delays=tuple(torch.zeros(capacity, self._delay_len, **reg)
                          for _ in range(c.num_octaves)),
             consumed=tuple(torch.zeros(capacity, **i32)
                            for _ in range(c.num_octaves)),
-            acc=torch.zeros(capacity, c.num_filters, **f32),
+            acc=torch.zeros(capacity, c.num_filters, **reg),
             amax=amax_t,
             count=torch.zeros(capacity, **i32),
             active=active_t,
@@ -181,6 +246,8 @@ class InFilterPipeline(nn.Module):
         """Consume one (S, L) chunk with per-slot valid counts; returns
         (state', p (S, C), phi (S, P))."""
         c = self.config
+        if c.numerics == "fixed":
+            return self._session_step_fixed(state, chunk, valid)
         S, L = chunk.shape
         valid = torch.as_tensor(valid, dtype=torch.int32, device=self.device)
         n = torch.where(state.active, valid, 0).to(torch.int32)
@@ -199,6 +266,55 @@ class InFilterPipeline(nn.Module):
                              "expected 'xla' or 'pallas'")
         phi = (state.acc - self.mu) / self.sigma
         return state, self.clf(phi, exact=False), phi
+
+    @torch.no_grad()
+    def _session_step_fixed(self, state: SessionState, chunk: torch.Tensor,
+                            valid: torch.Tensor):
+        """The int32 session step: quantize the chunk onto the static ADC
+        grid, zero invalid positions, and run the integer cascade —
+        ``stream_impl="xla"`` through ``fixed.session_step_q``, "pallas"
+        through the int stream kernel (the same registers and decisions).
+        Returns (state', p, phi), dequantized."""
+        from repro_torch.core import fixed
+        c = self.config
+        if c.stream_impl not in ("xla", "pallas"):
+            raise ValueError(f"unknown stream_impl {c.stream_impl!r}: "
+                             "expected 'xla' or 'pallas'")
+        prog = self.fixed_program()
+        S, L = chunk.shape
+        valid = torch.as_tensor(valid, dtype=torch.int32, device=self.device)
+        n = torch.where(state.active, valid, 0).to(torch.int32)
+        xq = fixed.quantize_signal(prog, chunk)
+        pos0 = torch.arange(L, device=chunk.device)[None, :]
+        xq = torch.where(pos0 < n[:, None], xq, 0)
+        if c.stream_impl == "pallas":
+            state, p_q, phi_q = self._cascade_pallas_fixed(prog, state, xq,
+                                                           n)
+        else:
+            state, p_q, phi_q = fixed.session_step_q(prog, state, xq, n)
+        return (state, prog.out_spec.dequantize(p_q),
+                prog.phi.dequantize(phi_q))
+
+    def _cascade_pallas_fixed(self, prog, state: SessionState,
+                              xq: torch.Tensor, n: torch.Tensor):
+        """Integer octave cascade through the int stream kernel
+        (``kernels.fir_mp_stream_q``), then the readout: bit for bit
+        ``fixed.session_step_q``. Returns (state', p_q, phi_q)."""
+        from repro_torch.core import fixed
+        if self.config.mode != "mp":
+            raise ValueError(
+                f"stream_impl='pallas' runs the MP stream kernel; it has no "
+                f"{self.config.mode!r}-mode variant (use stream_impl='xla')")
+        if xq.shape[1] > 0:
+            from repro_torch.kernels import fir_mp_stream_q
+            delays, consumed, acc, amax = fir_mp_stream_q(
+                prog, xq, n, state.delays, state.consumed, state.acc,
+                state.amax)
+            state = SessionState(delays, consumed, acc, amax,
+                                 state.count + n, state.active)
+        # a zero-length chunk is a pure readout: no register moves
+        p_q, phi_q = fixed.readout_q(prog, state.acc)
+        return state, p_q, phi_q
 
     def _cascade_pallas(self, state: SessionState, chunk: torch.Tensor,
                         n: torch.Tensor) -> SessionState:

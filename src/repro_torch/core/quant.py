@@ -1,11 +1,16 @@
-"""Quantization utilities, float half (paper §V, Fig. 8).
+"""Quantization utilities (paper §V, Fig. 8).
 
-``QuantSpec`` + ``fake_quant`` are the QAT proxy: values are
-round(x / s) clamped to [-(2^(b-1)), 2^(b-1)-1] and carried in float.
-``torch.round`` rounds half to even, like ``jnp.round``. ``fake_quant`` is
-forward only here; the straight-through gradient comes with the training
-slice. The fixed-point type system (``FixedPointSpec``) is the fixed
-slice's (ROADMAP.md §1, "Fixed half of core.quant, then core.fixed").
+* ``QuantSpec`` + ``fake_quant`` are the QAT proxy: values are
+  round(x / s) clamped to [-(2^(b-1)), 2^(b-1)-1] and carried in float.
+  ``fake_quant`` is forward only here; the straight-through gradient comes
+  with the training slice.
+* ``FixedPointSpec`` is the hardware twin's type: symmetric fixed point
+  with a POWER-OF-TWO scale, so every conversion between formats is a bit
+  shift and the datapath of ``core.fixed`` runs on int32 with add,
+  subtract, shift and compare only. ``pow2_spec_for`` snaps a range to the
+  finest covering power-of-two scale.
+
+``torch.round`` rounds half to even, like ``jnp.round``.
 """
 
 from __future__ import annotations
@@ -16,18 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["QuantSpec", "spec_for", "fake_quant", "unsupported_fixed",
-           "FIXED_FOLLOWUP"]
-
-# the ROADMAP.md §1 item that brings numerics="fixed" to the port
-FIXED_FOLLOWUP = "Fixed half of core.quant, then core.fixed"
-
-
-def unsupported_fixed(feature: str) -> NotImplementedError:
-    """The one way the port says "numerics='fixed' is not ported yet"."""
-    return NotImplementedError(
-        f"{feature} does not support numerics='fixed' yet — the int32 "
-        f"path is the {FIXED_FOLLOWUP!r} item in ROADMAP.md")
+__all__ = ["QuantSpec", "FixedPointSpec", "spec_for", "pow2_spec_for",
+           "fake_quant"]
 
 
 class QuantSpec(NamedTuple):
@@ -41,6 +36,45 @@ class QuantSpec(NamedTuple):
     @property
     def qmax(self) -> int:
         return (1 << (self.bits - 1)) - 1
+
+
+class FixedPointSpec(NamedTuple):
+    """Symmetric fixed point with a power-of-two LSB: value = q * 2**exp,
+    q a signed integer in [qmin, qmax]. Converting between two specs is a
+    bit shift: left to a finer exp (exact), right to a coarser one (floor).
+    """
+    bits: int
+    exp: int  # scale = 2.0 ** exp (negative: fractional LSBs)
+
+    @property
+    def qmin(self) -> int:
+        return -(1 << (self.bits - 1))
+
+    @property
+    def qmax(self) -> int:
+        return (1 << (self.bits - 1)) - 1
+
+    @property
+    def scale(self) -> float:
+        return math.ldexp(1.0, self.exp)
+
+    @property
+    def amax(self) -> float:
+        """Largest representable magnitude."""
+        return self.qmax * self.scale
+
+    def quantize(self, x, dtype=torch.int32) -> torch.Tensor:
+        """Round half to even onto the grid, saturating clamp: codes of
+        ``dtype`` (int32, or float32 carrying integers). ``x`` is taken as
+        float32 and multiplied by the float32 reciprocal of the scale
+        (exact: a power of two)."""
+        x = torch.as_tensor(x, dtype=torch.float32)
+        q = torch.round(x * np.float32(1.0 / self.scale).item())
+        return torch.clamp(q, self.qmin, self.qmax).to(dtype)
+
+    def dequantize(self, q) -> torch.Tensor:
+        """Exact (power-of-two) rescale of integer codes back to float."""
+        return torch.as_tensor(q).to(torch.float32) * self.scale
 
 
 def _amax_of(x) -> float:
@@ -62,6 +96,24 @@ def spec_for(x, bits: int) -> QuantSpec:
     if bits < 2:
         raise ValueError(f"spec_for: need bits >= 2, got {bits}")
     return QuantSpec(bits=bits, scale=_amax_of(x) / ((1 << (bits - 1)) - 1))
+
+
+def pow2_spec_for(x, bits: int, amax: float | None = None) -> FixedPointSpec:
+    """Finest power-of-two-scale spec whose qmax reaches max |x| (or
+    ``amax``): exp = ceil(log2(amax / qmax)). Host-side (numpy), with
+    ``spec_for``'s handling of empty and all-zero tensors."""
+    if bits < 2:
+        raise ValueError(f"pow2_spec_for: need bits >= 2, got {bits}")
+    if amax is None:
+        amax = _amax_of(x)
+    if not (math.isfinite(amax) and amax > 0):
+        raise ValueError(f"pow2_spec_for: need finite amax > 0, got {amax}")
+    qmax = (1 << (bits - 1)) - 1
+    exp = math.ceil(math.log2(amax / qmax) - 1e-12)
+    # guard the float log against landing one LSB short of covering amax
+    while math.ldexp(qmax, exp) < amax:
+        exp += 1
+    return FixedPointSpec(bits=bits, exp=exp)
 
 
 def fake_quant(x: torch.Tensor, bits: int, amax=None) -> torch.Tensor:

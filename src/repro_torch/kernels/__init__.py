@@ -14,6 +14,9 @@ Kernels:
                  at the slot's phase)
   fir_mp_bank  - one-shot MP FIR bank, optional fused HWR + accumulate
   fir_mp       - the bank kernel with one filter
+  fir_mp_stream_octave_q / fir_mp_bank_q - the integer twins of the two:
+                 the fixed-point datapath (integer MP bisection, shift/add/
+                 compare only), bit for bit ``core.fixed``'s torch ops
 """
 
 from repro_torch.kernels.fir_mp import LAUNCHES, reset_launches  # noqa: F401
@@ -22,5 +25,8 @@ from repro_torch.kernels.ops import (  # noqa: F401
     fir_mp_accumulate,
     fir_mp_bank,
     fir_mp_bank_accumulate,
+    fir_mp_bank_q,
+    fir_mp_bank_q_accumulate,
     fir_mp_stream,
+    fir_mp_stream_q,
 )

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` compiles with ``nvcc`` into its own shared library
 with a plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a
 build takes seconds. Libraries live in ``kernels/build/<hash>/`` (listed in
-``.gitignore``), keyed by a hash of the source and flags, so a checkout
-builds everything on its first call and an edited source rebuilds.
+``.gitignore``), keyed by a hash of the source, the shared headers
+(``csrc/*.cuh``) and the flags, so a checkout builds everything on its
+first call and an edited source rebuilds.
 :func:`build_all` starts one ``nvcc`` per source, all at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` so the compiler cannot
@@ -25,7 +26,8 @@ from pathlib import Path
 __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fir_mp_stream", "fir_mp_bank")
+SOURCES = ("fir_mp_stream", "fir_mp_bank", "fir_mp_stream_q",
+           "fir_mp_bank_q")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,6 +38,9 @@ SIGNATURES = {
                       [_P] * 12 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]),
     "fir_mp_bank": ("fir_mp_bank_launch",
                     [_P] * 4 + [_I] * 4 + [_F] + [_I] * 2 + [_P]),
+    "fir_mp_stream_q": ("fir_mp_stream_q_launch",
+                        [_P] * 13 + [_I] * 5 + [_P]),
+    "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
 }
 
 _LIBS: dict = {}
@@ -54,9 +59,11 @@ def nvcc_path() -> str:
 
 def _build_dir(name: str) -> Path:
     root = Path(__file__).resolve().parent / "build"
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(FLAGS).encode()
-    ).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return root / digest
 
 

@@ -10,12 +10,15 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel, fir_mp_kernel,
-                                         fir_mp_stream_octave)
+from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
+                                         fir_mp_bank_q_kernel, fir_mp_kernel,
+                                         fir_mp_stream_octave,
+                                         fir_mp_stream_octave_q)
 from repro_torch.kernels.ref import DEFAULT_ITERS
 
 __all__ = ["fir_mp", "fir_mp_accumulate", "fir_mp_bank",
-           "fir_mp_bank_accumulate", "fir_mp_stream"]
+           "fir_mp_bank_accumulate", "fir_mp_stream", "fir_mp_bank_q",
+           "fir_mp_bank_q_accumulate", "fir_mp_stream_q"]
 
 
 def fir_mp(x: torch.Tensor, h: torch.Tensor, gamma, *,
@@ -97,5 +100,79 @@ def fir_mp_stream(chunk: torch.Tensor, n: torch.Tensor, delays: tuple,
             n_o = torch.clamp_min(
                 torch.div(n_o - start_o + 1, 2, rounding_mode="floor"), 0)
             l_o = l_next
+    return (tuple(new_delays), tuple(new_consumed),
+            torch.cat(acc_cols, dim=1), amax_out)
+
+
+# ---------------------------------------------------------------------------
+# integer (fixed-point) wrappers
+# ---------------------------------------------------------------------------
+
+
+def fir_mp_bank_q(xq: torch.Tensor, H_q, *, gamma_q: int, iters: int,
+                  qmin: int, qmax: int) -> torch.Tensor:
+    """Integer bank FIR: xq (..., N) codes on the stage grid, H_q (F, M)
+    tap codes -> (..., F, N) band codes, bit for bit
+    ``core.fixed.fxp_fir_bank(pad=True)``."""
+    x2 = xq.reshape(-1, xq.shape[-1])
+    y = fir_mp_bank_q_kernel(x2, H_q, gamma_q=gamma_q, iters=iters,
+                             qmin=qmin, qmax=qmax)
+    return y.reshape(*xq.shape[:-1], y.shape[1], xq.shape[-1])
+
+
+def fir_mp_bank_q_accumulate(xq: torch.Tensor, H_q, *, gamma_q: int,
+                             iters: int, qmin: int, qmax: int
+                             ) -> torch.Tensor:
+    """Fused integer bank FIR + HWR + accumulate: xq (..., N) -> (..., F)
+    sums at the stage grid (the caller applies ``acc_shift``)."""
+    x2 = xq.reshape(-1, xq.shape[-1])
+    s = fir_mp_bank_q_kernel(x2, H_q, gamma_q=gamma_q, iters=iters,
+                             qmin=qmin, qmax=qmax, accumulate=True)
+    return s.reshape(*xq.shape[:-1], s.shape[1])
+
+
+def fir_mp_stream_q(prog, chunk_q: torch.Tensor, n: torch.Tensor,
+                    delays: tuple, consumed: tuple, acc: torch.Tensor,
+                    amax: torch.Tensor):
+    """The integer session step's octave cascade through the int stream
+    kernel, one launch per octave: the kernel route of
+    ``core.fixed.session_step_q``, with the same registers.
+
+    ``prog`` is the compiled ``core.fixed.FixedPointProgram``; chunk_q
+    (S, L) ADC codes with invalid tails zeroed, L >= 1 (the caller handles
+    the L == 0 readout); n (S,) effective valid counts; the registers as in
+    ``SessionState``. Per octave the decimator phase is ``consumed & 1``
+    and the next valid count ``max(n - start + 1, 0) >> 1``. Returns
+    ``(delays', consumed', acc', amax')``.
+    """
+    bank = prog.bank
+    if bank.mode != "mp":
+        raise ValueError(
+            f"fir_mp_stream_q runs the MP stream kernel; it has no "
+            f"{bank.mode!r}-mode variant (use fixed.session_step_q)")
+    x_o = chunk_q
+    n_o = n.to(torch.int32)
+    new_delays, new_consumed, acc_cols = [], [], []
+    amax_out = amax
+    col = 0
+    for o, st in enumerate(bank.octaves):
+        Fn = st.bp_q.shape[0]
+        emit = st.lp_q is not None
+        start_o = torch.bitwise_and(consumed[o], 1).to(torch.int32)
+        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave_q(
+            x_o, n_o, start_o, delays[o], acc[:, col:col + Fn],
+            amax if o == 0 else torch.zeros_like(amax), stage=st,
+            next_spec=bank.octaves[o + 1].in_spec if emit else None,
+            emit_next=emit, update_amax=(o == 0))
+        if o == 0:
+            amax_out = amax_new
+        new_delays.append(delay_new)
+        new_consumed.append(consumed[o] + n_o)
+        acc_cols.append(acc_new)
+        col += Fn
+        if emit:
+            x_o = y_next
+            n_o = torch.bitwise_right_shift(
+                torch.clamp_min(n_o - start_o + 1, 0), 1)
     return (tuple(new_delays), tuple(new_consumed),
             torch.cat(acc_cols, dim=1), amax_out)

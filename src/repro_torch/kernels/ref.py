@@ -1,23 +1,31 @@
 """Plain PyTorch versions of the CUDA kernels.
 
-Each function computes what its kernel computes, with the same float
-arithmetic in the same order, from torch ops. The wrappers in
-``kernels.fir_mp`` run these for CPU tensors; the tests hold them against
-the reference's Pallas kernels (interpret mode), and ``chip_smoke.py``
-holds each CUDA kernel against its plain version on the card.
+Each function computes what its kernel computes from torch ops: the float
+ones with the same arithmetic in the same order, the integer ones
+(``*_q``) with the same integer datapath, where any order gives the same
+bits. The wrappers in ``kernels.fir_mp`` run these for CPU tensors; the
+tests hold them against the reference's Pallas kernels (interpret mode),
+and ``chip_smoke.py`` holds each CUDA kernel against its plain version on
+the card. The integer versions are carrier-generic (int32, or float32
+carrying integer codes), like ``core.fixed``.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import fixed as fx
 from repro_torch.core import mp as mp_mod
 from repro_torch.core.filterbank import accumulate_block_len
 
 __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_bank_accumulate", "fir_mp", "fir_mp_accumulate",
-           "fir_mp_stream_octave", "tile_sum"]
+           "fir_mp_stream_octave", "tile_sum", "fir_mp_bank_q",
+           "fir_mp_bank_q_accumulate", "fir_mp_stream_octave_q"]
 
 DEFAULT_ITERS = 26   # bisection steps of the one-shot bank kernel
 BANK_TILE = 256      # positions per CTA of the bank kernel
@@ -144,3 +152,102 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
         delay = bufd[rows, v[:, None] + tail]
     acc = acc + part * scale
     return acc, delay, amax, (torch.cat(y_next, dim=1) if emit_next else None)
+
+
+# ---------------------------------------------------------------------------
+# integer (fixed-point) kernels
+# ---------------------------------------------------------------------------
+
+
+class _Bounds(NamedTuple):
+    """A clamp range given directly (``core.fixed`` reads only these)."""
+    qmin: int
+    qmax: int
+
+
+def fir_mp_bank_q(xq: torch.Tensor, H_q, gamma_q: int, iters: int,
+                  qmin: int, qmax: int) -> torch.Tensor:
+    """xq (B, N) codes on the stage grid, H_q (F, M) tap codes -> (B, F, N)
+    band codes: position n pairs x[n - k] (zero left fill) with tap k,
+    operands ``clip(h_k +- x[n - k], qmin, qmax)``, and
+    ``mpabs(u) - mpabs(v)`` by integer bisection (``gamma_q``, ``iters``;
+    the result is ``hi``)."""
+    return fx.fxp_fir_bank(xq, H_q, gamma_q, iters, _Bounds(qmin, qmax))
+
+
+def fir_mp_bank_q_accumulate(xq: torch.Tensor, H_q, gamma_q: int,
+                             iters: int, qmin: int, qmax: int
+                             ) -> torch.Tensor:
+    """(B, F) = sum over the N positions of max(y, 0), y the
+    :func:`fir_mp_bank_q` codes, in the carrier's dtype."""
+    return fx.fxp_hwr_accumulate(
+        fir_mp_bank_q(xq, H_q, gamma_q, iters, qmin, qmax))
+
+
+def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
+                           next_spec=None, emit_next: bool = True,
+                           update_amax: bool = False):
+    """One octave of the integer session step, as the int stream kernel
+    runs it: blocks of LB = accumulate_block_len(L) positions in order,
+    all slots at once.
+
+    x (S, L) this octave's register codes; n (S,) valid counts; start (S,)
+    ÷2 phases; delay (S, T1) delay-line codes; acc (S, F) accumulators;
+    amax (S,) running max |code| (updated only under ``update_amax``);
+    ``stage`` a compiled ``core.fixed.OctaveStage``; ``next_spec`` the next
+    octave's register spec (with ``emit_next``).
+
+    Per block: windows of [delay | block] rescaled by ``sig_shift``, one
+    ``fxp_mp_dot`` per position and band, max(y, 0) of the valid positions
+    added to the partials; the low-pass solved at the kept positions
+    ``start + 2j`` and emitted as ``clamp(rescale(kept, lp_out_shift),
+    next_qmin, next_qmax)``; the delay line slid by the block's valid
+    count (so past a slot's valid count a later block's windows see that
+    slot's last valid samples, as on the TPU). At the end ``acc + (part <<
+    acc_shift)``. Returns ``(acc', delay', amax', y_next | None)``,
+    y_next (S, (L + 1) // 2).
+    """
+    S, L = x.shape
+    T1 = delay.shape[1]
+    dev = x.device
+    bp = np.asarray(stage.bp_q)
+    M = bp.shape[-1]
+    LB = accumulate_block_len(L)
+    NB = -(-L // LB)
+    xp = F.pad(x, (0, NB * LB - L))
+    n = n.long()
+    rows = torch.arange(S, device=dev)[:, None]
+    tail = torch.arange(T1, device=dev)[None, :]
+    pos_in = torch.arange(LB, device=dev)
+    w_bp = fx._c(np.ascontiguousarray(bp[:, ::-1]), x)[None, :, None]
+    if emit_next:
+        lp = np.asarray(stage.lp_q)[0]
+        M_lp = lp.shape[0]
+        w_lp = fx._c(lp[::-1].copy(), x)
+        widx = (2 * torch.arange(LB // 2, device=dev)[:, None]
+                + torch.arange(M_lp, device=dev)[None, :])   # (LB/2, M_lp)
+    part = x.new_zeros(S, bp.shape[0])
+    y_next = []
+    for b in range(NB):
+        blk = xp[:, b * LB:(b + 1) * LB]
+        if update_amax:
+            amax = torch.maximum(amax, blk.abs().amax(-1))
+        bufv = torch.cat([delay[:, T1 - (M - 1):], blk], dim=1)
+        win = fx.rescale(bufv.unfold(-1, M, 1)[:, None], stage.sig_shift)
+        y = fx.fxp_mp_dot(win, w_bp, stage.gamma_bp, stage.iters_bp,
+                          stage.band_spec)                # (S, F, LB)
+        part = part + fx.fxp_hwr_accumulate(y, (n - b * LB)[:, None])
+        if emit_next:
+            bufl = torch.cat([delay[:, T1 - (M_lp - 1):], blk], dim=1)
+            winl = fx.rescale(bufl[rows[:, :, None], start.long()[:, None, None]
+                                   + widx[None]], stage.lp_sig_shift)
+            kept = fx.fxp_mp_dot(winl, w_lp, stage.gamma_lp, stage.iters_lp,
+                                 stage.lp_spec)
+            y_next.append(torch.clamp(fx.rescale(kept, stage.lp_out_shift),
+                                      next_spec.qmin, next_spec.qmax))
+        v = torch.clamp(n - b * LB, 0, LB)
+        delay = torch.cat([delay, blk], dim=1)[rows, v[:, None] + tail]
+    acc = acc + fx.shift_left(part, stage.acc_shift)
+    if emit_next:
+        y_next = torch.cat(y_next, dim=1)[:, :(L + 1) // 2]
+    return acc, delay, amax, (y_next if emit_next else None)

@@ -16,8 +16,13 @@ from repro_torch.configs.esc10_mp import FILTERBANK, make_pipeline
 from repro_torch.core.filterbank import FilterBank
 from repro_torch.core.pipeline import InFilterPipeline
 from repro_torch.kernels import LAUNCHES, ref, reset_launches
-from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel, fir_mp_kernel,
-                                        fir_mp_stream_octave)
+from repro_torch.core import fixed as fx
+from repro_torch.data.acoustic import make_esc10_like
+from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
+                                        fir_mp_bank_q_kernel, fir_mp_kernel,
+                                        fir_mp_stream_octave,
+                                        fir_mp_stream_octave_q)
+from repro_torch.serving import StreamServer
 
 pytestmark = pytest.mark.cuda
 
@@ -104,3 +109,120 @@ def test_session_step_through_the_kernel_matches_torch_ops(dev, quant_bits,
     assert out["pallas"][2] == 6 * 5 and out["xla"][2] == 0
     _close(out["pallas"][1], out["xla"][1])
     _close(out["pallas"][0], out["xla"][0])
+
+
+# ---------------------------------------------------------------------------
+# the integer kernels: exactly equal to their plain versions
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def clips():
+    return make_esc10_like(per_class_train=1, per_class_test=1, fs=16000.0,
+                           seconds=1.0, seed=0).x_train[:8]
+
+
+@pytest.fixture
+def prog(dev, clips):
+    """The full-width esc10-mp program, calibrated on seeded clips."""
+    return make_pipeline(numerics="fixed").calibrate_fixed(clips)
+
+
+def _exact(got, want):
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.int32
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("S,L,o", [(37, 7, 0), (256, 256, 1), (5, 600, 3),
+                                   (9, 33, 5)])
+def test_stream_octave_q_kernel_matches_plain(dev, prog, S, L, o):
+    g = torch.Generator().manual_seed(L)
+    stages = prog.bank.octaves
+    st = stages[o]
+    emit = st.lp_q is not None
+    Fn, T1 = st.bp_q.shape[0], 15
+    n = torch.randint(0, L + 1, (S,), generator=g, dtype=torch.int32)
+    n[0], n[1] = 0, L
+    x = torch.randint(-128, 128, (S, L), generator=g, dtype=torch.int32)
+    x = torch.where(torch.arange(L)[None] < n[:, None], x, 0)
+    args = [t.to(dev) for t in (
+        x, n, torch.randint(0, 2, (S,), generator=g, dtype=torch.int32),
+        torch.randint(-128, 128, (S, T1), generator=g, dtype=torch.int32),
+        torch.randint(0, 1 << 20, (S, Fn), generator=g, dtype=torch.int32),
+        torch.randint(0, 128, (S,), generator=g, dtype=torch.int32))]
+    kw = dict(stage=st, next_spec=stages[o + 1].in_spec if emit else None,
+              emit_next=emit, update_amax=(o == 0))
+    reset_launches()
+    got = fir_mp_stream_octave_q(*args, **kw)
+    assert LAUNCHES["fir_mp_stream_octave_q"] == 1
+    want = ref.fir_mp_stream_octave_q(*args, **kw)
+    for a, b in zip(got, want):
+        if b is None:
+            assert a is None
+        else:
+            _exact(a, b)
+    assert torch.equal(got[0][0], args[4][0])      # the n == 0 slot
+    assert torch.equal(got[1][0], args[3][0])
+
+
+@pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000)])
+def test_bank_q_kernel_matches_plain(dev, prog, B, N):
+    g = torch.Generator().manual_seed(N)
+    x = torch.randint(-600, 600, (B, N), generator=g,
+                      dtype=torch.int32).to(dev)
+    reset_launches()
+    calls = 0
+    for st in prog.bank.octaves[::2]:
+        for H, spec, gq, it in ((st.bp_q, st.band_spec, st.gamma_bp,
+                                 st.iters_bp),
+                                (st.lp_q, st.lp_spec, st.gamma_lp,
+                                 st.iters_lp)):
+            if H is None:
+                continue
+            kw = dict(gamma_q=gq, iters=it, qmin=spec.qmin, qmax=spec.qmax)
+            _exact(fir_mp_bank_q_kernel(x, H, **kw),
+                   ref.fir_mp_bank_q(x, H, **kw))
+            _exact(fir_mp_bank_q_kernel(x, H, accumulate=True, **kw),
+                   ref.fir_mp_bank_q_accumulate(x, H, **kw))
+            calls += 2
+    assert LAUNCHES["fir_mp_bank_q"] == calls == 12
+
+
+def test_int_kernels_refuse_float_carried_codes(dev, prog):
+    st = prog.bank.octaves[0]
+    x = torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError, match="f32-carried codes through the "
+                                         "CUDA int kernels"):
+        fir_mp_bank_q_kernel(x, st.bp_q, gamma_q=st.gamma_bp,
+                             iters=st.iters_bp, qmin=st.band_spec.qmin,
+                             qmax=st.band_spec.qmax)
+    i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="f32-carried codes"):
+        fir_mp_stream_octave_q(x, i32(2), i32(2), i32(2, 15), i32(2, 5),
+                               i32(2), stage=st,
+                               next_spec=prog.bank.octaves[1].in_spec)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+def test_fixed_served_codes_equal_oneshot_on_the_card(dev, clips, impl):
+    pipe = make_pipeline(numerics="fixed", stream_impl=impl)
+    prog = pipe.calibrate_fixed(clips)
+    S = 8
+    server = StreamServer(pipe, capacity=S, max_chunk=256)
+    ids = [f"s{i}" for i in range(S)]
+    for sid in ids:
+        server.open(sid)
+    reset_launches()
+    for r in range(5):
+        server.feed([(sid, clips[i, r * 160:(r + 1) * 160])
+                     for i, sid in enumerate(ids)])
+    assert LAUNCHES["fir_mp_stream_octave_q"] == (30 if impl == "pallas"
+                                                  else 0)
+    assert server.state.acc.dtype == torch.int32
+    p, _ = pipe.apply(torch.zeros(S, 0, device=dev), server.state)
+    x = torch.from_numpy(np.ascontiguousarray(clips[:, :800])).to(dev)
+    p_q, _, s_q = fx.infer_q(prog, fx.quantize_signal(prog, x),
+                             use_pallas=True)
+    _exact(server.state.acc, s_q)
+    _exact(torch.round(p / prog.out_spec.scale).to(torch.int32), p_q)

@@ -1,5 +1,5 @@
 """Port vs reference: filter design, blocked HWR accumulation, the
-multirate bank (float numerics)."""
+multirate bank (float numerics, and the routing of numerics="fixed")."""
 
 import jax
 import numpy as np
@@ -10,7 +10,6 @@ from repro.configs import esc10_mp as cfg_ref
 from repro.core import filterbank as fb_ref
 from repro_torch.configs import esc10_mp as cfg_port
 from repro_torch.core import filterbank as fb
-from repro_torch.core.quant import FIXED_FOLLOWUP
 
 ATOL = 1e-5
 
@@ -91,6 +90,23 @@ def test_mac_mode_matches_reference():
                                atol=1e-4, rtol=1e-5)
 
 
-def test_fixed_numerics_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match=FIXED_FOLLOWUP):
-        fb.FilterBank(fb.FilterBankConfig(numerics="fixed"), device="cpu")
+@pytest.mark.parametrize("mode", ["mp", "mac"])
+def test_fixed_numerics_accumulate_matches_reference(mode):
+    c = cfg_ref.FILTERBANK_SMOKE._replace(mode=mode, numerics="fixed",
+                                          fixed_amax=3.0)
+    ref = fb_ref.FilterBank(c)
+    port = fb.FilterBank(fb.FilterBankConfig(**c._asdict()), device="cpu")
+    x = np.random.default_rng(5).standard_normal((2, 250)).astype(np.float32)
+    got = port.accumulate(x)
+    # the 32-bit accumulators, dequantized by a power of two: exact
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref.accumulate(x)))
+    assert port.fixed_bank() is port.fixed_bank()
+    # the float engine refuses a fixed config, naming the right entry point
+    with pytest.raises(ValueError, match="FilterBank.accumulate"):
+        fb.multirate_accumulate(torch.from_numpy(x), port.bp_by_octave,
+                                port.lp_filters, port.config)
+
+
+def test_unknown_numerics_raises():
+    with pytest.raises(ValueError, match="unknown numerics 'int8'"):
+        fb.FilterBank(fb.FilterBankConfig(numerics="int8"), device="cpu")

@@ -121,3 +121,21 @@ def test_wrappers_refuse_other_devices():
         fir_mp_kernel(torch.zeros(2, 16), H[0], 4.0)
     with pytest.raises(ValueError, match="unknown MP solver"):
         fir_mp_stream_octave(*[torch.zeros(1)] * 8, 4.0, solver="sgd")
+
+
+def test_int_wrappers_refuse_other_devices_and_keep_leading_dims():
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import fir_mp_bank_q, fir_mp_bank_q_accumulate
+    from repro_torch.kernels.fir_mp import fir_mp_bank_q_kernel
+    H = np.random.default_rng(0).integers(-100, 100, (3, 16)).astype(np.int32)
+    kw = dict(gamma_q=256, iters=11, qmin=-512, qmax=511)
+    with pytest.raises(ValueError, match="all-CUDA \\(one card\\) or all-CPU"):
+        fir_mp_bank_q_kernel(torch.empty(2, 16, dtype=torch.int32,
+                                         device="meta"), H, **kw)
+    x = torch.from_numpy(np.random.default_rng(1).integers(
+        -300, 300, (2, 3, 50)).astype(np.int32))
+    spec = ref._Bounds(-512, 511)
+    want = fx.fxp_fir_bank(x, H, 256, 11, spec)
+    assert torch.equal(fir_mp_bank_q(x, H, **kw), want)
+    assert torch.equal(fir_mp_bank_q_accumulate(x, H, **kw),
+                       fx.fxp_hwr_accumulate(want))

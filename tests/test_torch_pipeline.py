@@ -23,7 +23,6 @@ from golden_cases import CASES, GOLDEN_DIR, build_pipeline, make_audio
 from repro_torch import bridge
 from repro_torch.configs.esc10_mp import make_pipeline
 from repro_torch.core import pipeline as pl
-from repro_torch.core.quant import FIXED_FOLLOWUP
 
 ATOL = 1e-5
 ROOT = Path(__file__).resolve().parents[1]
@@ -193,15 +192,39 @@ def test_no_silent_cpu_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_pipeline()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_pipeline(numerics="fixed")
     from repro_torch.configs.esc10_mp import FILTERBANK
     from repro_torch.core.filterbank import FilterBank
     with pytest.raises(RuntimeError, match="no CUDA device"):
         FilterBank(FILTERBANK)
 
 
-def test_fixed_numerics_raises_naming_roadmap():
-    with pytest.raises(NotImplementedError, match=FIXED_FOLLOWUP):
-        make_pipeline(smoke=True, device="cpu", numerics="fixed")
+def test_fixed_numerics_builds_and_runs_on_cpu():
+    pipe = make_pipeline(smoke=True, device="cpu", numerics="fixed",
+                         fixed_amax=2.0)
+    c = pipe.config
+    assert (c.numerics, c.fixed_amax, c.stream_impl, c.use_pallas) == \
+        ("fixed", 2.0, "pallas", True)
+    x = np.random.default_rng(4).standard_normal((2, 120)).astype(np.float32)
+    p, phi = pipe.apply(x, return_features=True)
+    prog = pipe.fixed_program()
+    assert p.shape == (2, 10) and phi.shape == (2, c.num_filters)
+    # outputs land on the program's grids
+    assert torch.equal(p, torch.round(p / prog.out_spec.scale)
+                       * prog.out_spec.scale)
+    p_s, state = pipe.apply(x, pipe.init_session(2))
+    assert torch.equal(p_s, p) and state.acc.dtype == torch.int32
+
+
+def test_unknown_numerics_raises():
+    with pytest.raises(ValueError, match="unknown numerics"):
+        make_pipeline(smoke=True, device="cpu", numerics="int8")
+    pipe = make_pipeline(smoke=True, device="cpu")
+    with pytest.raises(ValueError, match="unknown numerics"):
+        pl.InFilterPipeline(pipe.config._replace(numerics="int8"),
+                            pipe.bp_taps, pipe.lp_taps, pipe.mu, pipe.sigma,
+                            pipe.clf.params, device="cpu")
 
 
 def test_port_imports_no_jax_and_no_reference():
