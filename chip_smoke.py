@@ -38,6 +38,29 @@ nothing of the reference package). Phases, each failing loudly:
 8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int bank kernel
              (11 launches) against the torch-op path: p and phi codes
              exactly equal.
+9. MP kernels — ``mp_linear`` against its plain version at every distinct
+             projection shape of qwen3-8b decode at B = 2 (bf16-rounded
+             layer weights, the f32 head, bf16-rounded activations), and
+             ``mp_waterfill`` through ``ops.mp_waterfill`` at the bank's
+             per-position MP solves of one served wave (256 x 30 x 160
+             rows of 32) and at 8 x 257. Gate: every output within
+             1e-5 * (1 + max |plain|). Kernel ms per decode step (CUDA
+             events), plain ms, bound.
+10. decode — qwen3-8b at full width and depth (36 layers, d_model 4096,
+             vocab 151,936) in MP mode (gamma 8, bf16 compute), f32 masters
+             from a seeded generator on the card, served by
+             ``serve_decode``: batch 2, 4 prompt tokens, 4 generated,
+             greedy. Gates: 253 mp_linear launches per step (7 x 36 + 1),
+             every logit finite, and f32-compute decode steps through the
+             kernel within 1e-3 * max |plain| of the same steps with
+             ``models.layers.mp_linear`` swapped for the plain version
+             (here only): one from an empty cache (pos 0) and one at the
+             first generated position over the prompt's cache (pos 4). The
+             gate's control: the same steps with the kernel solving in 22
+             bisection steps instead of 26 must miss it (24 and 20 are
+             printed too). The bf16 served step's gap at pos 4 is printed,
+             not gated. Bounds count the cheapest exact form of the MP
+             step; the reference algorithm's count is printed beside.
 
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``.
@@ -62,6 +85,11 @@ KERNEL_TOL = 1e-5
 SERVE_TOL = 1e-5
 ONESHOT_PHI_TOL = 1e-4
 ONESHOT_P_TOL = 5e-3
+DECODE_TOL = 1e-3         # x max |plain logit|: the f32 step, kernel vs plain
+CONTROL_ITERS = (24, 22, 20)   # coarser solves of the kernel, the controls
+CONTROL_GATE_ITERS = 22   # ... of which this one must miss the decode gate
+MP_GAMMA = 8.0            # qwen3-8b's mp_gamma
+WATERFILL_GAMMA = 4.0     # the esc10-mp bank's gamma_f
 
 
 def log(obj) -> None:
@@ -121,6 +149,35 @@ def ops_int_dot(M: int, iters: int) -> int:
     adds, compare, 2 selects; then the final sub."""
     mpabs = 2 * M + 1 + iters * (2 + 6 * M + 3)
     return 6 * M + 2 * mpabs + 1
+
+
+def ops_mp_linear(B: int, d: int, O: int, iters: int = 26) -> int:
+    """f32 ops that mp_linear needs on (B, d) x (d, O), counted from the
+    cheapest exact form of a bisection step: a branch's hinge pair
+    [t - mid]_+ + [-t - mid]_+ equals max(|t|, |mid|) - mid, so per
+    (b, o, i) and step each of u = x + w and v = x - w costs its add, abs,
+    max and accumulating add (8 for both). Before the steps, the max pass
+    (u, v, two abs, two max: 6). Per (b, o) and step, for each branch the
+    mid (add, mul), |mid|, d * mid, the subtraction, the compare and two
+    selects (16 for both); then the two final mids and their difference
+    (5). About 214 per (b, o, i)."""
+    return B * O * (d * (6 + 8 * iters) + 16 * iters + 5)
+
+
+def ops_mp_linear_reference(B: int, d: int, O: int, iters: int = 26) -> int:
+    """A side figure, not the bound: f32 ops of the reference's algorithm
+    as its Pallas body (and this port's kernel) runs it: per (b, o, i) the
+    max pass (6) and per step u, v and per branch two hinges (sub, max)
+    and two adds (14); per (b, o) and step the two mids (add, mul), two
+    compares and four selects (10); the final 5. About 370 per (b, o, i)."""
+    return B * O * (d * (6 + 14 * iters) + 10 * iters + 5)
+
+
+def ops_waterfill(R: int, m: int, iters: int = 26) -> int:
+    """f32 ops of mp_waterfill on (R, m): the max (1 per element), per step
+    a sub, max and add per element and mid (add, mul), compare and select
+    per row; then the row's start (sub) and final mid (add, mul)."""
+    return R * (m * (1 + 3 * iters) + 5 * iters + 3)
 
 
 def bound_ms(ops: float, nbytes: float,
@@ -654,6 +711,255 @@ def phase_fixed_oneshot(x, cal):
     return launches
 
 
+# -- the transformer decode slice: qwen3-8b in MP mode -------------------------
+
+
+def qwen3_mp():
+    """qwen3-8b at full width and depth, MP mode, its bf16 compute."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    return dataclasses.replace(get_arch("qwen3-8b"), mp_mode=True,
+                               mp_gamma=MP_GAMMA)
+
+
+def decode_shapes(cfg) -> list:
+    """(d, O, calls per decode step, weights bf16-rounded) for each
+    distinct mp_linear shape of one decode step: the seven projections of
+    every layer (their weights cast to the compute dtype, as the reference
+    casts them) and the f32 LM head."""
+    D, hd = cfg.d_model, cfg.head_dim
+    per_layer = {}
+    for d, O in ((D, cfg.num_heads * hd), (D, cfg.num_kv_heads * hd),
+                 (D, cfg.num_kv_heads * hd), (cfg.num_heads * hd, D),
+                 (D, cfg.d_ff), (D, cfg.d_ff), (cfg.d_ff, D)):
+        per_layer[(d, O)] = per_layer.get((d, O), 0) + 1
+    return ([(d, O, n * cfg.num_layers, True)
+             for (d, O), n in per_layer.items()]
+            + [(D, cfg.padded_vocab, 1, False)])
+
+
+def phase_mp_kernels(cfg):
+    """mp_linear vs plain at every decode shape (B = 2), summed per decode
+    step; mp_waterfill through ``ops.mp_waterfill`` at one served wave's
+    bank solves, whose launch is counted as that op's path (no model path
+    calls it, as in the reference), then vs plain there and at 8 x 257."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+                                                mp_waterfill_kernel)
+    from repro_torch.kernels.ops import mp_waterfill
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    B = 2
+    lin = dict(name="mp_linear", max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    ops, ops_ref, nbytes, shapes = 0.0, 0.0, 0.0, []
+    for d, O, n, rounded in decode_shapes(cfg):
+        x = torch.randn(B, d, generator=g, device=dev).bfloat16().float()
+        w = torch.randn(d, O, generator=g, device=dev).mul_(d ** -0.5)
+        if rounded:
+            w = w.bfloat16().float()
+        got = mp_linear_kernel(x, w, MP_GAMMA)
+        want = ref.mp_linear(x, w, MP_GAMMA)
+        err, tol = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"mp_linear d={d} O={O}: max |diff| {err} "
+                                 f"> {tol}")
+        k_ms = cuda_ms(lambda: mp_linear_kernel(x, w, MP_GAMMA),
+                       3 if O > 50000 else 10)
+        p_ms = cuda_ms(lambda: ref.mp_linear(x, w, MP_GAMMA), 1)
+        b_ms, _ = bound_ms(ops_mp_linear(B, d, O), 4 * (B * d + d * O + B * O))
+        shapes.append(dict(d=d, O=O, calls_per_step=n, ms=k_ms, plain_ms=p_ms,
+                           bound_ms=b_ms, max_abs_err=err))
+        lin["max_abs_err"] = max(lin["max_abs_err"], err)
+        lin["ms"] += n * k_ms
+        lin["plain_ms"] += n * p_ms
+        ops += n * ops_mp_linear(B, d, O)
+        ops_ref += n * ops_mp_linear_reference(B, d, O)
+        nbytes += n * 4 * (B * d + d * O + B * O)
+    lin["bound_ms"], lin["bound_by"] = bound_ms(ops, nbytes)
+    lin["bound_ms_reference_algorithm"] = bound_ms(ops_ref, nbytes)[0]
+    lin["shapes"] = f"B={B}, per decode step: {shapes}"
+    log({"kernel_vs_plain": lin})
+
+    # mp_waterfill: the op's own path, counted, at one wave's bank solves
+    S, F, L, m = 256, 30, 160, 32
+    Lw = torch.randn(S, F, L, m, generator=g, device=dev).mul_(3.0)
+    reset_launches()
+    z = mp_waterfill(Lw, WATERFILL_GAMMA)
+    launches = LAUNCHES["mp_waterfill"]
+    if launches != 1 or tuple(z.shape) != (S, F, L):
+        raise AssertionError(f"ops.mp_waterfill: {launches} launches, shape "
+                             f"{tuple(z.shape)}")
+    L2 = Lw.reshape(-1, m)
+    R = L2.shape[0]
+    wf = dict(name="mp_waterfill", max_abs_err=0.0)
+    for Lc in (L2, torch.randn(8, 257, generator=g, device=dev) * 3):
+        err, tol = max_err(mp_waterfill_kernel(Lc, WATERFILL_GAMMA),
+                           ref.mp_waterfill(Lc, WATERFILL_GAMMA))
+        if not err <= tol:
+            raise AssertionError(f"mp_waterfill {tuple(Lc.shape)}: max "
+                                 f"|diff| {err} > {tol}")
+        wf["max_abs_err"] = max(wf["max_abs_err"], err)
+    err, _ = max_err(z.reshape(-1), ref.mp_waterfill(L2, WATERFILL_GAMMA))
+    wf["max_abs_err"] = max(wf["max_abs_err"], err)
+    wf["ms"] = cuda_ms(lambda: mp_waterfill_kernel(L2, WATERFILL_GAMMA), 20)
+    wf["plain_ms"] = cuda_ms(lambda: ref.mp_waterfill(L2, WATERFILL_GAMMA), 2)
+    wf["bound_ms"], wf["bound_by"] = bound_ms(ops_waterfill(R, m),
+                                              4 * (R * m + R))
+    wf["shapes"] = f"R={R} m={m}; 8 x 257"
+    wf["launches_here"] = launches
+    log({"kernel_vs_plain": wf})
+    return lin, wf
+
+
+def phase_decode(cfg):
+    """Serve qwen3-8b (MP mode) on the card, then hold decode steps
+    through the kernel against the plain version."""
+    import contextlib
+    import dataclasses
+    from unittest import mock
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
+    from repro_torch.launch.serve import serve_decode
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(params)
+    per_step = 7 * cfg.num_layers + 1
+    B, prompt_len, gen = 2, 4, 4
+    serve_decode(cfg, params, B, 1, 0, seed=1)            # warm-up
+    reset_launches()
+    res = serve_decode(cfg, params, B, prompt_len, gen, seed=0)
+    launches = LAUNCHES["mp_linear"]
+    steps = prompt_len + gen
+    if launches != per_step * steps:
+        raise AssertionError(f"mp_linear launched {launches} times in "
+                             f"{steps} steps (want {per_step} per step)")
+    for i, lg in enumerate(res.logits):
+        if tuple(lg.shape) != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"step {i}: logits {tuple(lg.shape)} not "
+                                 "finite / of the wrong shape")
+
+    prompts = torch.as_tensor(res.prompts, dtype=torch.int32, device=dev)
+    first = torch.as_tensor(res.tokens[:, :1], dtype=torch.int32, device=dev)
+
+    def at(i):
+        return torch.full((B,), i, dtype=torch.int32, device=dev)
+
+    def prompt_cache(c, n):
+        """A cache of prompt_len + 1 slots holding the first n prompt
+        tokens, decoded through the kernel."""
+        cache = T.init_cache(c, B, prompt_len + 1, device=dev)
+        with torch.no_grad():
+            for i in range(n):
+                _, cache = T.decode_step(params, c, prompts[:, i:i + 1],
+                                         cache, at(i))
+        return cache
+
+    def step_at(c, cache, tok, i, mp=None):
+        """Logits of one step at position i from a copy of ``cache``;
+        ``mp`` stands in for ``models.layers.mp_linear`` if given."""
+        cache = {"scan": [{k: v.clone() for k, v in lc.items()}
+                          for lc in cache["scan"]], "prefix": []}
+        swap = (mock.patch.object(layers, "mp_linear", mp) if mp
+                else contextlib.nullcontext())
+        with torch.no_grad(), swap:
+            logits, _ = T.decode_step(params, c, tok, cache, at(i))
+        torch.cuda.synchronize()
+        return logits.float()
+
+    # a served step at the first generated position, profiled
+    served = prompt_cache(cfg, prompt_len)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step_at(cfg, served, first, prompt_len)
+    kern_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and "mp_linear_kernel" in e.key)
+    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
+                  for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA)
+
+    def plain(x, w, gamma):
+        y = ref.mp_linear(x.reshape(-1, x.shape[-1]), w, gamma)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+
+    def coarse(iters):
+        def mp(x, w, gamma):
+            return ops.mp_linear(x, w, gamma, iters=iters)
+        return mp
+
+    def gap(got, want) -> float:
+        return float((got - want).abs().max() / want.abs().max())
+
+    # kernel vs plain: f32 compute from an empty cache (pos 0) and at the
+    # first generated position over the prompt's cache, each gated, with
+    # coarser solves of the kernel as the gate's controls; the bf16 served
+    # step at the same later position, reported
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    checks = []
+    for name, c, i in (("f32", c32, 0), ("f32", c32, prompt_len),
+                       ("bf16", cfg, prompt_len)):
+        cache = prompt_cache(c, i)
+        tok = prompts[:, :1] if i == 0 else first
+        t0 = time.perf_counter()
+        got = step_at(c, cache, tok, i)
+        k_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = step_at(c, cache, tok, i, plain)
+        p_s = time.perf_counter() - t0
+        row = dict(compute=name, pos=i,
+                   max_abs_diff=float((got - want).abs().max()),
+                   max_abs_plain=float(want.abs().max()),
+                   rel=gap(got, want), kernel_step_s=k_s, plain_step_s=p_s)
+        if name == "f32":
+            row["control_rel"] = {
+                it: gap(step_at(c, cache, tok, i, coarse(it)), want)
+                for it in CONTROL_ITERS}
+        checks.append(row)
+    log({"decode_step_vs_plain": checks})
+    for row in checks:
+        if row["compute"] != "f32":
+            continue
+        if not row["rel"] <= DECODE_TOL:
+            raise AssertionError(f"f32 decode step at pos {row['pos']}, "
+                                 f"kernel vs plain: {row['max_abs_diff']} > "
+                                 f"{DECODE_TOL} x {row['max_abs_plain']}")
+        if not row["control_rel"][CONTROL_GATE_ITERS] > DECODE_TOL:
+            raise AssertionError(
+                f"the decode gate cannot tell a {CONTROL_GATE_ITERS}-step "
+                f"solve from the kernel at pos {row['pos']}: "
+                f"{row['control_rel']}")
+    out = dict(phase="decode", arch=cfg.name, layers=cfg.num_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size, mp_mode=True,
+               mp_gamma=cfg.mp_gamma, compute_dtype=cfg.compute_dtype,
+               batch=B, prompt_len=prompt_len, gen=gen,
+               params=n_params, param_bytes=4 * n_params, init_s=init_s,
+               prefill_ms=res.prefill_s * 1e3,
+               prefill_ms_per_step=res.prefill_s * 1e3 / prompt_len,
+               decode_ms_per_step=res.decode_s * 1e3 / gen,
+               tokens_per_s=B * gen / res.decode_s,
+               mp_linear_launches=launches,
+               mp_linear_launches_per_step=launches / steps,
+               mp_linear_device_ms_per_step=kern_us * 1e-3,
+               device_busy_ms_per_step=busy_us * 1e-3,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               generated=res.tokens.tolist())
+    log(out)
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -694,6 +1000,10 @@ def main() -> int:
     fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
 
+    qwen = qwen3_mp()
+    lin_row, wf_row = phase_mp_kernels(qwen)
+    decode_launches = phase_decode(qwen)
+
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(stream_row, route="cuda", source=src + "fir_mp_stream.cu",
@@ -713,6 +1023,12 @@ def main() -> int:
         dict(int_stream_row, route="cuda", source=src + "fir_mp_stream_q.cu",
              replaces="src/repro/kernels/fir_mp.py:682",
              launches=fixed_serve_launches, library_ms=None),
+        dict(lin_row, route="cuda", source=src + "mp_linear.cu",
+             replaces="src/repro/kernels/mp_linear.py:89",
+             launches=decode_launches, library_ms=None),
+        dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
+             replaces="src/repro/kernels/mp_waterfill.py:46",
+             launches=wf_row["launches_here"], library_ms=None),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -18,7 +18,17 @@ port's objects from them; it imports no JAX.
 * :func:`program_to_numpy` / :func:`program_from_numpy` — a compiled
   ``FixedPointProgram`` as nested dicts of numpy arrays and ints, field by
   field. ``program_to_numpy`` reads attributes, so it takes the
-  reference's program as well as the port's.
+  reference's program as well as the port's;
+* :func:`arch_params_from_numpy` / :func:`arch_params_to_numpy` — a
+  transformer's params: the reference's nested dict, whose ``layers``
+  leaves are stacked on a leading axis (``jax.vmap`` over layers), against
+  the port's list of per-layer dicts;
+* :func:`attn_cache_from_numpy` / :func:`attn_cache_to_numpy` — the decode
+  cache ``{"scan": {"k", "v", "pos"}, "prefix": [...]}``, stacked there,
+  per layer here.
+
+bfloat16 arrays (``ml_dtypes.bfloat16``, as ``np.asarray`` gives them for
+a bf16 JAX array) cross bit for bit.
 """
 
 from __future__ import annotations
@@ -36,7 +46,9 @@ from repro_torch.core.quant import FixedPointSpec
 from repro_torch.device import resolve_device
 
 __all__ = ["config_from_fields", "pipeline_from_numpy", "session_from_numpy",
-           "session_to_numpy", "program_to_numpy", "program_from_numpy"]
+           "session_to_numpy", "program_to_numpy", "program_from_numpy",
+           "arch_params_from_numpy", "arch_params_to_numpy",
+           "attn_cache_from_numpy", "attn_cache_to_numpy"]
 
 
 def config_from_fields(fields) -> FilterBankConfig:
@@ -137,3 +149,91 @@ def program_from_numpy(tree: dict) -> fixed.FixedPointProgram:
                 kw[f.name] = v
         return cls(**kw)
     return build(tree, fixed.FixedPointProgram)
+
+
+# ---------------------------------------------------------------------------
+# transformer params and decode caches
+# ---------------------------------------------------------------------------
+
+
+def _to_tensor(a, dev) -> torch.Tensor:
+    """A numpy array as a tensor on ``dev``; bfloat16 by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(a).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes   # numpy's bfloat16, as JAX's arrays carry it
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, v) for v in tree]
+    return fn(tree)
+
+
+def _unstack(tree, n: int, dev) -> list:
+    """A tree with leaves stacked on axis 0 -> n trees of tensors."""
+    return [_tree_map(lambda a, i=i: _to_tensor(np.asarray(a)[i], dev), tree)
+            for i in range(n)]
+
+
+def _stack(trees: list):
+    """n trees of tensors -> one tree of numpy leaves stacked on axis 0."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([_to_numpy(t) for t in trees])
+
+
+def _stacked_len(tree) -> int:
+    while isinstance(tree, dict):
+        tree = next(iter(tree.values()))
+    return np.asarray(tree).shape[0]
+
+
+def arch_params_from_numpy(tree: dict, cfg, device=None) -> dict:
+    """The reference's transformer params (numpy leaves, ``layers`` stacked
+    on axis 0) as the port's: ``layers`` a list of ``cfg``'s per-layer
+    dicts, everything else as is, on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for k, v in tree.items():
+        if k == "layers":
+            n = _stacked_len(v)
+            want = cfg.num_layers - cfg.first_dense_layers
+            if n != want:
+                raise ValueError(f"{n} stacked layers, {cfg.name} has {want}")
+            out[k] = _unstack(v, n, dev)
+        else:
+            out[k] = _tree_map(lambda a: _to_tensor(a, dev), v)
+    return out
+
+
+def arch_params_to_numpy(params: dict) -> dict:
+    """The inverse of :func:`arch_params_from_numpy`."""
+    return {k: (_stack(v) if k == "layers" else _tree_map(_to_numpy, v))
+            for k, v in params.items()}
+
+
+def attn_cache_from_numpy(tree: dict, device=None) -> dict:
+    """The reference's decode cache ``{"scan": {"k", "v", "pos"} stacked on
+    axis 0, "prefix": [...]}`` as the port's (``scan`` a list per layer)."""
+    dev = resolve_device(device)
+    return {"scan": _unstack(tree["scan"], _stacked_len(tree["scan"]), dev),
+            "prefix": [_tree_map(lambda a: _to_tensor(a, dev), c)
+                       for c in tree.get("prefix", [])]}
+
+
+def attn_cache_to_numpy(cache: dict) -> dict:
+    """The inverse of :func:`attn_cache_from_numpy`."""
+    return {"scan": _stack(cache["scan"]),
+            "prefix": [_tree_map(_to_numpy, c) for c in cache["prefix"]]}

@@ -33,6 +33,7 @@ __all__ = [
     "mp_dot",
     "mp_conv1d",
     "mp_conv1d_bank",
+    "mp_linear",
     "DEFAULT_BISECT_ITERS",
     "DEFAULT_NEWTON_ITERS",
 ]
@@ -151,6 +152,34 @@ def mp_dot(x: torch.Tensor, w: torch.Tensor, gamma,
            exact: bool = True) -> torch.Tensor:
     """Multiplierless <x, w> (paper eq. 9): mpabs(w + x) - mpabs(w - x)."""
     return mpabs(w + x, gamma, exact=exact) - mpabs(w - x, gamma, exact=exact)
+
+
+def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma,
+              b: torch.Tensor | None = None, exact: bool = True,
+              block_out: int = 128) -> torch.Tensor:
+    """Multiplierless (..., d) @ (d, O): y[..., o] = mpabs(w[:, o] + x)
+    - mpabs(w[:, o] - x), eq. 9 per output.
+
+    The pure path: blocks of ``block_out`` outputs bound the
+    (..., block_out, d) operand tensor. ``exact`` picks the sort-based
+    solver, else bisection; the CUDA kernel behind ``kernels.ops.mp_linear``
+    is the production path.
+    """
+    d, out = w.shape
+    if x.shape[-1] != d:
+        raise ValueError(f"x (..., {x.shape[-1]}) does not match w "
+                         f"{tuple(w.shape)}")
+
+    def block(wb):  # (d, bo) -> (..., bo)
+        u = wb.T + x[..., None, :]
+        v = wb.T - x[..., None, :]
+        return mpabs(u, gamma, exact=exact) - mpabs(v, gamma, exact=exact)
+
+    y = torch.cat([block(w[:, o:o + block_out])
+                   for o in range(0, out, block_out)], dim=-1)
+    if b is not None:
+        y = y + b
+    return y
 
 
 def _mp_dot_fast(x: torch.Tensor, w: torch.Tensor, gamma,

@@ -1,12 +1,17 @@
-"""Hand-written CUDA kernels for the MP FIR hot spots, and their wrappers.
+"""Hand-written CUDA kernels for the MP hot spots, and their wrappers.
 
 Layers, as in the reference's ``repro.kernels``:
-  csrc/*.cu  - the CUDA C++ sources for Hopper (sm_90a), plain C interface
-  _build.py  - nvcc at first use into a gitignored directory, ctypes load
-  fir_mp.py  - one wrapper per kernel: launch for CUDA tensors, the plain
-               version for CPU tensors, launch counters (``LAUNCHES``)
-  ops.py     - public wrappers: leading dims, the per-octave stream cascade
-  ref.py     - the plain PyTorch versions
+  csrc/*.cu     - the CUDA C++ sources for Hopper (sm_90a), plain C
+                  interface
+  _build.py     - nvcc at first use into a gitignored directory, ctypes load
+  _wrap.py      - what every wrapper shares: the launch counters
+                  (``LAUNCHES``) and the checks before a launch
+  fir_mp.py     - one wrapper per FIR kernel: launch for CUDA tensors, the
+                  plain version for CPU tensors
+  mp_kernels.py - the same for the two MP solve kernels
+  ops.py        - public wrappers: leading dims, the per-octave stream
+                  cascade, the forward-only ``mp_linear``
+  ref.py        - the plain PyTorch versions
 
 Kernels:
   fir_mp_stream_octave - one octave of the float session step (delay line,
@@ -17,9 +22,12 @@ Kernels:
   fir_mp_stream_octave_q / fir_mp_bank_q - the integer twins of the two:
                  the fixed-point datapath (integer MP bisection, shift/add/
                  compare only), bit for bit ``core.fixed``'s torch ops
+  mp_linear    - the fused multiplierless matrix product of eq. 9, every
+                 MP-mode projection of the transformer (``models.layers``)
+  mp_waterfill - row-wise reverse water-filling z = MP(L, gamma)
 """
 
-from repro_torch.kernels.fir_mp import LAUNCHES, reset_launches  # noqa: F401
+from repro_torch.kernels._wrap import LAUNCHES, reset_launches  # noqa: F401
 from repro_torch.kernels.ops import (  # noqa: F401
     fir_mp,
     fir_mp_accumulate,
@@ -29,4 +37,6 @@ from repro_torch.kernels.ops import (  # noqa: F401
     fir_mp_bank_q_accumulate,
     fir_mp_stream,
     fir_mp_stream_q,
+    mp_linear,
+    mp_waterfill,
 )

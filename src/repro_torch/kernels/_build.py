@@ -27,7 +27,7 @@ __all__ = ["SOURCES", "build_all", "load", "nvcc_path", "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fir_mp_stream", "fir_mp_bank", "fir_mp_stream_q",
-           "fir_mp_bank_q")
+           "fir_mp_bank_q", "mp_linear", "mp_waterfill")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,6 +41,8 @@ SIGNATURES = {
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
                         [_P] * 13 + [_I] * 5 + [_P]),
     "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
+    "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 3 + [_F, _I, _P]),
+    "mp_waterfill": ("mp_waterfill_launch", [_P] * 2 + [_I] * 2 + [_F, _I, _P]),
 }
 
 _LIBS: dict = {}

@@ -20,8 +20,7 @@ kernels take int32 codes (the hardware path); their plain versions also
 take codes carried in float32, which on the card raise (ROADMAP.md §2,
 "f32-carried codes through the CUDA int kernels").
 
-``LAUNCHES`` counts kernel launches per wrapper (one per wrapper call that
-launched its kernel), so a run can show that its path went through them.
+Each launch is counted in ``kernels._wrap.LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -31,47 +30,13 @@ import torch
 
 from repro_torch.core.filterbank import accumulate_block_len
 from repro_torch.kernels import ref
+from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
+                                       _on_cuda, _stream)
 
-__all__ = ["LAUNCHES", "reset_launches", "fir_mp_stream_octave",
-           "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_stream_octave_q",
-           "fir_mp_bank_q_kernel"]
-
-LAUNCHES = {"fir_mp_stream_octave": 0, "fir_mp_bank": 0, "fir_mp": 0,
-            "fir_mp_stream_octave_q": 0, "fir_mp_bank_q": 0}
+__all__ = ["fir_mp_stream_octave", "fir_mp_bank_kernel", "fir_mp_kernel",
+           "fir_mp_stream_octave_q", "fir_mp_bank_q_kernel"]
 
 _SOLVERS = {"newton": 0, "bisect": 1}
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
-def _on_cuda(*tensors) -> bool:
-    """True for CUDA tensors (all on one card), False for CPU ones; raises
-    otherwise or on a mix."""
-    devices = {t.device for t in tensors}
-    if {d.type for d in devices} == {"cpu"}:
-        return False
-    if len(devices) == 1 and next(iter(devices)).type == "cuda":
-        return True
-    got = sorted(map(str, devices))
-    raise ValueError(f"the MP FIR kernels take all-CUDA (one card) or "
-                     f"all-CPU tensors, got devices {got}")
-
-
-def _expect(name: str, t: torch.Tensor, shape: tuple) -> None:
-    """The kernels index by these shapes: refuse anything else before a
-    pointer reaches them."""
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-
-
-def _f32(t: torch.Tensor, name: str) -> torch.Tensor:
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    return t.contiguous()
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -94,19 +59,6 @@ def _host_codes(a) -> np.ndarray:
     if isinstance(a, torch.Tensor):
         a = a.detach().cpu().numpy()
     return np.ascontiguousarray(np.asarray(a), dtype=np.int32)
-
-
-def _check(code: int, kernel: str, shapes: str) -> None:
-    if code == -1:
-        raise ValueError(f"{kernel}: shapes outside what the kernel takes "
-                         f"({shapes})")
-    if code != 0:
-        raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError "
-                           f"{code} ({shapes})")
-
-
-def _stream() -> int:
-    return torch.cuda.current_stream().cuda_stream
 
 
 def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,

@@ -1,9 +1,9 @@
-"""Public wrappers around the MP FIR kernels: leading batch dims, layouts,
+"""Public wrappers around the port's kernels: leading batch dims, layouts,
 and the per-octave cascade of the session step.
 
-Every function here reaches a kernel wrapper in ``kernels.fir_mp``, which
-launches the CUDA kernel for CUDA tensors and runs the plain PyTorch
-version for CPU tensors.
+Every function here reaches a kernel wrapper in ``kernels.fir_mp`` or
+``kernels.mp_kernels``, which launches the CUDA kernel for CUDA tensors
+and runs the plain PyTorch version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -14,11 +14,38 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_bank_q_kernel, fir_mp_kernel,
                                          fir_mp_stream_octave,
                                          fir_mp_stream_octave_q)
+from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+                                            mp_waterfill_kernel)
 from repro_torch.kernels.ref import DEFAULT_ITERS
 
-__all__ = ["fir_mp", "fir_mp_accumulate", "fir_mp_bank",
-           "fir_mp_bank_accumulate", "fir_mp_stream", "fir_mp_bank_q",
-           "fir_mp_bank_q_accumulate", "fir_mp_stream_q"]
+__all__ = ["mp_waterfill", "mp_linear", "fir_mp", "fir_mp_accumulate",
+           "fir_mp_bank", "fir_mp_bank_accumulate", "fir_mp_stream",
+           "fir_mp_bank_q", "fir_mp_bank_q_accumulate", "fir_mp_stream_q"]
+
+
+def mp_waterfill(L: torch.Tensor, gamma, *,
+                 iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """z = MP(L, gamma) along the last axis; any leading batch shape."""
+    z = mp_waterfill_kernel(L.reshape(-1, L.shape[-1]), gamma, iters)
+    return z.reshape(L.shape[:-1])
+
+
+def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, *,
+              iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """Multiplierless (..., d) @ (d, O) through the fused kernel.
+
+    Forward only: the reference's custom VJP becomes a
+    ``torch.autograd.Function`` with the training slice (ROADMAP.md), so
+    until then a call that autograd would have to differentiate raises
+    rather than silently detaching.
+    """
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        raise RuntimeError(
+            "ops.mp_linear is forward only: its gradient (the reference's "
+            "custom VJP) comes with the training slice (ROADMAP.md); run "
+            "it under torch.no_grad() or on tensors without requires_grad")
+    y = mp_linear_kernel(x.reshape(-1, x.shape[-1]), w, gamma, iters)
+    return y.reshape(*x.shape[:-1], w.shape[1])
 
 
 def fir_mp(x: torch.Tensor, h: torch.Tensor, gamma, *,

@@ -25,10 +25,12 @@ from repro_torch.core.filterbank import accumulate_block_len
 __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_bank_accumulate", "fir_mp", "fir_mp_accumulate",
            "fir_mp_stream_octave", "tile_sum", "fir_mp_bank_q",
-           "fir_mp_bank_q_accumulate", "fir_mp_stream_octave_q"]
+           "fir_mp_bank_q_accumulate", "fir_mp_stream_octave_q",
+           "mp_waterfill", "mp_linear"]
 
-DEFAULT_ITERS = 26   # bisection steps of the one-shot bank kernel
+DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
 BANK_TILE = 256      # positions per CTA of the bank kernel
+LINEAR_BLOCK = 1 << 25   # mp_linear: elements of one (B, O_blk, d) operand
 
 
 def tile_sum(h: torch.Tensor, tile: int = BANK_TILE) -> torch.Tensor:
@@ -251,3 +253,60 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
     if emit_next:
         y_next = torch.cat(y_next, dim=1)[:, :(L + 1) // 2]
     return acc, delay, amax, (y_next if emit_next else None)
+
+
+# ---------------------------------------------------------------------------
+# the MP solve kernels: mp_waterfill and mp_linear
+# ---------------------------------------------------------------------------
+
+
+def mp_waterfill(L: torch.Tensor, gamma,
+                 iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """L (R, m) -> z (R,) = MP(L, gamma) per row, by the kernel's
+    bisection: ``hi = max L``, ``lo = hi - gamma``, ``iters`` halvings on
+    ``sum [L - mid]_+ > gamma``. Solved in float32 whatever L's dtype (the
+    kernel too); the result comes back in L's dtype."""
+    Lf = L.float()
+    hi = Lf.amax(-1)
+    lo = hi - gamma
+    for _ in range(iters):
+        mid = (lo + hi) * 0.5
+        too_low = torch.clamp_min(Lf - mid[:, None], 0).sum(-1) > gamma
+        lo = torch.where(too_low, mid, lo)
+        hi = torch.where(too_low, hi, mid)
+    return ((lo + hi) * 0.5).to(L.dtype)
+
+
+def _mpabs_bisect(u: torch.Tensor, gamma, iters: int) -> torch.Tensor:
+    """MP([u; -u], gamma) over the last axis as the mp_linear kernel
+    solves it: ``hi = max |u|``, then the two-sided hinge sum per step."""
+    nu = -u
+    hi = u.abs().amax(-1)
+    lo = hi - gamma
+    for _ in range(iters):
+        mid = (lo + hi) * 0.5
+        m = mid[..., None]
+        h = (torch.clamp_min(u - m, 0).sum(-1)
+             + torch.clamp_min(nu - m, 0).sum(-1))
+        too_low = h > gamma
+        lo = torch.where(too_low, mid, lo)
+        hi = torch.where(too_low, hi, mid)
+    return (lo + hi) * 0.5
+
+
+def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma,
+              iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """x (B, d), w (d, O) -> y (B, O), y[b, o] = z_u - z_v with
+    u = x[b] + w[:, o], v = x[b] - w[:, o], each z by the kernel's joint
+    bisection. Blocked over O so the (B, O_blk, d) operands stay within
+    ``LINEAR_BLOCK`` elements (the head's O = 152,064 included)."""
+    B, d = x.shape
+    O = w.shape[1]
+    ob = max(1, min(O, LINEAR_BLOCK // max(1, B * d)))
+    out = []
+    for o in range(0, O, ob):
+        wb = w[:, o:o + ob].T[None]                    # (1, ob, d)
+        xb = x[:, None, :]
+        out.append(_mpabs_bisect(xb + wb, gamma, iters)
+                   - _mpabs_bisect(xb - wb, gamma, iters))
+    return torch.cat(out, dim=-1)

@@ -22,6 +22,9 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_bank_q_kernel, fir_mp_kernel,
                                         fir_mp_stream_octave,
                                         fir_mp_stream_octave_q)
+from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+                                            mp_waterfill_kernel)
+from repro_torch.kernels.ops import mp_linear as mp_linear_op
 from repro_torch.serving import StreamServer
 
 pytestmark = pytest.mark.cuda
@@ -226,3 +229,87 @@ def test_fixed_served_codes_equal_oneshot_on_the_card(dev, clips, impl):
                              use_pallas=True)
     _exact(server.state.acc, s_q)
     _exact(torch.round(p / prog.out_spec.scale).to(torch.int32), p_q)
+
+
+# ---------------------------------------------------------------------------
+# the MP solve kernels and the transformer decode step
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,d,O", [(1, 300, 37), (3, 1000, 131),
+                                   (5, 129, 8), (2, 4096, 1024),
+                                   (2, 12288, 100), (2, 20000, 9)])
+def test_mp_linear_kernel_matches_plain(dev, B, d, O):
+    """Odd shapes (O off the column tile, d off the thread count, B = 1,
+    a ragged batch tile), a decode shape (d = 4096, the k projection), the
+    down projection's d and a d too wide for the resident w tile."""
+    rng = np.random.default_rng(B * d + O)
+    x = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d, O))
+                          / np.sqrt(d)).astype(np.float32))
+    x, w = x.to(dev), w.to(dev)
+    reset_launches()
+    got = mp_linear_kernel(x, w, 8.0)
+    assert LAUNCHES["mp_linear"] == 1 and tuple(got.shape) == (B, O)
+    _close(got, ref.mp_linear(x, w, 8.0))
+
+
+def test_mp_linear_op_on_the_card(dev):
+    x = torch.randn(2, 3, 64, device=dev)
+    w = torch.randn(64, 5, device=dev) / 8
+    y = mp_linear_op(x, w, 4.0)
+    assert tuple(y.shape) == (2, 3, 5)
+    _close(y, ref.mp_linear(x.reshape(6, 64), w, 4.0).reshape(2, 3, 5))
+    with pytest.raises(TypeError, match="float32"):
+        mp_linear_kernel(x[0].bfloat16(), w, 4.0)
+
+
+@pytest.mark.parametrize("R,m", [(1, 8), (7, 100), (33, 257), (5, 2000),
+                                 (4096, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mp_waterfill_kernel_matches_plain(dev, R, m, dtype):
+    """Rows in one, several and sixteen registers per lane, a row longer
+    than the register path (m > 1024), and the bank's m = 32."""
+    L = torch.from_numpy(np.random.default_rng(R + m).standard_normal(
+        (R, m)).astype(np.float32) * 3).to(dev).to(dtype)
+    reset_launches()
+    got = mp_waterfill_kernel(L, 4.0)
+    assert LAUNCHES["mp_waterfill"] == 1 and got.dtype == dtype
+    want = ref.mp_waterfill(L, 4.0)
+    if dtype == torch.float32:
+        _close(got, want)
+    else:   # both solve in float32; rounding to bf16 may differ by an ulp
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), atol=0,
+                                   rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_decode_step_through_the_kernel_matches_plain(dev, compute_dtype):
+    """qwen3-8b at its smoke size, MP mode: one decode step on the card
+    (7 projections x 3 layers + the head = 22 launches) against the same
+    params on the CPU, where every projection runs the plain version."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_smoke("qwen3-8b"), mp_mode=True,
+                              compute_dtype=compute_dtype)
+    params = T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    on_dev = {k: ([{n: {m: t.to(dev) for m, t in sub.items()}
+                    for n, sub in layer.items()} for layer in v]
+                  if k == "layers" else
+                  (v.to(dev) if isinstance(v, torch.Tensor)
+                   else {m: t.to(dev) for m, t in v.items()}))
+              for k, v in params.items()}
+    tok = torch.tensor([[3], [7]], dtype=torch.int32)
+    pos = torch.zeros(2, dtype=torch.int32)
+    want, _ = T.decode_step(params, cfg, tok, T.init_cache(cfg, 2, 2,
+                                                           device="cpu"), pos)
+    reset_launches()
+    got, _ = T.decode_step(on_dev, cfg, tok.to(dev),
+                           T.init_cache(cfg, 2, 2, device=dev), pos.to(dev))
+    assert LAUNCHES["mp_linear"] == 7 * 3 + 1
+    tol = 1e-4 if compute_dtype == "float32" else 3e-2
+    torch.cuda.synchronize()
+    bound = tol * (1 + float(want.float().abs().max()))
+    assert float((got.float().cpu() - want.float()).abs().max()) <= bound
