@@ -39,8 +39,15 @@ nothing of the reference package). Phases, each failing loudly:
              (11 launches) against the torch-op path: p and phi codes
              exactly equal.
 9. MP kernels — ``mp_linear`` against its plain version at every distinct
-             projection shape of qwen3-8b decode at B = 2 (bf16-rounded
-             layer weights, the f32 head, bf16-rounded activations), and
+             projection shape of qwen3-8b decode at B = 2, on the dtypes
+             ``decode_step`` gives it (bf16 layer weights read as they
+             are, the f32 head, bf16-valued f32 activations; the plain
+             version gets ``w.float()``), with the tile each shape takes
+             (BB, TO, CTAs, CTAs per SM, waves), its time with no
+             bisection step (staging, max pass, launch), the SASS census
+             of its hot loop (FP32 and all instructions per (b, o, i) per
+             step), and a sweep of every tile width that fits each shape
+             (each held to the same gate, its time and waves printed), and
              ``mp_waterfill`` through ``ops.mp_waterfill`` at the bank's
              per-position MP solves of one served wave (256 x 30 x 160
              rows of 32) and at 8 x 257. Gate: every output within
@@ -54,11 +61,13 @@ nothing of the reference package). Phases, each failing loudly:
              every logit finite, and f32-compute decode steps through the
              kernel within 1e-3 * max |plain| of the same steps with
              ``models.layers.mp_linear`` swapped for the plain version
-             (here only): one from an empty cache (pos 0) and one at the
-             first generated position over the prompt's cache (pos 4). The
-             gate's control: the same steps with the kernel solving in 22
-             bisection steps instead of 26 must miss it (24 and 20 are
-             printed too). The bf16 served step's gap at pos 4 is printed,
+             (here only): one from an empty cache (pos 0), one at the
+             first generated position over the prompt's cache (pos 4), and
+             that one again with the layers' projections held as the bf16
+             tensors the served step casts them to, so that the kernel
+             reads bf16 w as when served. The gate's control: the same
+             steps with the kernel solving in 22 bisection steps instead
+             of 26 must miss it (24 and 20 are printed too). The bf16 served step's gap at pos 4 is printed,
              not gated. Bounds count the cheapest exact form of the MP
              step; the reference algorithm's count is printed beside.
 
@@ -70,6 +79,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -153,15 +163,17 @@ def ops_int_dot(M: int, iters: int) -> int:
 
 def ops_mp_linear(B: int, d: int, O: int, iters: int = 26) -> int:
     """f32 ops that mp_linear needs on (B, d) x (d, O), counted from the
-    cheapest exact form of a bisection step: a branch's hinge pair
-    [t - mid]_+ + [-t - mid]_+ equals max(|t|, |mid|) - mid, so per
-    (b, o, i) and step each of u = x + w and v = x - w costs its add, abs,
-    max and accumulating add (8 for both). Before the steps, the max pass
-    (u, v, two abs, two max: 6). Per (b, o) and step, for each branch the
-    mid (add, mul), |mid|, d * mid, the subtraction, the compare and two
-    selects (16 for both); then the two final mids and their difference
-    (5). About 214 per (b, o, i)."""
-    return B * O * (d * (6 + 8 * iters) + 16 * iters + 5)
+    cheapest exact form of a bisection step, the one the kernel runs: a
+    branch's hinge pair [t - mid]_+ + [-t - mid]_+ equals
+    max(|t| - |mid|, 0), plus 2 |mid| when mid < 0, so per (b, o, i) and
+    step each of u = x + w and v = x - w costs its add, the subtraction
+    of |mid| from |t|, the max with 0 and the accumulating add (8 for
+    both; abs is an operand modifier). Before the steps, the max pass
+    (u, v and a max of each |.|: 4). Per (b, o) and step, for each branch
+    the mid (add, mul), |mid|, the compare with 0, 2 d |mid| and its add,
+    the compare with gamma and two selects (16 for both); then the two
+    final mids and their difference (5). About 212 per (b, o, i)."""
+    return B * O * (d * (4 + 8 * iters) + 16 * iters + 5)
 
 
 def ops_mp_linear_reference(B: int, d: int, O: int, iters: int = 26) -> int:
@@ -190,15 +202,95 @@ def bound_ms(ops: float, nbytes: float,
 # -- phases ------------------------------------------------------------------
 
 
+def ptxas_report(text: str) -> dict:
+    """{entry function: (registers, spill store bytes, spill load bytes)}
+    from nvcc's ``-Xptxas -v`` output."""
+    out, entry, spills = {}, None, (0, 0)
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry, spills = m.group(1), (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry:
+            out[entry] = (int(m.group(1)), *spills)
+    return out
+
+
+def short_entry(name: str) -> str:
+    """A readable name for an mp_linear instantiation's mangled symbol,
+    e.g. mp_linear<bf16,BB=2,TO=8,res>; others are shortened."""
+    m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)E", name)
+    if m:
+        wt = "bf16" if m.group(1) == "t" else "f32"
+        res = "res" if m.group(4) == "1" else "global"
+        return f"mp_linear<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
+    return name.replace("_ZN12_GLOBAL__N_1", "")[:48]
+
+
 def phase_build():
     from repro_torch.kernels import _build
     secs = _build.build_all()
     log(f"build: {secs:.2f} s for {list(_build.SOURCES)}")
     for name in _build.SOURCES:
-        for line in _build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        rep = ptxas_report(_build.build_log(name))
+        if rep:
+            log({"ptxas": name, "registers_spill_st_ld":
+                 {short_entry(k): v for k, v in rep.items()}})
     return secs
+
+
+def loop_census(lines: list) -> dict:
+    """The hot loop of one function's SASS: of the innermost loops (a
+    branch back to an earlier address) that hold an FMNMX, the one with the
+    most FADDs. Its opcode counts and, per (b, o, i) -- each has one FMNMX
+    per branch -- its FP32 and all instructions."""
+    ops, at, loops = [], {}, []
+    for line in lines:
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
+                     line)
+        if not m:
+            continue
+        at[int(m.group(1), 16)] = len(ops)
+        ops.append(m.group(3).split(".")[0])
+        t = re.search(r"\bBRA\s+(0x[0-9a-f]+)", line)
+        if t and int(t.group(1), 16) in at:
+            loops.append((at[int(t.group(1), 16)], len(ops)))
+    # innermost loops only: none holds another loop
+    inner = [(a, b) for a, b in loops
+             if not any(a <= c and e <= b and (c, e) != (a, b)
+                        for c, e in loops)]
+    bodies = [ops[a:b] for a, b in inner if "FMNMX" in ops[a:b]]
+    if not bodies:
+        return {"loop": None}
+    body = max(bodies, key=lambda o: o.count("FADD"))
+    fp = sum(o in ("FADD", "FMUL", "FFMA", "FMNMX") for o in body)
+    per = body.count("FMNMX") / 2
+    return {"loop_instructions": len(body),
+            "opcodes": {o: body.count(o) for o in sorted(set(body))},
+            "fp32_per_boi": fp / per, "all_per_boi": len(body) / per}
+
+
+def sass_census(lib: Path) -> dict:
+    """``loop_census`` of every function in a built library, by
+    ``short_entry`` name, from ``cuobjdump -sass``."""
+    from repro_torch.kernels._build import nvcc_path
+    tool = Path(nvcc_path()).parent / "cuobjdump"
+    text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    out, name, lines = {}, None, []
+    for line in text.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name:
+                out[short_entry(name)] = loop_census(lines)
+            name, lines = m.group(1), []
+        else:
+            lines.append(line)
+    return out
 
 
 def phase_stream_kernel(fb, gen):
@@ -744,40 +836,79 @@ def phase_mp_kernels(cfg):
     bank solves, whose launch is counted as that op's path (no model path
     calls it, as in the reference), then vs plain there and at 8 x 257."""
     import torch
-    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels import LAUNCHES, _build, ref, reset_launches
     from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+                                                mp_linear_plan,
                                                 mp_waterfill_kernel)
     from repro_torch.kernels.ops import mp_waterfill
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
     B = 2
     lin = dict(name="mp_linear", max_abs_err=0.0, ms=0.0, plain_ms=0.0)
-    ops, ops_ref, nbytes, shapes = 0.0, 0.0, 0.0, []
+    ops, ops_ref, nbytes, shapes, plans, tiles = 0.0, 0.0, 0.0, [], [], []
     for d, O, n, rounded in decode_shapes(cfg):
+        # the dtypes decode_step gives the kernel: bf16 layer weights (the
+        # per-step cast of the masters), the f32 head; bf16-valued x
         x = torch.randn(B, d, generator=g, device=dev).bfloat16().float()
         w = torch.randn(d, O, generator=g, device=dev).mul_(d ** -0.5)
         if rounded:
-            w = w.bfloat16().float()
+            w = w.bfloat16()
+        wf = w.float()
+        plan = dict(d=d, O=O, w=str(w.dtype).replace("torch.", ""),
+                    **mp_linear_plan(B, d, O, w.dtype))
+        plans.append(plan)
         got = mp_linear_kernel(x, w, MP_GAMMA)
-        want = ref.mp_linear(x, w, MP_GAMMA)
+        want = ref.mp_linear(x, wf, MP_GAMMA)
         err, tol = max_err(got, want)
         if not err <= tol:
             raise AssertionError(f"mp_linear d={d} O={O}: max |diff| {err} "
                                  f"> {tol}")
         k_ms = cuda_ms(lambda: mp_linear_kernel(x, w, MP_GAMMA),
                        3 if O > 50000 else 10)
-        p_ms = cuda_ms(lambda: ref.mp_linear(x, w, MP_GAMMA), 1)
-        b_ms, _ = bound_ms(ops_mp_linear(B, d, O), 4 * (B * d + d * O + B * O))
-        shapes.append(dict(d=d, O=O, calls_per_step=n, ms=k_ms, plain_ms=p_ms,
-                           bound_ms=b_ms, max_abs_err=err))
+        # no bisection step: the tile staging, the max pass and the launch
+        setup_ms = cuda_ms(lambda: mp_linear_kernel(x, w, MP_GAMMA, 0),
+                           3 if O > 50000 else 10)
+        p_ms = cuda_ms(lambda: ref.mp_linear(x, wf, MP_GAMMA), 1)
+        nb = 4 * B * d + w.element_size() * d * O + 4 * B * O
+        b_ms, _ = bound_ms(ops_mp_linear(B, d, O), nb)
+        shapes.append(dict(d=d, O=O, w=plan["w"], calls_per_step=n, ms=k_ms,
+                           ms_no_steps=setup_ms, plain_ms=p_ms, bound_ms=b_ms,
+                           x_bound=k_ms / b_ms, max_abs_err=err))
         lin["max_abs_err"] = max(lin["max_abs_err"], err)
         lin["ms"] += n * k_ms
         lin["plain_ms"] += n * p_ms
+        for to in (8, 4, 2):    # every width that fits, against the plain
+            tile = mp_linear_plan(B, d, O, w.dtype, tile_to=to)
+            if not tile["fits"]:
+                continue
+            err, tol = max_err(mp_linear_kernel(x, w, MP_GAMMA, tile_to=to),
+                               want)
+            if not err <= tol:
+                raise AssertionError(f"mp_linear d={d} O={O} TO={to}: max "
+                                     f"|diff| {err} > {tol}")
+            t_ms = cuda_ms(lambda: mp_linear_kernel(x, w, MP_GAMMA,
+                                                    tile_to=to),
+                           3 if O > 50000 else 10)
+            tiles.append(dict(d=d, O=O, w=plan["w"], TO=to,
+                              chosen=bool(plan["resident"]) and to == plan["TO"],
+                              ctas=tile["ctas"], per_sm=tile["per_sm"],
+                              waves=tile["waves"],
+                              last_wave_fill=tile["last_wave_fill"], ms=t_ms,
+                              x_bound=t_ms / b_ms, max_abs_err=err))
         ops += n * ops_mp_linear(B, d, O)
         ops_ref += n * ops_mp_linear_reference(B, d, O)
-        nbytes += n * 4 * (B * d + d * O + B * O)
+        nbytes += n * nb
+    log({"mp_linear_plans": plans})
+    log({"mp_linear_tiles": tiles})
+    census = sass_census(_build.lib_path("mp_linear"))
+    for pl in plans:
+        key = (f"mp_linear<{'bf16' if pl['w'] == 'bfloat16' else 'f32'},"
+               f"BB={pl['BB']},TO={pl['TO']},"
+               f"{'res' if pl['resident'] else 'global'}>")
+        log({"sass_hot_loop": key, **census.get(key, {"loop": None})})
     lin["bound_ms"], lin["bound_by"] = bound_ms(ops, nbytes)
     lin["bound_ms_reference_algorithm"] = bound_ms(ops_ref, nbytes)[0]
+    lin["x_bound"] = lin["ms"] / lin["bound_ms"]
     lin["shapes"] = f"B={B}, per decode step: {shapes}"
     log({"kernel_vs_plain": lin})
 
@@ -840,6 +971,7 @@ def phase_decode(cfg):
     reset_launches()
     res = serve_decode(cfg, params, B, prompt_len, gen, seed=0)
     launches = LAUNCHES["mp_linear"]
+    peak_bytes = torch.cuda.max_memory_allocated()
     steps = prompt_len + gen
     if launches != per_step * steps:
         raise AssertionError(f"mp_linear launched {launches} times in "
@@ -856,17 +988,17 @@ def phase_decode(cfg):
     def at(i):
         return torch.full((B,), i, dtype=torch.int32, device=dev)
 
-    def prompt_cache(c, n):
+    def prompt_cache(c, n, p=params):
         """A cache of prompt_len + 1 slots holding the first n prompt
         tokens, decoded through the kernel."""
         cache = T.init_cache(c, B, prompt_len + 1, device=dev)
         with torch.no_grad():
             for i in range(n):
-                _, cache = T.decode_step(params, c, prompts[:, i:i + 1],
+                _, cache = T.decode_step(p, c, prompts[:, i:i + 1],
                                          cache, at(i))
         return cache
 
-    def step_at(c, cache, tok, i, mp=None):
+    def step_at(c, cache, tok, i, mp=None, p=params):
         """Logits of one step at position i from a copy of ``cache``;
         ``mp`` stands in for ``models.layers.mp_linear`` if given."""
         cache = {"scan": [{k: v.clone() for k, v in lc.items()}
@@ -874,7 +1006,7 @@ def phase_decode(cfg):
         swap = (mock.patch.object(layers, "mp_linear", mp) if mp
                 else contextlib.nullcontext())
         with torch.no_grad(), swap:
-            logits, _ = T.decode_step(params, c, tok, cache, at(i))
+            logits, _ = T.decode_step(p, c, tok, cache, at(i))
         torch.cuda.synchronize()
         return logits.float()
 
@@ -883,13 +1015,18 @@ def phase_decode(cfg):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         step_at(cfg, served, first, prompt_len)
-    kern_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA
-                  and "mp_linear_kernel" in e.key)
-    busy_us = sum(getattr(e, "self_device_time_total", 0.0)
-                  for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA)
+    by_name = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    kern_us = sum(t for t, k in by_name if "mp_linear_kernel" in k)
+    copy_us = sum(t for t, k in by_name if "copy" in k)
+    busy_us = sum(t for t, _ in by_name)
+    log({"decode_step_device_ms": {
+        "mp_linear": kern_us * 1e-3,
+        "copies (the per-step bf16 weight casts, the cache copy)":
+            copy_us * 1e-3,
+        "other": (busy_us - kern_us - copy_us) * 1e-3,
+        "top_kernels": [(k[:90], t * 1e-3) for t, k in by_name[:10]]}})
 
     def plain(x, w, gamma):
         y = ref.mp_linear(x.reshape(-1, x.shape[-1]), w, gamma)
@@ -905,32 +1042,40 @@ def phase_decode(cfg):
 
     # kernel vs plain: f32 compute from an empty cache (pos 0) and at the
     # first generated position over the prompt's cache, each gated, with
-    # coarser solves of the kernel as the gate's controls; the bf16 served
-    # step at the same later position, reported
+    # coarser solves of the kernel as the gate's controls; the f32 step at
+    # that position again with the layers' projections held as the bf16
+    # tensors the served step casts them to, so that the kernel reads bf16
+    # w there as it does when served, gated the same way; the bf16 served
+    # step at that position, reported
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    w16 = dict(params, layers=[T._constrain(lp, cfg)
+                               for lp in params["layers"]])
     checks = []
-    for name, c, i in (("f32", c32, 0), ("f32", c32, prompt_len),
-                       ("bf16", cfg, prompt_len)):
-        cache = prompt_cache(c, i)
+    for name, c, i, p in (("f32", c32, 0, params),
+                          ("f32", c32, prompt_len, params),
+                          ("f32, bf16 w", c32, prompt_len, w16),
+                          ("bf16", cfg, prompt_len, params)):
+        cache = prompt_cache(c, i, p)
         tok = prompts[:, :1] if i == 0 else first
         t0 = time.perf_counter()
-        got = step_at(c, cache, tok, i)
+        got = step_at(c, cache, tok, i, p=p)
         k_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        want = step_at(c, cache, tok, i, plain)
+        want = step_at(c, cache, tok, i, plain, p)
         p_s = time.perf_counter() - t0
         row = dict(compute=name, pos=i,
                    max_abs_diff=float((got - want).abs().max()),
                    max_abs_plain=float(want.abs().max()),
                    rel=gap(got, want), kernel_step_s=k_s, plain_step_s=p_s)
-        if name == "f32":
+        if c is c32:
             row["control_rel"] = {
-                it: gap(step_at(c, cache, tok, i, coarse(it)), want)
+                it: gap(step_at(c, cache, tok, i, coarse(it), p), want)
                 for it in CONTROL_ITERS}
         checks.append(row)
+    del w16
     log({"decode_step_vs_plain": checks})
     for row in checks:
-        if row["compute"] != "f32":
+        if "control_rel" not in row:
             continue
         if not row["rel"] <= DECODE_TOL:
             raise AssertionError(f"f32 decode step at pos {row['pos']}, "
@@ -953,8 +1098,9 @@ def phase_decode(cfg):
                mp_linear_launches=launches,
                mp_linear_launches_per_step=launches / steps,
                mp_linear_device_ms_per_step=kern_us * 1e-3,
+               copy_device_ms_per_step=copy_us * 1e-3,
                device_busy_ms_per_step=busy_us * 1e-3,
-               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               peak_memory_bytes=peak_bytes,
                generated=res.tokens.tolist())
     log(out)
     return launches

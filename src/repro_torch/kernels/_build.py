@@ -23,7 +23,8 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["SOURCES", "build_all", "load", "nvcc_path", "build_log"]
+__all__ = ["SOURCES", "build_all", "load", "lib_path", "nvcc_path",
+           "build_log"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fir_mp_stream", "fir_mp_bank", "fir_mp_stream_q",
@@ -41,9 +42,11 @@ SIGNATURES = {
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
                         [_P] * 13 + [_I] * 5 + [_P]),
     "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
-    "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 3 + [_F, _I, _P]),
+    "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
     "mp_waterfill": ("mp_waterfill_launch", [_P] * 2 + [_I] * 2 + [_F, _I, _P]),
 }
+# further entry points: symbol -> (source, argument types)
+EXTRA_SYMBOLS = {"mp_linear_plan": ("mp_linear", [_I] * 5 + [_P])}
 
 _LIBS: dict = {}
 _LOGS: dict = {}
@@ -69,14 +72,14 @@ def _build_dir(name: str) -> Path:
     return root / digest
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     return _build_dir(name) / f"lib{name}.so"
 
 
 def _start(name: str):
     """Start nvcc for ``name`` unless its library exists; returns the
     process and the temporary output path, or None."""
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -94,7 +97,7 @@ def _finish(name: str, started) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                            f"(exit {proc.returncode}):\n{log}")
-    os.replace(tmp, _lib_path(name))   # atomic: readers never see a half
+    os.replace(tmp, lib_path(name))   # atomic: readers never see a half
 
 
 def build_all(names=SOURCES) -> float:
@@ -115,13 +118,16 @@ def build_log(name: str) -> str:
 
 
 def load(name: str):
-    """The C entry point of ``csrc/<name>.cu``, building it if needed."""
+    """The C entry point of ``csrc/<name>.cu``, or the entry point ``name``
+    of ``EXTRA_SYMBOLS``, building its source if needed."""
     if name not in _LIBS:
-        if not _lib_path(name).exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(_lib_path(name)))
-        sym, argtypes = SIGNATURES[name]
-        fn = getattr(lib, sym)
+        if name in SIGNATURES:
+            src, (sym, argtypes) = name, SIGNATURES[name]
+        else:
+            (src, argtypes), sym = EXTRA_SYMBOLS[name], name
+        if not lib_path(src).exists():
+            build_all([src])
+        fn = getattr(ctypes.CDLL(str(lib_path(src))), sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         _LIBS[name] = fn

@@ -4,91 +4,253 @@
 // _mp_linear_kernel). Plain PyTorch version: repro_torch/kernels/ref.py,
 // mp_linear.
 //
-// What it computes: x (B, d), w (d, O) -> y (B, O) with, for each (b, o),
-//   u_i = x[b, i] + w[i, o],  v_i = x[b, i] - w[i, o]   (i < d),
-// both water-fillings over [u; -u] and [v; -v] bisected together:
-// hi = max_i |.|, lo = hi - gamma, then `iters` steps of
-// mid = (lo + hi) / 2 and h = sum_i max(t_i - mid, 0) + max(-t_i - mid, 0),
-// the root above mid when h > gamma; y = (lo_u + hi_u) / 2 - (lo_v + hi_v) / 2.
+// What it computes: x (B, d) f32, w (d, O) f32 or bf16 -> y (B, O) f32 with,
+// for each (b, o), u_i = x[b, i] + w[i, o] and v_i = x[b, i] - w[i, o], both
+// water-fillings over [u; -u] and [v; -v] bisected together in f32:
+// hi = max_i |.|, lo = hi - gamma, then `iters` steps of mid = (lo + hi) / 2
+// and h = sum_i max(t_i - mid, 0) + max(-t_i - mid, 0), the root above mid
+// when h > gamma; y = (lo_u + hi_u) / 2 - (lo_v + hi_v) / 2.
 //
-// What bounds it on an H100: operations. Each (b, o, i) costs about 370 f32
-// operations (the max pass, then 26 steps of u, v and two hinges per
-// branch), against 4 bytes of w that serve all B rows: at B = 2 that is
-// ~185 operations per byte, far above the card's 10. The trap is re-reading
-// w from device memory in each of the 27 passes. So a CTA owns a tile of
-// TO output columns for all d and BB batch rows, copies its d x TO slice of
-// w into shared memory once (d <= 14,080 at TO = 2; 110 KB keeps two or
-// more CTAs on each SM), and runs every pass from there. Its 256 threads
-// split d; each keeps 2 x BB x TO partial sums in registers, and one block
-// reduction per step (warp butterflies, then the 8 warp sums in order)
-// gives the sums, from which NV threads move the bisection states. x is
-// read through the read-only cache (B x d floats, shared by all CTAs).
-// Wider d reads w from device memory in every pass (correct, slow).
+// The step's form. A hinge pair equals max(|t| - |mid|, 0), plus 2 |mid|
+// when mid < 0, so h = sum_i max(|t_i| - |mid|, 0) + (mid < 0 ? 2 d |mid|
+// : 0). Per (b, o, i) and branch the kernel issues the add x +- w, one add
+// |t| - |mid| (abs is an operand modifier), one max with 0 and the
+// accumulate: 8 f32 instructions for u and v. (sum_i max(|t_i|, |mid|) -
+// d |mid| would be as cheap but cancels: d |mid| >> gamma at d = 12,288.)
+//
+// What bounds it on an H100: operations, ~212 f32 instructions per
+// (b, o, i) against 2 bytes of bf16 w that serve all B rows. So a CTA owns
+// BB batch rows x TO output columns over all of d, copies its w slice (as
+// bf16 when w is, laid out [position][TO] so one vector load brings a
+// position's TO columns, widened in registers by a shift) and its x rows
+// ([BB][position], f32) into shared memory once, by asynchronous copies
+// (cp.async) all in flight at once, and runs all 27 passes from there.
+// Its 256 threads split the positions; each keeps NV = 2 BB TO partial
+// sums. A step ends in a transposed warp reduction (lane k ends with sum
+// k, NV - 1 shuffles plus 5 - log2 NV), the warp sums go to a shared
+// buffer chosen by the step's parity, and after the step's one barrier
+// every warp adds the 8 warp sums in the same order, so all warps hold
+// the same bits, move the NV brackets in registers (lane k, bracket k)
+// and broadcast the new |mid| by shuffles. Tiles are sized
+// per shape (see plan_for): the widest tile of which two CTAs fit an SM,
+// else one, that still gives every SM a CTA. A d too wide for any tile in
+// shared memory (about 18,700 positions at B = 2 and bf16 w) reads w and
+// x from device memory in every pass (correct, slow).
 //
 // The TPU kernel streamed d in chunks of 512 (a VMEM limit) and needed d to
-// be a multiple of it, and padded O to 128 columns; here any d and O go,
-// the ragged column tile and batch tile are masked. The sums run in another
+// be a multiple of it, and padded O to 128 columns; here any d and O go:
+// ragged column and batch tiles are clamped on load and masked on store,
+// and the d range is zero-padded to a multiple of the thread count (a zero
+// position adds exactly 0 to every sum and max). The sums run in another
 // order than the reference's, so a comparison right at gamma can go the
 // other way; bisection still brackets the root within the sums' rounding.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kResidentBytes = 110 * 1024;   // w tile in shared memory
+// Dynamic shared memory per CTA for two CTAs on an SM, and for one (with
+// the static buffers and the 1 KB per CTA the system keeps, within the
+// SM's 228 KB).
+constexpr int kTileBytes = 110 * 1024;
+constexpr int kTileBytesOne = 220 * 1024;
 
-// BB batch rows x TO output columns per CTA. RES: w tile resident in
-// shared memory ([TO][d]); otherwise read from device memory every pass.
-template <int BB, int TO, bool RES>
-__global__ void __launch_bounds__(kThreads)
-    mp_linear_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                     float* __restrict__ y, int B, int d, int O, float gamma,
-                     int iters) {
+// N 32-bit words, loaded from shared memory as one (N <= 4) or two vectors
+template <int N>
+struct alignas(N >= 4 ? 16 : 4 * N) Words {
+  uint32_t v[N];
+};
+
+struct Plan {
+  int BB, TO;       // batch rows, columns
+  int dl;           // positions per CTA (resident: padded to kThreads)
+  long long ctas;
+  int res;          // 1: tiles in shared memory; 0: read every pass
+};
+
+// TO columns of one position, widened to f32 (bf16: the bits << 16, exact)
+template <typename WT, int TO>
+__device__ __forceinline__ void widen(const Words<TO * sizeof(WT) / 4>& q,
+                                      float (&wv)[TO]) {
+  if constexpr (sizeof(WT) == 4) {
+#pragma unroll
+    for (int o = 0; o < TO; ++o) wv[o] = __uint_as_float(q.v[o]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < TO / 2; ++j) {
+      wv[2 * j] = __uint_as_float(q.v[j] << 16);
+      wv[2 * j + 1] = __uint_as_float(q.v[j] & 0xffff0000u);
+    }
+  }
+}
+
+__device__ __forceinline__ float widen1(float v) { return v; }
+__device__ __forceinline__ float widen1(uint16_t v) {
+  return __uint_as_float(static_cast<uint32_t>(v) << 16);
+}
+
+struct Add {
+  __device__ float operator()(float a, float b) const { return a + b; }
+};
+struct Max {
+  __device__ float operator()(float a, float b) const { return fmaxf(a, b); }
+};
+
+// Transposed reduction of a[0..NV) over the warp. Each halving level keeps
+// half of the H values a lane holds and adds the partner lane's copy of
+// them (the partner sends the other half); the levels recurse at compile
+// time, so every index is a constant and a[] stays in registers. After
+// log2 NV levels butterflies finish: lane l returns the total of element
+// l >> (5 - log2 NV).
+template <int NV, int H, typename Op>
+__device__ __forceinline__ void halve(float (&a)[NV], int lane, Op op) {
+  if constexpr (H > 1) {
+    constexpr int half = H / 2, off = half * 32 / NV;
+    const bool up = (lane & off) != 0;
+#pragma unroll
+    for (int j = 0; j < half; ++j) {
+      const float keep = up ? a[j + half] : a[j];
+      const float send = up ? a[j] : a[j + half];
+      a[j] = op(keep, __shfl_xor_sync(kFull, send, off));
+    }
+    halve<NV, half>(a, lane, op);
+  }
+}
+
+template <int NV, typename Op>
+__device__ __forceinline__ float warp_transpose_reduce(float (&a)[NV],
+                                                       int lane, Op op) {
+  halve<NV, NV>(a, lane, op);
+  float v = a[0];
+#pragma unroll
+  for (int off = 16 / NV; off > 0; off >>= 1)
+    v = op(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// Position i's x values (BB rows) and w values (TO columns), widened to
+// f32: from the shared tiles (RES) or from device memory.
+template <typename WT, int BB, int TO, bool RES>
+__device__ __forceinline__ void load_position(
+    const float* __restrict__ x, const WT* __restrict__ w, const float* xt,
+    const WT* wt, int i, int dl, int b0, int o0, int B, int d, int O,
+    float (&xv)[BB], float (&wv)[TO]) {
+  if constexpr (RES) {
+#pragma unroll
+    for (int b = 0; b < BB; ++b) xv[b] = xt[b * dl + i];
+    constexpr int WW = TO * static_cast<int>(sizeof(WT)) / 4;
+    widen<WT, TO>(reinterpret_cast<const Words<WW>*>(wt)[i], wv);
+  } else {
+#pragma unroll
+    for (int b = 0; b < BB; ++b)
+      xv[b] = __ldg(x + (size_t)min(b0 + b, B - 1) * d + i);
+#pragma unroll
+    for (int o = 0; o < TO; ++o)
+      wv[o] = widen1(__ldg(w + (size_t)i * O + min(o0 + o, O - 1)));
+  }
+}
+
+// One step's exchange: the warp's NV sums reduced (lane k << spread holds
+// sum k) into red[p][warp], the step's one barrier, then lane k < NV of
+// every warp adds the warp sums of element k in one order, warp by warp.
+template <int NV, typename Op>
+__device__ __forceinline__ float exchange(float (&acc)[NV], float* red, int p,
+                                          Op op) {
+  constexpr int SPREAD = 5 - (NV == 4 ? 2 : NV == 8 ? 3 : NV == 16 ? 4 : 5);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const float v = warp_transpose_reduce<NV>(acc, lane, op);
+  if ((lane & ((1 << SPREAD) - 1)) == 0)
+    red[(p * kWarps + warp) * NV + (lane >> SPREAD)] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (lane < NV) {
+    const float* r = red + p * kWarps * NV + lane;
+    s = r[0];
+#pragma unroll
+    for (int q = 1; q < kWarps; ++q) s = op(s, r[q * NV]);
+  }
+  return s;
+}
+
+// BB batch rows x TO output columns over all of d. RES: w and x tiles
+// resident in shared memory ([dl][TO] w in WT, [BB][dl] x in f32);
+// otherwise read from device memory every pass.
+template <typename WT, int BB, int TO, bool RES>
+__global__ void __launch_bounds__(kThreads, 2)
+    mp_linear_kernel(const float* __restrict__ x, const WT* __restrict__ w,
+                     float* __restrict__ y, int B, int d, int dl, int O,
+                     float gamma, int iters) {
   // accumulator k = (s * BB + b) * TO + o; s = 0: u = x + w, s = 1: x - w
   constexpr int NV = 2 * BB * TO;
-  extern __shared__ float wtile[];
-  __shared__ float red[kWarps][NV];
-  __shared__ float st_lo[NV], st_hi[NV];
+  static_assert(NV <= 32 && TO * sizeof(WT) >= 4, "tile too wide or narrow");
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float red[2][kWarps][NV];   // warp sums, by the step's parity
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int o0 = blockIdx.x * TO, b0 = blockIdx.y * BB;
+  const int o0 = static_cast<int>(blockIdx.x) * TO;
+  const int b0 = blockIdx.y * BB;
 
-  const float* xr[BB];
-#pragma unroll
-  for (int b = 0; b < BB; ++b) xr[b] = x + (size_t)min(b0 + b, B - 1) * d;
-  int oc[TO];   // column of w (clamped; masked columns are never stored)
-#pragma unroll
-  for (int o = 0; o < TO; ++o) oc[o] = min(o0 + o, O - 1);
-
+  WT* wt = reinterpret_cast<WT*>(smem);
+  float* xt = reinterpret_cast<float*>(smem + (size_t)dl * TO * sizeof(WT));
   if constexpr (RES) {
-    for (int i = tid; i < d * TO; i += kThreads) {
-      const int dd = i / TO, o = i % TO;
-      wtile[o * d + dd] = w[(size_t)dd * O + oc[o]];
+    // Asynchronous copies (cp.async, zero-filled past d) where the tile's
+    // rows are whole and aligned: w one vector per position (TO columns of
+    // WT, WW words), x four positions per copy; all in flight at once.
+    constexpr int WW = TO * static_cast<int>(sizeof(WT)) / 4;
+    constexpr int CH = WW * 4 > 16 ? 16 : WW * 4;   // bytes per copy
+    if (o0 + TO <= O && (O * sizeof(WT)) % CH == 0 &&
+        reinterpret_cast<uintptr_t>(w) % CH == 0) {
+      for (int i = tid; i < dl; i += kThreads) {
+        const bool in = i < d;
+        const char* src = reinterpret_cast<const char*>(
+            w + (size_t)(in ? i : 0) * O + o0);
+        char* dst = reinterpret_cast<char*>(wt) + (size_t)i * WW * 4;
+#pragma unroll
+        for (int c = 0; c < WW * 4 / CH; ++c)
+          __pipeline_memcpy_async(dst + c * CH, src + c * CH, CH,
+                                  in ? 0 : CH);
+      }
+    } else {
+      for (int e = tid; e < dl * TO; e += kThreads) {
+        const int dd = e / TO, c = min(o0 + e % TO, O - 1);
+        wt[e] = dd < d ? w[(size_t)dd * O + c] : WT(0);
+      }
     }
+    const bool x4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+#pragma unroll
+    for (int b = 0; b < BB; ++b) {
+      const float* xr = x + (size_t)min(b0 + b, B - 1) * d;
+      float* xs = xt + (size_t)b * dl;
+      if (x4) {
+        for (int i = 4 * tid; i < dl; i += 4 * kThreads) {
+          const bool in = i < d;
+          __pipeline_memcpy_async(xs + i, xr + (in ? i : 0), 16, in ? 0 : 16);
+        }
+      } else {
+        for (int i = tid; i < dl; i += kThreads)
+          xs[i] = i < d ? xr[i] : 0.f;
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
     __syncthreads();
   }
-  auto wat = [&](int o, int dd) -> float {
-    if constexpr (RES) {
-      return wtile[o * d + dd];
-    } else {
-      return __ldg(w + (size_t)dd * O + oc[o]);
-    }
-  };
+  const int n_pos = RES ? dl : d;   // resident: the same count per thread
 
   float acc[NV];
 #pragma unroll
   for (int k = 0; k < NV; ++k) acc[k] = 0.f;
   // hi = max_i |u_i| and max_i |v_i|
 #pragma unroll 2
-  for (int dd = tid; dd < d; dd += kThreads) {
+  for (int i = tid; i < n_pos; i += kThreads) {
     float xv[BB], wv[TO];
-#pragma unroll
-    for (int b = 0; b < BB; ++b) xv[b] = __ldg(xr[b] + dd);
-#pragma unroll
-    for (int o = 0; o < TO; ++o) wv[o] = wat(o, dd);
+    load_position<WT, BB, TO, RES>(x, w, xt, wt, i, dl, b0, o0, B, d, O, xv,
+                                   wv);
 #pragma unroll
     for (int b = 0; b < BB; ++b) {
 #pragma unroll
@@ -99,136 +261,201 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc[k] = fmaxf(acc[k], __shfl_xor_sync(kFull, acc[k], off));
-  }
-  if (lane == 0) {
-#pragma unroll
-    for (int k = 0; k < NV; ++k) red[warp][k] = acc[k];
-  }
-  __syncthreads();
-  if (tid < NV) {
-    float hi = red[0][tid];
-    for (int q = 1; q < kWarps; ++q) hi = fmaxf(hi, red[q][tid]);
-    st_hi[tid] = hi;
-    st_lo[tid] = hi - gamma;
-  }
-  __syncthreads();
+  // lane k < NV holds bracket k
+  float hi = exchange<NV>(acc, &red[0][0][0], 0, Max());
+  float lo = hi - gamma;
+  const float two_d = 2.0f * static_cast<float>(d);
 
   for (int it = 0; it < iters; ++it) {
-    float mid[NV];
+    const float mid = (lo + hi) * 0.5f, amid = fabsf(mid);
+    float am[NV];
 #pragma unroll
     for (int k = 0; k < NV; ++k) {
-      mid[k] = (st_lo[k] + st_hi[k]) * 0.5f;
+      am[k] = __shfl_sync(kFull, amid, k);
       acc[k] = 0.f;
     }
-#pragma unroll 2
-    for (int dd = tid; dd < d; dd += kThreads) {
+#pragma unroll(TO <= 4 ? 4 : 2)
+    for (int i = tid; i < n_pos; i += kThreads) {
       float xv[BB], wv[TO];
-#pragma unroll
-      for (int b = 0; b < BB; ++b) xv[b] = __ldg(xr[b] + dd);
-#pragma unroll
-      for (int o = 0; o < TO; ++o) wv[o] = wat(o, dd);
+      load_position<WT, BB, TO, RES>(x, w, xt, wt, i, dl, b0, o0, B, d, O,
+                                     xv, wv);
 #pragma unroll
       for (int b = 0; b < BB; ++b) {
 #pragma unroll
         for (int o = 0; o < TO; ++o) {
           const int ku = b * TO + o, kv = (BB + b) * TO + o;
-          const float u = xv[b] + wv[o], v = xv[b] - wv[o];
-          acc[ku] += fmaxf(u - mid[ku], 0.f) + fmaxf(-u - mid[ku], 0.f);
-          acc[kv] += fmaxf(v - mid[kv], 0.f) + fmaxf(-v - mid[kv], 0.f);
+          acc[ku] += fmaxf(fabsf(xv[b] + wv[o]) - am[ku], 0.f);
+          acc[kv] += fmaxf(fabsf(xv[b] - wv[o]) - am[kv], 0.f);
         }
       }
     }
-#pragma unroll
-    for (int k = 0; k < NV; ++k) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc[k] += __shfl_xor_sync(kFull, acc[k], off);
+    float h = exchange<NV>(acc, &red[0][0][0], (it + 1) & 1, Add());
+    if (mid < 0.f) h += two_d * amid;
+    if (h > gamma) {
+      lo = mid;
+    } else {
+      hi = mid;
     }
-    if (lane == 0) {
-#pragma unroll
-      for (int k = 0; k < NV; ++k) red[warp][k] = acc[k];
-    }
-    __syncthreads();
-    if (tid < NV) {
-      float h = red[0][tid];
-      for (int q = 1; q < kWarps; ++q) h += red[q][tid];
-      // the same mid, from shared memory: a runtime index into mid[]
-      // would push the array out of registers
-      const float m = (st_lo[tid] + st_hi[tid]) * 0.5f;
-      if (h > gamma) {
-        st_lo[tid] = m;
-      } else {
-        st_hi[tid] = m;
-      }
-    }
-    __syncthreads();
   }
-
-  if (tid < BB * TO) {
-    const int b = tid / TO, o = tid % TO;
-    if (b0 + b < B && o0 + o < O) {
-      const float zu = (st_lo[tid] + st_hi[tid]) * 0.5f;
-      const float zv = (st_lo[BB * TO + tid] + st_hi[BB * TO + tid]) * 0.5f;
-      y[(size_t)(b0 + b) * O + o0 + o] = zu - zv;
+  if (warp == 0) {
+    const float z = (lo + hi) * 0.5f;
+    const float zv = __shfl_sync(kFull, z, (lane + BB * TO) & 31);
+    if (lane < BB * TO) {
+      const int b = lane / TO, o = lane % TO;
+      if (b0 + b < B && o0 + o < O) y[(size_t)(b0 + b) * O + o0 + o] = z - zv;
     }
   }
 }
 
-template <int BB, int TO, bool RES>
-int launch(const float* x, const float* w, float* y, int B, int d, int O,
-           float gamma, int iters, cudaStream_t stream) {
+int sm_count() {
+  static int count[64] = {0};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return 0;
+  if (count[dev] == 0)
+    cudaDeviceGetAttribute(&count[dev], cudaDevAttrMultiProcessorCount, dev);
+  return count[dev];
+}
+
+int ceil_div(int a, int b) { return (a + b - 1) / b; }
+
+// The tile for (B, d, O): BB from B; then tiles of which two fit an SM and
+// then tiles of which one does, at column widths 8, 4, 2 in that order,
+// the first whose shared tiles fit and that gives every SM a CTA (to
+// within 1/32). If none does, the fitting tile with the most CTAs; if none
+// fits, the non-resident kernel. Wide tiles first: a CTA's staging, max
+// pass and 27 barriers cost about the same whatever TO is, and per
+// (b, o, i) the wider tile issues fewer loads. PERF.md has each width's
+// time at the decode shapes (chip_smoke.py's tile sweep), the narrower,
+// whole-wave tiles of k/v and down included. to != 0 asks for a resident
+// tile TO = to instead (none, BB = 0, where it does not fit).
+Plan plan_for(int B, int d, int O, int wbytes, int to_asked) {
+  const int BB = B == 1 ? 1 : B == 2 ? 2 : 4;
+  const long long nb = ceil_div(B, BB);
+  const long long want = (sm_count() * 31LL + 31) / 32;
+  const int dl = ceil_div(d, kThreads) * kThreads;
+  Plan best{BB, 0, 0, 0, 0};
+  for (const int budget : {kTileBytes, kTileBytesOne}) {
+    for (int to = 8; to >= 2; to /= 2) {
+      if (2 * BB * to > 32 || (to_asked && to != to_asked)) continue;
+      if ((long long)dl * (to * wbytes + BB * 4) > budget) continue;
+      const Plan c{BB, to, dl, ceil_div(O, to) * nb, 1};
+      if (to_asked || c.ctas >= want) return c;
+      if (c.ctas > best.ctas) best = c;
+    }
+  }
+  if (to_asked) return Plan{0, 0, 0, 0, 0};
+  if (best.ctas > 0) return best;
+  const int to = BB == 4 ? 4 : 8;
+  return Plan{BB, to, d, ceil_div(O, to) * nb, 0};
+}
+
+// Launches the plan's kernel or, with per_sm, writes how many of its CTAs
+// an SM holds at once instead.
+template <typename WT, int BB, int TO, bool RES>
+int launch(const Plan& p, const float* x, const WT* w, float* y, int B,
+           int d, int O, float gamma, int iters, cudaStream_t stream,
+           int* per_sm) {
+  auto kern = mp_linear_kernel<WT, BB, TO, RES>;
   size_t smem = 0;
   if constexpr (RES) {
-    smem = (size_t)d * TO * sizeof(float);
-    cudaError_t err = cudaFuncSetAttribute(
-        mp_linear_kernel<BB, TO, RES>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, kResidentBytes);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    smem = (size_t)p.dl * (TO * sizeof(WT) + BB * sizeof(float));
+    static const cudaError_t set = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kTileBytesOne);
+    if (set != cudaSuccess) return static_cast<int>(set);
   }
-  const dim3 grid((O + TO - 1) / TO, (B + BB - 1) / BB);
-  mp_linear_kernel<BB, TO, RES><<<grid, kThreads, smem, stream>>>(
-      x, w, y, B, d, O, gamma, iters);
+  if (per_sm)
+    return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        per_sm, kern, kThreads, smem));
+  const dim3 grid(static_cast<unsigned>(ceil_div(O, TO)),
+                  static_cast<unsigned>(ceil_div(B, BB)));
+  kern<<<grid, kThreads, smem, stream>>>(x, w, y, B, d, p.dl, O, gamma,
+                                         iters);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The widest column tile (TO <= 16 / BB, at most 8) whose w slice fits in
-// kResidentBytes; past d = 14,080 the tile is read from device memory.
-template <int BB>
-int pick_tile(const float* x, const float* w, float* y, int B, int d, int O,
-              float gamma, int iters, cudaStream_t stream) {
-  const size_t col = (size_t)d * sizeof(float);
-  if constexpr (BB <= 2) {
-    if (8 * col <= kResidentBytes)
-      return launch<BB, 8, true>(x, w, y, B, d, O, gamma, iters, stream);
+#define MP_LINEAR_ARGS p, x, w, y, B, d, O, gamma, iters, stream, per_sm
+
+template <typename WT, int BB>
+int by_tile(const Plan& p, const float* x, const WT* w, float* y, int B,
+            int d, int O, float gamma, int iters, cudaStream_t stream,
+            int* per_sm) {
+  if (!p.res) return launch<WT, BB, (BB == 4 ? 4 : 8), false>(MP_LINEAR_ARGS);
+  switch (p.TO) {
+    case 8:
+      if constexpr (BB <= 2) return launch<WT, BB, 8, true>(MP_LINEAR_ARGS);
+      break;
+    case 4: return launch<WT, BB, 4, true>(MP_LINEAR_ARGS);
+    case 2: return launch<WT, BB, 2, true>(MP_LINEAR_ARGS);
   }
-  if (4 * col <= kResidentBytes)
-    return launch<BB, 4, true>(x, w, y, B, d, O, gamma, iters, stream);
-  if (2 * col <= kResidentBytes)
-    return launch<BB, 2, true>(x, w, y, B, d, O, gamma, iters, stream);
-  return launch<BB, (BB <= 2 ? 8 : 4), false>(x, w, y, B, d, O, gamma, iters,
-                                              stream);
+  return -1;
+}
+
+template <typename WT>
+int by_batch(const Plan& p, const float* x, const WT* w, float* y, int B,
+             int d, int O, float gamma, int iters, cudaStream_t stream,
+             int* per_sm) {
+  switch (p.BB) {
+    case 1: return by_tile<WT, 1>(MP_LINEAR_ARGS);
+    case 2: return by_tile<WT, 2>(MP_LINEAR_ARGS);
+    case 4: return by_tile<WT, 4>(MP_LINEAR_ARGS);
+  }
+  return -1;
+}
+
+#undef MP_LINEAR_ARGS
+
+bool takes(int B, int d, int O, int w_bf16, int to, int iters) {
+  return B >= 1 && d >= 1 && O >= 1 && iters >= 0 && (w_bf16 == 0 ||
+         w_bf16 == 1) && (to == 0 || to == 2 || to == 4 || to == 8) &&
+         ceil_div(B, 4) <= 65535 && d <= (1 << 22);
+}
+
+int dispatch(const Plan& p, const void* x, const void* w, void* y, int B,
+             int d, int O, int w_bf16, float gamma, int iters, void* stream,
+             int* per_sm) {
+  const float* xf = static_cast<const float*>(x);
+  float* yf = static_cast<float*>(y);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (w_bf16)
+    return by_batch<uint16_t>(p, xf, static_cast<const uint16_t*>(w), yf, B,
+                              d, O, gamma, iters, s, per_sm);
+  return by_batch<float>(p, xf, static_cast<const float*>(w), yf, B, d, O,
+                         gamma, iters, s, per_sm);
 }
 
 }  // namespace
 
-// x (B, d), w (d, O) float32, row-major -> y (B, O) float32. Returns 0, a
-// cudaError_t code, or -1 for shapes outside what it takes (B, d, O >= 1,
-// iters >= 0). Batch tiles: BB = 1 or 2 for B = 1 or 2, else 4.
+// x (B, d) float32, w (d, O) float32 (w_bf16 = 0) or bfloat16 (w_bf16 = 1),
+// row-major -> y (B, O) float32, in the tile plan_for picks (to = 0) or in
+// a resident tile of to = 2, 4 or 8 columns. Returns 0, a cudaError_t
+// code, or -1 for what it does not take (B, d, O >= 1, iters >= 0,
+// d <= 2^22; a tile to that does not fit).
 extern "C" int mp_linear_launch(const void* x, const void* w, void* y, int B,
-                                int d, int O, float gamma, int iters,
-                                void* stream) {
-  if (B < 1 || d < 1 || O < 1 || iters < 0) return -1;
-#define MP_LINEAR_ARGS                                                    \
-  static_cast<const float*>(x), static_cast<const float*>(w),             \
-      static_cast<float*>(y), B, d, O, gamma, iters,                      \
-      static_cast<cudaStream_t>(stream)
-  if (B == 1) return pick_tile<1>(MP_LINEAR_ARGS);
-  if (B == 2) return pick_tile<2>(MP_LINEAR_ARGS);
-  return pick_tile<4>(MP_LINEAR_ARGS);
-#undef MP_LINEAR_ARGS
+                                int d, int O, int w_bf16, int to, float gamma,
+                                int iters, void* stream) {
+  if (!takes(B, d, O, w_bf16, to, iters)) return -1;
+  const Plan p = plan_for(B, d, O, w_bf16 ? 2 : 4, to);
+  if (p.BB == 0) return -1;
+  return dispatch(p, x, w, y, B, d, O, w_bf16, gamma, iters, stream,
+                  nullptr);
+}
+
+// The tile mp_linear_launch takes for these arguments on the current
+// device: out = {BB, TO, positions per CTA, CTAs, resident, CTAs an SM
+// holds at once}, all 0 where the tile asked for does not fit. Returns 0,
+// a cudaError_t code, or -1 for shapes it does not take.
+extern "C" int mp_linear_plan(int B, int d, int O, int w_bf16, int to,
+                              int* out) {
+  if (!takes(B, d, O, w_bf16, to, 0)) return -1;
+  const Plan p = plan_for(B, d, O, w_bf16 ? 2 : 4, to);
+  int per_sm = 0;
+  if (p.BB != 0) {
+    const int code = dispatch(p, nullptr, nullptr, nullptr, B, d, O, w_bf16,
+                              1.f, 0, nullptr, &per_sm);
+    if (code != 0) return code;
+  }
+  const int vals[6] = {p.BB, p.TO, p.dl, static_cast<int>(p.ctas), p.res,
+                       per_sm};
+  for (int k = 0; k < 6; ++k) out[k] = vals[k];
+  return 0;
 }

@@ -14,19 +14,41 @@ nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import ref
 from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
                                        _on_cuda, _stream)
 
-__all__ = ["mp_linear_kernel", "mp_waterfill_kernel"]
+__all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_plan",
+           "mp_waterfill_kernel"]
+
+# the weight dtypes the mp_linear kernel reads as they are
+LINEAR_W_DTYPES = (torch.float32, torch.bfloat16)
+_TILE_WIDTHS = (0, 2, 4, 8)
+
+
+def _linear_args(w_dtype: torch.dtype, tile_to: int) -> None:
+    if w_dtype not in LINEAR_W_DTYPES:
+        raise TypeError(f"w must be float32 or bfloat16, got {w_dtype}")
+    if tile_to not in _TILE_WIDTHS:
+        raise ValueError(f"tile_to must be one of {_TILE_WIDTHS}, got "
+                         f"{tile_to}")
 
 
 def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
-                     iters: int = ref.DEFAULT_ITERS) -> torch.Tensor:
-    """x (B, d), w (d, O) float32 -> y (B, O), y[b, o] = mpabs(x[b] +
-    w[:, o]) - mpabs(x[b] - w[:, o]) by joint bisection."""
+                     iters: int = ref.DEFAULT_ITERS, *,
+                     tile_to: int = 0) -> torch.Tensor:
+    """x (B, d) float32, w (d, O) float32 or bfloat16 -> y (B, O) float32,
+    y[b, o] = mpabs(x[b] + w[:, o]) - mpabs(x[b] - w[:, o]) by joint
+    bisection. The kernel reads a bf16 w as it is and widens it exactly,
+    so the result is that of ``w.float()``. ``tile_to`` 2, 4 or 8 runs it
+    in a shared-memory tile of that many columns instead of the one it
+    would pick (``mp_linear_plan``), to time or test each tile; the result
+    is the same up to the sums' order."""
+    _linear_args(w.dtype, tile_to)
     if not _on_cuda(x, w):
         return ref.mp_linear(x, w, gamma, iters)
     from repro_torch.kernels._build import load
@@ -36,13 +58,43 @@ def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
     B, d = x.shape
     O = w.shape[1]
     _expect("w", w, (d, O))
-    x, w = _f32(x, "x"), _f32(w, "w")
+    x, w = _f32(x, "x"), w.contiguous()
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
     code = load("mp_linear")(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, d,
-                             O, float(gamma), int(iters), _stream())
-    _check(code, "mp_linear", f"B={B} d={d} O={O}")
+                             O, int(w.dtype == torch.bfloat16), tile_to,
+                             float(gamma), int(iters), _stream())
+    _check(code, "mp_linear", f"B={B} d={d} O={O} tile_to={tile_to}")
     LAUNCHES["mp_linear"] += 1
     return y
+
+
+def mp_linear_plan(B: int, d: int, O: int,
+                   w_dtype: torch.dtype = torch.bfloat16, *,
+                   tile_to: int = 0) -> dict:
+    """The tile the CUDA kernel runs these shapes in on the current card:
+    batch rows ``BB``, columns ``TO``, positions per CTA, the CTA count,
+    whether the tiles are resident in shared memory, how many CTAs an SM
+    holds at once (``per_sm``), and from those the ``waves`` of CTAs the
+    card runs them in and the share of the last wave's slots they fill.
+    ``fits`` is False (and the rest 0) where the ``tile_to`` asked for
+    does not fit in shared memory. Needs the built library and a card."""
+    import ctypes
+
+    from repro_torch.kernels._build import load
+    _linear_args(w_dtype, tile_to)
+    out = (ctypes.c_int * 6)()
+    code = load("mp_linear_plan")(B, d, O, int(w_dtype == torch.bfloat16),
+                                  tile_to, ctypes.addressof(out))
+    _check(code, "mp_linear_plan", f"B={B} d={d} O={O} tile_to={tile_to}")
+    plan = dict(zip(("BB", "TO", "positions", "ctas", "resident", "per_sm"),
+                    list(out)))
+    plan["fits"] = plan["BB"] != 0
+    slots = plan["per_sm"] * torch.cuda.get_device_properties(
+        torch.cuda.current_device()).multi_processor_count
+    waves = plan["ctas"] / slots if slots else 0.0
+    plan["waves"] = waves
+    plan["last_wave_fill"] = waves / math.ceil(waves) if waves else 0.0
+    return plan
 
 
 def mp_waterfill_kernel(L: torch.Tensor, gamma,

@@ -14,7 +14,8 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_bank_q_kernel, fir_mp_kernel,
                                          fir_mp_stream_octave,
                                          fir_mp_stream_octave_q)
-from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+from repro_torch.kernels.mp_kernels import (LINEAR_W_DTYPES,
+                                            mp_linear_kernel,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ref import DEFAULT_ITERS
 
@@ -32,7 +33,9 @@ def mp_waterfill(L: torch.Tensor, gamma, *,
 
 def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, *,
               iters: int = DEFAULT_ITERS) -> torch.Tensor:
-    """Multiplierless (..., d) @ (d, O) through the fused kernel.
+    """Multiplierless (..., d) @ (d, O) through the fused kernel. A w of a
+    dtype the kernel does not read (``LINEAR_W_DTYPES``) is widened to
+    float32 first.
 
     Forward only: the reference's custom VJP becomes a
     ``torch.autograd.Function`` with the training slice (ROADMAP.md), so
@@ -44,6 +47,8 @@ def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, *,
             "ops.mp_linear is forward only: its gradient (the reference's "
             "custom VJP) comes with the training slice (ROADMAP.md); run "
             "it under torch.no_grad() or on tensors without requires_grad")
+    if w.dtype not in LINEAR_W_DTYPES:
+        w = w.float()
     y = mp_linear_kernel(x.reshape(-1, x.shape[-1]), w, gamma, iters)
     return y.reshape(*x.shape[:-1], w.shape[1])
 

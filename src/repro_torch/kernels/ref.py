@@ -299,7 +299,10 @@ def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma,
     """x (B, d), w (d, O) -> y (B, O), y[b, o] = z_u - z_v with
     u = x[b] + w[:, o], v = x[b] - w[:, o], each z by the kernel's joint
     bisection. Blocked over O so the (B, O_blk, d) operands stay within
-    ``LINEAR_BLOCK`` elements (the head's O = 152,064 included)."""
+    ``LINEAR_BLOCK`` elements (the head's O = 152,064 included). A bf16 w
+    is widened to float32 first (exact), as the kernel widens it."""
+    if w.dtype == torch.bfloat16:
+        w = w.float()
     B, d = x.shape
     O = w.shape[1]
     ob = max(1, min(O, LINEAR_BLOCK // max(1, B * d)))

@@ -48,9 +48,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 def linear(x, w, b=None, *, mp_mode: bool = False, mp_gamma: float = 8.0,
            compute_dtype=torch.bfloat16):
     """y = x @ w (+ b). With ``mp_mode``, the multiplierless MP product in
-    float32 through the kernel, rounded to the compute dtype."""
+    float32 through the kernel, rounded to the compute dtype; ``w`` goes
+    to the kernel as it comes (``ops.mp_linear`` reads its dtype)."""
     if mp_mode:
-        y = mp_linear(x.float(), w.float(), mp_gamma).to(compute_dtype)
+        y = mp_linear(x.float(), w, mp_gamma).to(compute_dtype)
     else:
         y = torch.matmul(x.to(compute_dtype), w.to(compute_dtype))
     if b is not None:

@@ -23,6 +23,7 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_stream_octave,
                                         fir_mp_stream_octave_q)
 from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+                                            mp_linear_plan,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ops import mp_linear as mp_linear_op
 from repro_torch.serving import StreamServer
@@ -236,22 +237,83 @@ def test_fixed_served_codes_equal_oneshot_on_the_card(dev, clips, impl):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("B,d,O", [(1, 300, 37), (3, 1000, 131),
-                                   (5, 129, 8), (2, 4096, 1024),
-                                   (2, 12288, 100), (2, 20000, 9)])
-def test_mp_linear_kernel_matches_plain(dev, B, d, O):
+# shape -> the path it takes at either weight dtype: w and x tiles resident
+# in shared memory, or read from device memory in every pass
+MP_LINEAR_PATHS = {
+    (1, 300, 37): "resident",       # O off the tile, d off 256
+    (3, 1000, 131): "resident",     # a ragged batch tile
+    (5, 129, 8): "resident",
+    (2, 4096, 1024): "resident",    # the k/v projection
+    (2, 4096, 1000): "resident",    # ... with a ragged O
+    (2, 12288, 100): "resident",    # the down projection's d
+    (2, 12288, 4096): "resident",   # the down projection
+    (2, 20000, 9): "global",        # too wide for shared memory
+    (2, 40000, 9): "global",
+    (2, 80000, 9): "global",
+}
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,d,O", list(MP_LINEAR_PATHS))
+def test_mp_linear_kernel_matches_plain(dev, B, d, O, w_dtype):
     """Odd shapes (O off the column tile, d off the thread count, B = 1,
-    a ragged batch tile), a decode shape (d = 4096, the k projection), the
-    down projection's d and a d too wide for the resident w tile."""
+    a ragged batch tile), decode shapes (the k/v and down projections),
+    the down projection's d on a few columns, and d too wide for the
+    resident tiles; w in float32 and in bf16, which the kernel reads as
+    it is (the plain version gets w.float())."""
     rng = np.random.default_rng(B * d + O)
     x = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((d, O))
                           / np.sqrt(d)).astype(np.float32))
-    x, w = x.to(dev), w.to(dev)
+    x, w = x.to(dev), w.to(dev).to(w_dtype)
     reset_launches()
     got = mp_linear_kernel(x, w, 8.0)
     assert LAUNCHES["mp_linear"] == 1 and tuple(got.shape) == (B, O)
-    _close(got, ref.mp_linear(x, w, 8.0))
+    _close(got, ref.mp_linear(x, w.float(), 8.0))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,tile_to", [(1, 8), (1, 4), (1, 2), (2, 8),
+                                       (2, 4), (2, 2), (3, 4), (3, 2)])
+def test_mp_linear_kernel_each_tile_width(dev, B, tile_to, w_dtype):
+    """Every resident tile the kernel has (batch rows 1, 2, 4 by B; 8, 4
+    or 2 columns, asked for), on a ragged O and a d off the thread
+    count."""
+    d, O = 1000, 37
+    rng = np.random.default_rng(100 * B + tile_to)
+    x = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d, O))
+                          / np.sqrt(d)).astype(np.float32))
+    x, w = x.to(dev), w.to(dev).to(w_dtype)
+    plan = mp_linear_plan(B, d, O, w_dtype, tile_to=tile_to)
+    assert plan["fits"] and plan["resident"] and plan["TO"] == tile_to
+    _close(mp_linear_kernel(x, w, 8.0, tile_to=tile_to),
+           ref.mp_linear(x, w.float(), 8.0))
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_mp_linear_plan_takes_each_path(dev, w_dtype):
+    """The shapes above reach the paths they are there for; a tile asked
+    for that does not fit is refused."""
+    for (B, d, O), path in MP_LINEAR_PATHS.items():
+        plan = mp_linear_plan(B, d, O, w_dtype)
+        got = "resident" if plan["resident"] else "global"
+        assert got == path, (B, d, O, plan)
+        assert plan["per_sm"] >= 1 and plan["waves"] > 0, plan
+    assert not mp_linear_plan(2, 80000, 9, w_dtype, tile_to=2)["fits"]
+    x = torch.zeros(2, 80000, device=dev)
+    with pytest.raises(ValueError, match="outside what the kernel takes"):
+        mp_linear_kernel(x, torch.zeros(80000, 9, device=dev).to(w_dtype),
+                         8.0, tile_to=2)
+    # every decode shape of qwen3-8b at B = 2 gives each SM a CTA (to
+    # within 1/32) in resident tiles
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for d, O, dt in ((4096, 4096, torch.bfloat16), (4096, 1024, torch.bfloat16),
+                     (4096, 12288, torch.bfloat16),
+                     (12288, 4096, torch.bfloat16),
+                     (4096, 152064, torch.float32)):
+        plan = mp_linear_plan(2, d, O, dt)
+        assert plan["resident"] and plan["ctas"] * 32 >= sms * 31, plan
 
 
 def test_mp_linear_op_on_the_card(dev):
