@@ -1,37 +1,59 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one card and check it.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                 # every phase below
+    python3 chip_smoke.py --profile-only  # build + the octave profile
 
 Runs from the root of a checkout (it imports ``src/repro_torch``; no JAX,
 nothing of the reference package). Phases, each failing loudly:
 
 1. device  — a CUDA card must be present; prints ``nvidia-smi``'s name and
              power limit.
-2. build   — compiles every CUDA source (one nvcc each, in parallel).
+2. build   — compiles every CUDA source (one nvcc each, in parallel);
+             prints ptxas's registers and spills per kernel and the SASS
+             census of the stream kernels' band-pass solve step (FP32 or
+             INT and all instructions per operand lane per iteration).
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: max abs diff, kernel ms (CUDA events,
              warmed up, many launches), plain ms, and the launches this
              phase made. Tolerance: every output within
-             1e-5 * (1 + max |plain|).
+             1e-5 * (1 + max |plain|). The float stream kernel twice: its
+             one-octave entry at the six octave shapes of a wave, and the
+             cascade (all six octaves in one launch) on a served wave
+             (n = 160 of 256, fresh and one wave later with odd phases)
+             and on mixed valid counts at L = 700, every delay line,
+             consumed counter (exactly), acc and amax, n == 0 slots bit for
+             bit, at the plan's CTA size and every other (timed); the
+             cascade's row is timed on the served wave by torch.profiler
+             (its ms: the kernel is shorter than its wrapper's host work,
+             which CUDA events around the calls would time; those are
+             printed beside), with its bound and the one-octave entries'
+             device time per octave. Then the octave profile (``--profile-only``): a served
+             wave's per-octave device time through the one-octave entries
+             and its cascade as the session step runs it, float and fixed.
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
              slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
-             16 kHz). The stream kernel must launch 6 times per wave; the
-             decisions must be finite, within [-1, 1], and the final p
-             within 1e-5 of the torch-op cascade (stream_impl="xla")
-             served the same feeds on the card.
+             16 kHz). The stream cascade kernel must launch once per wave
+             and the one-octave kernel never; the decisions must be
+             finite, within [-1, 1], and the final p within 1e-5 of the
+             torch-op cascade (stream_impl="xla") served the same feeds on
+             the card.
 5. one-shot — ``apply(x)`` through the bank kernels (use_pallas=True) on
              8 x 16000 samples against the plain path (use_pallas=False,
              solver="bisect"): phi within 1e-4 * (1 + max |phi|), p within
              5e-3 (the two paths bisect with different sum orders).
 6. int kernels — the fixed-point twin (numerics="fixed") at full width,
              its program calibrated on the seeded clips: the int stream
-             kernel on the 6 octaves of one wave (S = 256, L = 256, mixed
-             valid counts) and the int bank kernel on the 6 + 5 calls of one
-             ``apply`` (B = 8, N = 16000), each against its plain version.
-             Gate: every output exactly equal, int32.
+             kernel's one-octave entry on the 6 octaves of one wave (S =
+             256, L = 256, mixed valid counts) and its cascade on the cases
+             of phase 3 (the clips' ADC codes), and the int bank kernel on
+             the 6 + 5 calls of one ``apply`` (B = 8, N = 16000), each
+             against its plain version. Gate: every output exactly equal,
+             int32. The cascade's bound counts the cheapest exact step (the
+             kernel's); the reference algorithm's count is printed beside.
 7. fixed serve — the serve phase's 256 sessions x 50 packets through a
-             fixed pipeline: 6 int stream launches per wave; the final codes
+             fixed pipeline: one int stream cascade launch per wave and no
+             one-octave launch; the final codes
              and accumulators exactly those of the torch-op integer cascade
              (stream_impl="xla") on the same feeds, and of one-shot
              ``infer_q`` on the 8000 samples each stream was fed.
@@ -145,6 +167,39 @@ def ops_newton(M: int, iters: int = 12) -> int:
     return 3 * M + iters * (8 * M + 2 * (M - 1) + 1 + 4)
 
 
+def ops_newton_steps(u, gamma: float, iters: int = 12) -> tuple[int, int]:
+    """f32 ops of the float stream kernel's Newton solves of mpabs over the
+    operand windows u (..., M), counted step by step in the form the
+    kernel runs, with z following the reference's iteration on these
+    windows: the start (abs, max per lane, sub: 2M + 1); per step with
+    z >= 0 a sub, max, compare and count add per lane and one tree (4M +
+    M - 1), with z < 0 two subs, a max, compare and count add per lane, two
+    trees and their join and the count's M (5M + 2 (M - 1) + 2); either
+    way the sub, max, divide and add of the update (4). Returns (these
+    ops, the reference's form's: ``ops_newton`` per solve)."""
+    import torch
+    from repro_torch.core.mp import tree_sum
+    M = u.shape[-1]
+    P = 1 << (M - 1).bit_length()
+    a = torch.nn.functional.pad(u.abs(), (0, P - M))
+    lane = torch.arange(P, device=u.device) < M
+    z = a.amax(-1) - gamma
+    neg_steps = 0
+    for _ in range(iters):
+        neg_steps += int((z < 0).sum())
+        zc = z[..., None]
+        tp = torch.where(lane, torch.clamp_min(a - zc, 0), 0.0)
+        tn = torch.where(lane, torch.clamp_min(-a - zc, 0), 0.0)
+        cnt = ((a > zc) & lane).sum(-1) + ((-a > zc) & lane).sum(-1)
+        z = z + (tree_sum(tp) + tree_sum(tn) - gamma) / torch.clamp_min(
+            cnt.float(), 1.0)
+    solves = z.numel()
+    pos_steps = solves * iters - neg_steps
+    ops = (solves * (3 * M + 1 + 4 * iters) + pos_steps * (5 * M - 1)
+           + neg_steps * (7 * M))
+    return ops, solves * ops_newton(M, iters)
+
+
 def ops_bisect(M: int, iters: int = 26) -> int:
     """f32 ops of one bisection over M lanes and 2M branch operands:
     init (add, abs, max per lane, sub); per step mid (add, mul), 2M x
@@ -158,6 +213,19 @@ def ops_int_dot(M: int, iters: int) -> int:
     lane, sub) and per step mid (add, shift), 2M x (sub, max) plus 2M
     adds, compare, 2 selects; then the final sub."""
     mpabs = 2 * M + 1 + iters * (2 + 6 * M + 3)
+    return 6 * M + 2 * mpabs + 1
+
+
+def ops_int_dot_min(M: int, iters: int) -> int:
+    """int32 ops of one fxp_mp_dot over M lanes in the cheapest exact
+    form of a step, the one the int stream kernel runs: a lane's two
+    hinges relu(t - mid) + relu(-t - mid) equal max(|t|, |mid|) - mid, so
+    after the operands (add or sub, then a two-sided clamp: 6M for u and
+    v) each mpabs takes |t| and the running max per lane and lo (2M + 1),
+    then per step mid (add, shift), |mid|, the seed -M mid, a max and an
+    add per lane, the compare and 2 selects (2M + 7); then the final sub.
+    About 0.42 of ``ops_int_dot`` at M = 16."""
+    mpabs = 2 * M + 1 + iters * (2 * M + 7)
     return 6 * M + 2 * mpabs + 1
 
 
@@ -221,13 +289,17 @@ def ptxas_report(text: str) -> dict:
 
 
 def short_entry(name: str) -> str:
-    """A readable name for an mp_linear instantiation's mangled symbol,
-    e.g. mp_linear<bf16,BB=2,TO=8,res>; others are shortened."""
+    """A readable name for a kernel instantiation's mangled symbol, e.g.
+    mp_linear<bf16,BB=2,TO=8,res> or fir_mp_stream<16,6>; others are
+    shortened."""
     m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)E", name)
     if m:
         wt = "bf16" if m.group(1) == "t" else "f32"
         res = "res" if m.group(4) == "1" else "global"
         return f"mp_linear<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
+    m = re.search(r"(fir_mp_stream(?:_q)?)_kernelILi(\d+)ELi(\d+)E", name)
+    if m:
+        return f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
     return name.replace("_ZN12_GLOBAL__N_1", "")[:48]
 
 
@@ -240,14 +312,62 @@ def phase_build():
         if rep:
             log({"ptxas": name, "registers_spill_st_ld":
                  {short_entry(k): v for k, v in rep.items()}})
+    for name in ("fir_mp_stream", "fir_mp_stream_q"):
+        for entry, census in sass_census(_build.lib_path(name),
+                                         solve_census).items():
+            log({"sass_solve_step": entry, **census})
     return secs
 
 
-def loop_census(lines: list) -> dict:
-    """The hot loop of one function's SASS: of the innermost loops (a
-    branch back to an earlier address) that hold an FMNMX, the one with the
-    most FADDs. Its opcode counts and, per (b, o, i) -- each has one FMNMX
-    per branch -- its FP32 and all instructions."""
+def phase_octave_profile(fb, prog, clips) -> dict:
+    """One served wave (S = 256, n = 160 of 256, fresh registers) on the
+    device, float and fixed: each octave's device time through the
+    one-octave entries, and the session step's cascade as
+    ``ops.fir_mp_stream`` / ``ops.fir_mp_stream_q`` run it (device time of
+    its stream kernel launches, of every kernel, CUDA-event ms per wave).
+    Uses only entry points whose signatures are stable, so the same
+    function measures an older checkout's kernels."""
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.fir_mp import (fir_mp_stream_octave,
+                                            fir_mp_stream_octave_q)
+    dev = torch.device("cuda")
+    c = fb.config
+    O, F, T1 = c.num_octaves, c.filters_per_octave, 15
+    gen = torch.Generator().manual_seed(0)
+
+    def on_dev(case):
+        chunk, n, delays, consumed, acc, amax = case
+        return (chunk.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+                tuple(t.to(dev) for t in consumed), acc.to(dev), amax.to(dev))
+
+    out = {}
+    wave = on_dev(cascade_case("served", 256, 256, O, O * F, T1, gen, clips))
+    taps = (fb.bp_by_octave, fb.lp_filters, c.gamma_f)
+    wave_q = on_dev(cascade_case("served", 256, 256, O, O * F, T1, gen, clips,
+                                 codes=lambda x: fx.quantize_signal(prog, x)))
+    for numerics, octave, case, steps, run in (
+            ("float", fir_mp_stream_octave, wave, float_steps(fb),
+             lambda: ops.fir_mp_stream(*wave, *taps, solver=c.solver)),
+            ("fixed", fir_mp_stream_octave_q, wave_q, fixed_steps(prog),
+             lambda: ops.fir_mp_stream_q(prog, *wave_q))):
+        chain = device_us(lambda: octave_chain(octave, *case, steps),
+                          numerics)
+        step = device_us(run, numerics)
+        out[numerics] = dict(one_octave_device_us=chain["launch_us"],
+                             cascade_stream_device_us=step["stream_us"],
+                             cascade_stream_launches=len(step["launch_us"]),
+                             cascade_all_device_us=step["all_us"],
+                             cascade_kernels=step["kernels_per_call"],
+                             cascade_event_ms=cuda_ms(run, 50))
+    log({"octave_profile": out})
+    return out
+
+
+def inner_loops(lines: list) -> list:
+    """The opcodes of each innermost loop (a branch back to an earlier
+    address that holds no other such loop) of one function's SASS."""
     ops, at, loops = [], {}, []
     for line in lines:
         m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)",
@@ -259,11 +379,17 @@ def loop_census(lines: list) -> dict:
         t = re.search(r"\bBRA\s+(0x[0-9a-f]+)", line)
         if t and int(t.group(1), 16) in at:
             loops.append((at[int(t.group(1), 16)], len(ops)))
-    # innermost loops only: none holds another loop
-    inner = [(a, b) for a, b in loops
-             if not any(a <= c and e <= b and (c, e) != (a, b)
-                        for c, e in loops)]
-    bodies = [ops[a:b] for a, b in inner if "FMNMX" in ops[a:b]]
+    return [ops[a:b] for a, b in loops
+            if not any(a <= c and e <= b and (c, e) != (a, b)
+                       for c, e in loops)]
+
+
+def loop_census(lines: list) -> dict:
+    """The hot loop of one function's SASS: of the innermost loops that
+    hold an FMNMX, the one with the most FADDs. Its opcode counts and, per
+    (b, o, i) -- each has one FMNMX per branch -- its FP32 and all
+    instructions."""
+    bodies = [b for b in inner_loops(lines) if "FMNMX" in b]
     if not bodies:
         return {"loop": None}
     body = max(bodies, key=lambda o: o.count("FADD"))
@@ -274,9 +400,9 @@ def loop_census(lines: list) -> dict:
             "fp32_per_boi": fp / per, "all_per_boi": len(body) / per}
 
 
-def sass_census(lib: Path) -> dict:
-    """``loop_census`` of every function in a built library, by
-    ``short_entry`` name, from ``cuobjdump -sass``."""
+def sass_census(lib: Path, census=loop_census) -> dict:
+    """``census`` (``loop_census`` by default) of every function in a
+    built library, by ``short_entry`` name, from ``cuobjdump -sass``."""
     from repro_torch.kernels._build import nvcc_path
     tool = Path(nvcc_path()).parent / "cuobjdump"
     text = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
@@ -286,28 +412,337 @@ def sass_census(lib: Path) -> dict:
         m = re.search(r"Function : (\S+)", line)
         if m:
             if name:
-                out[short_entry(name)] = loop_census(lines)
+                out[short_entry(name)] = census(lines)
             name, lines = m.group(1), []
         else:
             lines.append(line)
     return out
 
 
-def phase_stream_kernel(fb, gen):
-    """fir_mp_stream_octave vs plain at the serve path's six octave shapes:
-    S = 256 slots, L = 256 (the 160-sample packet's bucket) then 128, ...,
-    8; valid counts mixed (0 and odd included), random phases."""
+def solve_census(lines: list, lanes: int = 16) -> dict:
+    """The band-pass solve step of a stream kernel's SASS: of the
+    innermost loops, the float Newton iteration (the loop with MUFU, the
+    divide's reciprocal, and the most FADDs: its fast path counted, the
+    slow-path subroutine not) or, without one, the integer bisection step
+    (the loop with the most VIMNMX). Its opcodes, all and FP32 (FADD,
+    FMUL, FFMA, FMNMX) or INT instructions per iteration, and per operand
+    lane (``lanes``, the 16 band-pass taps)."""
+    bodies = inner_loops(lines)
+    newton = [b for b in bodies if "MUFU" in b]
+    if newton:
+        body = max(newton, key=lambda o: o.count("FADD"))
+        kind = "newton"
+        sel = sum(o in ("FADD", "FMUL", "FFMA", "FMNMX") for o in body)
+    else:
+        ints = [b for b in bodies if "VIMNMX" in b or "IMNMX" in b]
+        if not ints:
+            return {"loop": None}
+        body = max(ints, key=lambda o: o.count("VIMNMX") + o.count("IMNMX"))
+        kind = "bisect_int"
+        sel = sum(o not in ("BRA", "BSSY", "BSYNC", "LDS", "STS", "LDG",
+                            "STG") and not o.startswith("F") for o in body)
+    return {"loop": kind, "instructions": len(body),
+            "fp32" if kind == "newton" else "int": sel,
+            "per_lane": len(body) / lanes,
+            ("fp32" if kind == "newton" else "int") + "_per_lane":
+                sel / lanes,
+            "opcodes": {o: body.count(o) for o in sorted(set(body))}}
+
+
+def is_stream_kernel(name: str, numerics: str) -> bool:
+    """Whether a profiled kernel name is the float or the int stream
+    kernel (every kernel built from csrc/fir_mp_stream*.cu)."""
+    if numerics == "fixed":
+        return "fir_mp_stream_q" in name
+    return "fir_mp_stream" in name and "fir_mp_stream_q" not in name
+
+
+def device_us(fn, numerics: str, reps: int = 10, tries: int = 3) -> dict:
+    """Device time of ``fn()`` under torch.profiler, per call: the stream
+    kernels' launches (``is_stream_kernel``) in order, their total, every
+    kernel's total, and how many kernels each call launched. The launches
+    a call makes are counted by the wrappers (``LAUNCHES``); a profile
+    that lost a launch's record is taken again, up to ``tries`` times,
+    after which a call of one launch is timed by the records that came
+    (some profiles of one-launch calls came back a record short)."""
     import torch
-    from repro_torch.core.filterbank import accumulate_block_len
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import LAUNCHES
+    before = sum(LAUNCHES.values())
+    fn()
+    torch.cuda.synchronize()
+    per = sum(LAUNCHES.values()) - before
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = sorted((e for e in prof.events()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: e.time_range.start)
+        mine = [e for e in evs if is_stream_kernel(e.name, numerics)]
+        if per > 0 and len(mine) == per * reps:
+            break
+    else:
+        if not (per == 1 and len(mine) >= reps // 2):
+            raise AssertionError(
+                f"profiled {len(mine)} stream kernel launches in {reps} "
+                f"calls of {per} launches each: "
+                f"{sorted({e.name[:60] for e in evs})}")
+    calls = len(mine) // per      # the calls whose records all came
+    us = [0.0] * per
+    for i, e in enumerate(mine):
+        us[i % per] += e.time_range.elapsed_us() / calls
+    return dict(launch_us=us, stream_us=sum(us),
+                all_us=sum(e.time_range.elapsed_us() for e in evs) / calls,
+                kernels_per_call=len(evs) / calls)
+
+
+def octave_chain(octave, chunk, n, delays, consumed, acc, amax, steps):
+    """The served cascade octave by octave through a one-octave entry
+    (``octave``, with ``steps[o]`` its keyword arguments at octave o and
+    ``steps[o]["F"]`` its accumulator columns): one launch per octave, as
+    the serve path ran it before the cascade kernel."""
+    import torch
+    x_o, n_o, col = chunk, n, 0
+    for o, kw in enumerate(steps):
+        kw = dict(kw)
+        F = kw.pop("F")
+        start = consumed[o] & 1
+        _, _, _, y = octave(x_o, n_o, start, delays[o],
+                            acc[:, col:col + F].contiguous(),
+                            amax if o == 0 else torch.zeros_like(amax), **kw)
+        col += F
+        if y is not None:
+            x_o = y[:, :(x_o.shape[1] + 1) // 2].contiguous()
+            n_o = torch.clamp_min(n_o - start + 1, 0) >> 1
+    return None
+
+
+def float_steps(fb):
+    """``octave_chain``'s per-octave keywords for the float bank."""
+    import torch
+    c = fb.config
+    O = c.num_octaves
+    return [dict(F=c.filters_per_octave, H=fb.bp_by_octave[o],
+                 lp=(fb.lp_filters[o] if o < O - 1 else
+                     torch.zeros(1, device=fb.bp_by_octave[o].device)),
+                 gamma=c.gamma_f, scale=2.0 ** o, solver=c.solver,
+                 emit_next=o < O - 1, update_amax=o == 0)
+            for o in range(O)]
+
+
+def fixed_steps(prog):
+    """``octave_chain``'s per-octave keywords for the fixed program."""
+    st = prog.bank.octaves
+    return [dict(F=s.bp_q.shape[0], stage=s,
+                 next_spec=st[o + 1].in_spec if s.lp_q is not None else None,
+                 emit_next=s.lp_q is not None, update_amax=o == 0)
+            for o, s in enumerate(st)]
+
+
+def cascade_case(kind: str, S: int, L: int, octaves: int, P: int, T1: int,
+                 gen, clips=None, codes=None):
+    """Inputs (chunk, n, delays, consumed, acc, amax) on the CPU for one
+    cascade check. ``served``: a served wave, n = 160 of an L = 256 bucket
+    for every slot, the seeded clips' samples (``codes`` turns floats
+    into ADC codes), fresh registers. ``mixed``: valid counts 0, full, odd
+    and random, random registers (int codes within ``codes``'s range when
+    given as (lo, hi)) and consumed counters of both parities."""
+    import torch
+    if kind == "served":
+        n = torch.full((S,), 160, dtype=torch.int32)
+        chunk = torch.zeros(S, L)
+        chunk[:, :160] = torch.from_numpy(clips[:S, :160].copy())
+        regs = dict(dtype=torch.float32) if codes is None else dict(
+            dtype=torch.int32)
+        delays = tuple(torch.zeros(S, T1, **regs) for _ in range(octaves))
+        consumed = tuple(torch.zeros(S, dtype=torch.int32)
+                         for _ in range(octaves))
+        acc, amax = torch.zeros(S, P, **regs), torch.zeros(S, **regs)
+        if codes is not None:
+            chunk = codes(chunk)
+        return chunk, n, delays, consumed, acc, amax
+    n = torch.randint(0, L + 1, (S,), generator=gen, dtype=torch.int32)
+    n[:8] = 0
+    n[8:16] = L
+    n[16:24] = torch.arange(8, dtype=torch.int32) * 2 % L + 1   # odd
+    consumed = tuple(torch.randint(0, 1 << 20, (S,), generator=gen,
+                                   dtype=torch.int32) for _ in range(octaves))
+    if codes is None:
+        chunk = torch.randn(S, L, generator=gen)
+        delays = tuple(torch.randn(S, T1, generator=gen)
+                       for _ in range(octaves))
+        acc, amax = torch.rand(S, P, generator=gen), torch.rand(S, generator=gen)
+    else:
+        lo, hi = codes
+        i32 = dict(generator=gen, dtype=torch.int32)
+        chunk = torch.randint(lo, hi + 1, (S, L), **i32)
+        delays = tuple(torch.randint(lo, hi + 1, (S, T1), **i32)
+                       for _ in range(octaves))
+        acc = torch.randint(0, 1 << 22, (S, P), **i32)
+        amax = torch.randint(0, 128, (S,), **i32)
+    chunk = torch.where(torch.arange(L)[None] < n[:, None], chunk,
+                        torch.zeros((), dtype=chunk.dtype))
+    return chunk, n, delays, consumed, acc, amax
+
+
+def advanced(case, out, clips, codes=None):
+    """The served case one wave later: the registers ``out`` of the first
+    wave, consumed counters advanced by the slot index (odd phases at
+    every octave for odd slots), the clips' next 160 samples."""
+    import torch
+    chunk, n, _, _, _, _ = case
+    S = chunk.shape[0]
+    delays, consumed, acc, amax = out
+    step = torch.arange(S, dtype=torch.int32, device=consumed[0].device)
+    nxt = torch.zeros(chunk.shape)
+    nxt[:, :160] = torch.from_numpy(clips[:S, 160:320].copy())
+    if codes is not None:
+        nxt = codes(nxt)
+    return (nxt.to(chunk.device), n, delays,
+            tuple(c + step for c in consumed), acc, amax)
+
+
+def check_cascade(got, want, case, what: str, exact_ints: bool) -> float:
+    """Every output of a cascade kernel against its plain version: each
+    delay line, acc and amax within KERNEL_TOL * (1 + max |plain|) (float)
+    or exactly (int), every consumed counter exactly; the registers of the
+    n == 0 slots bit for bit. Returns the max |diff| (0 for int)."""
+    import torch
+    err = 0.0
+    pairs = ([(f"delays[{o}]", g, w) for o, (g, w) in
+              enumerate(zip(got[0], want[0]))]
+             + [("acc", got[2], want[2]), ("amax", got[3], want[3])])
+    for name, g, w in pairs:
+        if exact_ints:
+            exact(g, w, f"{what} {name}")
+            continue
+        d, tol = max_err(g, w)
+        if not d <= tol:
+            raise AssertionError(f"{what} {name}: max |diff| {d} > {tol}")
+        err = max(err, d)
+    for o, (g, w) in enumerate(zip(got[1], want[1])):
+        exact(g, w, f"{what} consumed[{o}]")
+    inert = case[1] == 0
+    if not (torch.equal(got[2][inert], case[4][inert]) and all(
+            torch.equal(g[inert], d[inert])
+            for g, d in zip(got[0], case[2]))):
+        raise AssertionError(f"{what}: an n == 0 slot moved")
+    return err
+
+
+def cascade_solve_ops(fb, case) -> tuple[int, int]:
+    """f32 ops the float cascade needs on ``case`` (L <= 512: one block per
+    octave), Newton solver: every valid band-pass (position, filter) and
+    every kept low-pass position solves mpabs(w + x) and mpabs(w - x) and
+    takes their difference; the solves counted by ``ops_newton_steps`` on
+    the windows the plain cascade sees. Returns (these ops, the
+    reference's form's)."""
+    import torch
+    from repro_torch.kernels import ref
+    c = fb.config
+    if c.solver != "newton":
+        raise ValueError("the served bank solves by Newton")
+    chunk, n, delays, consumed, acc, amax = case
+    O, F = c.num_octaves, c.filters_per_octave
+    M, M_lp, T1 = c.bp_taps, c.lp_taps, delays[0].shape[1]
+    dev = chunk.device
+    ops = ops_ref = 0
+
+    def solve(w, taps, count):
+        nonlocal ops, ops_ref
+        t = taps.flip(-1)
+        u = torch.cat([t + w, t - w])
+        k, k_ref = ops_newton_steps(u, c.gamma_f)
+        ops, ops_ref = ops + k + count, ops_ref + k_ref + count
+
+    x_o, n_o = chunk, n.long()
+    for o in range(O):
+        L_o = x_o.shape[1]
+        if L_o > 512:
+            raise ValueError("cascade_solve_ops counts one block per octave")
+        start = (consumed[o] & 1).long()
+        buf = torch.cat([delays[o][:, T1 - (M - 1):], x_o], 1)
+        valid = torch.arange(L_o, device=dev)[None] < n_o[:, None]
+        w = buf.unfold(1, M, 1)[:, :L_o][valid]               # (N, M)
+        solve(w[:, None, :], fb.bp_by_octave[o][None], w.shape[0] * F)
+        if o == O - 1:
+            break
+        n_next = torch.clamp_min(n_o - start + 1, 0) >> 1
+        J = int(n_next.max())
+        bufl = torch.cat([delays[o][:, T1 - (M_lp - 1):], x_o], 1)
+        idx = (start[:, None, None] + 2 * torch.arange(J, device=dev)[:, None]
+               + torch.arange(M_lp, device=dev))
+        keep = torch.arange(J, device=dev)[None] < n_next[:, None]
+        wl = bufl[torch.arange(bufl.shape[0], device=dev)[:, None, None],
+                  idx.clamp_max(bufl.shape[1] - 1)][keep]      # (K, M_lp)
+        solve(wl, fb.lp_filters[o], wl.shape[0])
+        _, _, _, y = ref.fir_mp_stream_octave(
+            x_o, n_o.int(), start.int(), delays[o], acc[:, :F].contiguous(),
+            amax, fb.bp_by_octave[o], fb.lp_filters[o], c.gamma_f,
+            solver=c.solver)
+        x_o, n_o = y[:, :(L_o + 1) // 2], n_next
+    return ops, ops_ref
+
+
+def served_counts(n, consumed) -> list:
+    """(valid count, kept low-pass count) per octave of a cascade on these
+    inputs: each octave's phase is consumed & 1 and the next valid count
+    max(n - phase + 1, 0) >> 1 (the last octave keeps none)."""
+    import torch
+    out, n_o = [], n.long().cpu()
+    for o, c in enumerate(consumed):
+        nxt = torch.clamp_min(n_o - (c.long().cpu() & 1) + 1, 0) >> 1
+        out.append((n_o, nxt if o < len(consumed) - 1 else n_o * 0))
+        n_o = nxt
+    return out
+
+
+def cascade_bytes(S: int, L: int, octaves: int, P: int, T1: int,
+                  taps: int) -> int:
+    """Bytes a cascade must move: the chunk and n read once; each octave's
+    delay line and consumed counter read and written; acc and amax read
+    and written; the taps (or tap codes) read once."""
+    return 4 * (S * L + S + octaves * (2 * S * T1 + 2 * S) + 2 * S * P
+                + 2 * S + taps)
+
+
+def thread_sweep(run, check, numerics: str) -> list:
+    """The cascade on one case at every CTA size the plan may take, each
+    held to ``check`` and timed (CUDA events and profiler)."""
+    from repro_torch.kernels.fir_mp import STREAM_MAX_THREADS
+    out = []
+    for threads in (64, 128, STREAM_MAX_THREADS):
+        check(run(threads), f"threads={threads}")
+        out.append(dict(threads=threads,
+                        ms=cuda_ms(lambda: run(threads), 50),
+                        device_us=device_us(lambda: run(threads),
+                                            numerics)["stream_us"]))
+    return out
+
+
+def phase_stream_kernel(fb, gen, clips):
+    """The float stream kernel against its plain versions: the one-octave
+    entry at the serve path's six octave shapes (S = 256 slots, L = 256
+    then 128, ..., 8; valid counts mixed, 0 and odd included, random
+    phases), then the cascade (one launch for all six octaves) on a
+    served wave (n = 160 of 256 for every slot, fresh and one wave later
+    with odd phases) and on mixed valid counts at L = 700 (two blocks at
+    octave 0), at the plan's CTA size and at every other."""
+    import torch
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
-    from repro_torch.kernels.fir_mp import fir_mp_stream_octave
+    from repro_torch.kernels.fir_mp import (fir_mp_stream_cascade,
+                                            fir_mp_stream_octave,
+                                            stream_plan)
     dev = torch.device("cuda")
     reset_launches()
     c = fb.config
     S, L, T1 = 256, 256, max(c.bp_taps, c.lp_taps) - 1
-    F = c.filters_per_octave
-    err, ms, plain_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0
-    for o in range(c.num_octaves):
+    F, O = c.filters_per_octave, c.num_octaves
+    err, ms, plain_ms = 0.0, 0.0, 0.0
+    for o in range(O):
         Lo = -(-L // 2 ** o)
         n = torch.randint(0, Lo + 1, (S,), generator=gen, dtype=torch.int32)
         n[:8] = 0
@@ -316,7 +751,7 @@ def phase_stream_kernel(fb, gen):
         x = torch.randn(S, Lo, generator=gen)
         if o == 0:   # the main path zeroes invalid tails of the chunk
             x = torch.where(torch.arange(Lo)[None] < n[:, None], x, 0.0)
-        emit = o < c.num_octaves - 1
+        emit = o < O - 1
         args = [t.to(dev) for t in (
             x, n, torch.randint(0, 2, (S,), generator=gen, dtype=torch.int32),
             torch.randn(S, T1, generator=gen), torch.rand(S, F, generator=gen),
@@ -344,20 +779,63 @@ def phase_stream_kernel(fb, gen):
                       50)
         plain_ms += cuda_ms(
             lambda: ref.fir_mp_stream_octave(*args, c.gamma_f, **kw), 3)
-        nv = n.long()
-        kept = (torch.clamp_min(nv - args[2].cpu().long() + 1, 0) // 2
-                if emit else nv * 0)
-        ops += (int(nv.sum()) * F * (2 * ops_newton(c.bp_taps) + 1)
-                + int(kept.sum()) * (2 * ops_newton(c.lp_taps) + 1))
-        LB = accumulate_block_len(Lo)
-        nbytes += 4 * (S * Lo + 2 * S + 2 * S * T1 + 2 * S * F + 2 * S
-                       + F * c.bp_taps + c.lp_taps
-                       + (S * -(-Lo // LB) * LB // 2 if emit else 0))
-    b_ms, b_by = bound_ms(ops, nbytes)
-    row = dict(name="fir_mp_stream_octave", shapes=f"S={S} L={L}..{Lo}",
-               max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by,
-               launches_here=LAUNCHES["fir_mp_stream_octave"])
+    octave_entry = dict(shapes=f"S={S} L={L}..{Lo}", ms=ms, plain_ms=plain_ms,
+                        max_abs_err=err,
+                        launches_here=LAUNCHES["fir_mp_stream_octave"])
+
+    # the cascade: one launch per wave
+    taps = (fb.bp_by_octave, fb.lp_filters, c.gamma_f)
+    kw = dict(solver=c.solver)
+
+    def on_dev(case):
+        chunk, n, delays, consumed, acc, amax = case
+        return (chunk.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+                tuple(t.to(dev) for t in consumed), acc.to(dev), amax.to(dev))
+
+    served = on_dev(cascade_case("served", S, L, O, O * F, T1, gen, clips))
+    cases = {"served": served}
+    cases["served, one wave later"] = on_dev(advanced(
+        served, ref.fir_mp_stream(*served, *taps, **kw), clips))
+    cases["mixed, L = 700"] = on_dev(cascade_case("mixed", S, 700, O, O * F,
+                                                  T1, gen))
+    reset_launches()
+    for name, case in cases.items():
+        for upd in (True, False):
+            k = dict(kw, update_amax=upd)
+            err = max(err, check_cascade(
+                fir_mp_stream_cascade(*case, *taps, **k),
+                ref.fir_mp_stream(*case, *taps, **k), case,
+                f"fir_mp_stream_cascade ({name}, update_amax={upd})", False))
+    launches_here = LAUNCHES["fir_mp_stream_cascade"]
+    want = ref.fir_mp_stream(*served, *taps, **kw)
+    sweep = thread_sweep(
+        lambda th: fir_mp_stream_cascade(*served, *taps, threads=th, **kw),
+        lambda got, what: check_cascade(got, want, served, what, False),
+        "float")
+    run = lambda: fir_mp_stream_cascade(*served, *taps, **kw)  # noqa: E731
+    prof = device_us(run, "float")
+    counts = served_counts(served[1], served[3])
+    ops, ops_ref = cascade_solve_ops(fb, served)
+    nb = cascade_bytes(S, L, O, O * F, T1,
+                       O * F * c.bp_taps + (O - 1) * c.lp_taps)
+    b_ms, b_by = bound_ms(ops, nb)
+    k_ms = cuda_ms(run, 50)
+    chain = device_us(lambda: octave_chain(fir_mp_stream_octave, *served,
+                                           float_steps(fb)), "float")
+    plan = stream_plan(L, F, c.bp_taps, c.lp_taps, T1, octaves=O)
+    row = dict(name="fir_mp_stream_cascade",
+               shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
+               max_abs_err=err, ms=prof["stream_us"] * 1e-3, event_ms=k_ms,
+               plain_ms=cuda_ms(lambda: ref.fir_mp_stream(*served, *taps,
+                                                          **kw), 3),
+               bound_ms=b_ms, bound_by=b_by, x_bound=prof["stream_us"] * 1e-3
+               / b_ms, bound_ms_reference_algorithm=bound_ms(ops_ref, nb)[0],
+               threads=plan["threads"],
+               smem_bytes=plan["smem_bytes"],
+               valid_per_octave=[int(nv[0]) for nv, _ in counts],
+               launches_here=launches_here, thread_sweep=sweep,
+               one_octave_entry=octave_entry,
+               one_octave_chain_device_us=chain["launch_us"])
     log({"kernel_vs_plain": row})
     return row
 
@@ -457,12 +935,12 @@ def wave(pipe, S: int):
     return chunk, valid
 
 
-def step_breakdown(step, cascade, readout, kernel: str) -> dict:
+def step_breakdown(step, cascade, readout, numerics: str) -> dict:
     """Where a serve step's time goes, on one wave: the whole session step,
-    its octave cascade (6 stream kernel launches and the glue around them)
+    its octave cascade (one stream kernel launch and what surrounds it)
     and the kernel machine readout, each timed alone with CUDA events; then
     the step under torch.profiler for the device's busy share and its top
-    kernels (``kernel`` names the stream kernel's symbol)."""
+    kernels (``numerics`` picks the stream kernel, ``is_stream_kernel``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -488,7 +966,7 @@ def step_breakdown(step, cascade, readout, kernel: str) -> dict:
         sum(e.count for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA) / reps)
     out["stream_kernel_device_us_per_step"] = sum(
-        t for t, k in kern if kernel in k) / reps
+        t for t, k in kern if is_stream_kernel(k, numerics)) / reps
     out["top_device_us_per_step"] = [[k[:60], t / reps] for t, k in kern[:6]]
     return out
 
@@ -504,11 +982,14 @@ def phase_serve(audio):
     serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
     reset_launches()
     server, p, secs = serve(pipe, audio, 50, 160)
-    launches = LAUNCHES["fir_mp_stream_octave"]
+    launches = LAUNCHES["fir_mp_stream_cascade"]
     waves = server.steps_run
-    if not (waves > 0 and launches == 6 * waves):
-        raise AssertionError(f"stream kernel launched {launches} times for "
-                             f"{waves} waves (want 6 per wave)")
+    if not (waves > 0 and launches == waves
+            and LAUNCHES["fir_mp_stream_octave"] == 0):
+        raise AssertionError(
+            f"stream cascade kernel launched {launches} times for {waves} "
+            f"waves (want 1 per wave), the one-octave kernel "
+            f"{LAUNCHES['fir_mp_stream_octave']} times (want 0)")
     if not (torch.isfinite(p).all() and p.abs().max() <= 1):
         raise AssertionError("final decisions not finite / outside [-1, 1]")
     plain = make_pipeline(stream_impl="xla", use_pallas=False)
@@ -525,7 +1006,7 @@ def phase_serve(audio):
     breakdown = step_breakdown(
         lambda: pipe._session_step(state, chunk, valid),
         lambda: pipe._cascade_pallas(state, chunk, valid),
-        lambda: pipe.clf(phi, exact=False), "fir_mp_stream_octave_kernel")
+        lambda: pipe.clf(phi, exact=False), "float")
     out = dict(phase="serve", streams=S, waves=waves,
                stream_kernel_launches=launches, step_ms_median=step_ms,
                step_ms_mean=sum(secs) / len(secs) * 1e3,
@@ -596,19 +1077,25 @@ def fixed_pipeline(cal, **kw):
     return pipe, pipe.calibrate_fixed(cal)
 
 
-def phase_int_stream_kernel(prog, gen):
-    """fir_mp_stream_octave_q vs plain at one wave's six octave shapes:
-    S = 256 slots, L = 256 then 128, ..., 8; valid counts mixed (0 and odd
-    included), random phases, register codes in their 8-bit range."""
+def phase_int_stream_kernel(prog, gen, clips):
+    """The int stream kernel against its plain versions, exactly: the
+    one-octave entry at one wave's six octave shapes (S = 256 slots, L =
+    256 then 128, ..., 8; valid counts mixed, 0 and odd included, random
+    phases, register codes in their 8-bit range), then the cascade (one
+    launch) on a served wave (n = 160 of 256, the clips' ADC codes, fresh
+    and one wave later with odd phases) and on mixed valid counts at L =
+    700, at the plan's CTA size and at every other."""
     import torch
-    from repro_torch.core.filterbank import accumulate_block_len
+    from repro_torch.core import fixed as fx
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
-    from repro_torch.kernels.fir_mp import fir_mp_stream_octave_q
+    from repro_torch.kernels.fir_mp import (fir_mp_stream_cascade_q,
+                                            fir_mp_stream_octave_q,
+                                            stream_plan)
     dev = torch.device("cuda")
     reset_launches()
     stages = prog.bank.octaves
     S, L, T1 = 256, 256, 15
-    ms, plain_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0
+    ms, plain_ms = 0.0, 0.0
     i32 = dict(generator=gen, dtype=torch.int32)
     for o, st in enumerate(stages):
         Fn, M = st.bp_q.shape
@@ -642,21 +1129,79 @@ def phase_int_stream_kernel(prog, gen):
         ms += cuda_ms(lambda: fir_mp_stream_octave_q(*args, **kw), 50)
         plain_ms += cuda_ms(lambda: ref.fir_mp_stream_octave_q(*args, **kw),
                             3)
-        nv = n.long()
-        kept = (torch.clamp_min(nv - args[2].cpu().long() + 1, 0) // 2
-                if emit else nv * 0)
-        ops += (int(nv.sum()) * Fn * (ops_int_dot(M, st.iters_bp) + 2)
-                + int(kept.sum()) * (ops_int_dot(st.lp_q.shape[1],
-                                                 st.iters_lp) + 4
-                                     if emit else 0))
-        nbytes += 4 * (S * Lo + 2 * S + 2 * S * T1 + 2 * S * Fn + 2 * S
-                       + Fn * M + (st.lp_q.shape[1] + S * (Lo + 1) // 2
-                                   if emit else 0))
-    b_ms, b_by = bound_ms(ops, nbytes, INT32_OPS_PER_S)
-    row = dict(name="fir_mp_stream_octave_q", shapes=f"S={S} L={L}..{Lo}",
-               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by,
-               launches_here=LAUNCHES["fir_mp_stream_octave_q"])
+    octave_entry = dict(shapes=f"S={S} L={L}..{Lo}", ms=ms, plain_ms=plain_ms,
+                        launches_here=LAUNCHES["fir_mp_stream_octave_q"])
+
+    # the cascade: one launch per wave
+    O = len(stages)
+    Fs = [st.bp_q.shape[0] for st in stages]
+    P, M, M_lp = sum(Fs), stages[0].bp_q.shape[1], stages[0].lp_q.shape[1]
+    spec = stages[0].in_spec
+
+    def codes(x):
+        return fx.quantize_signal(prog, x)
+
+    def on_dev(case):
+        chunk, n, delays, consumed, acc, amax = case
+        return (chunk.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+                tuple(t.to(dev) for t in consumed), acc.to(dev), amax.to(dev))
+
+    served = on_dev(cascade_case("served", S, L, O, P, T1, gen, clips,
+                                 codes=codes))
+    cases = {"served": served}
+    cases["served, one wave later"] = on_dev(advanced(
+        served, ref.fir_mp_stream_q(prog, *served), clips, codes))
+    cases["mixed, L = 700"] = on_dev(cascade_case(
+        "mixed", S, 700, O, P, T1, gen, codes=(spec.qmin, spec.qmax)))
+    reset_launches()
+    for name, case in cases.items():
+        check_cascade(fir_mp_stream_cascade_q(prog, *case),
+                      ref.fir_mp_stream_q(prog, *case), case,
+                      f"fir_mp_stream_cascade_q ({name})", True)
+    launches_here = LAUNCHES["fir_mp_stream_cascade_q"]
+    want = ref.fir_mp_stream_q(prog, *served)
+    sweep = thread_sweep(
+        lambda th: fir_mp_stream_cascade_q(prog, *served, threads=th),
+        lambda got, what: check_cascade(got, want, served, what, True),
+        "fixed")
+    run = lambda: fir_mp_stream_cascade_q(prog, *served)  # noqa: E731
+    prof = device_us(run, "fixed")
+    counts = served_counts(served[1], served[3])
+    ops = ops_ref = 0
+    for (nv, kp), st in zip(counts, stages):
+        Fn = st.bp_q.shape[0]
+        lp = ((int(kp.sum()), st.lp_q.shape[1], st.iters_lp)
+              if st.lp_q is not None else (0, 1, 0))
+        for count, acc_ops in ((ops_int_dot_min, "ops"),
+                               (ops_int_dot, "ref")):
+            k = (int(nv.sum()) * Fn * (count(M, st.iters_bp) + 2)
+                 + lp[0] * (count(lp[1], lp[2]) + 4))
+            if acc_ops == "ops":
+                ops += k
+            else:
+                ops_ref += k
+    nb = cascade_bytes(S, L, O, P, T1,
+                       sum(st.bp_q.size + (st.lp_q.size if st.lp_q is not None
+                                           else 0) for st in stages))
+    b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
+    chain = device_us(lambda: octave_chain(fir_mp_stream_octave_q, *served,
+                                           fixed_steps(prog)), "fixed")
+    plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=O)
+    row = dict(name="fir_mp_stream_cascade_q",
+               shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
+               max_abs_err=0.0, ms=prof["stream_us"] * 1e-3,
+               event_ms=cuda_ms(run, 50),
+               plain_ms=cuda_ms(lambda: ref.fir_mp_stream_q(prog, *served),
+                                3),
+               bound_ms=b_ms, bound_by=b_by,
+               x_bound=prof["stream_us"] * 1e-3 / b_ms,
+               bound_ms_reference_algorithm=bound_ms(ops_ref, nb,
+                                                     INT32_OPS_PER_S)[0],
+               threads=plan["threads"], smem_bytes=plan["smem_bytes"],
+               valid_per_octave=[int(nv[0]) for nv, _ in counts],
+               launches_here=launches_here, thread_sweep=sweep,
+               one_octave_entry=octave_entry,
+               one_octave_chain_device_us=chain["launch_us"])
     log({"kernel_vs_plain": row})
     return row
 
@@ -728,11 +1273,14 @@ def phase_fixed_serve(audio, cal):
     serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
     reset_launches()
     server, p, secs = serve(pipe, audio, 50, 160)
-    launches = LAUNCHES["fir_mp_stream_octave_q"]
+    launches = LAUNCHES["fir_mp_stream_cascade_q"]
     waves = server.steps_run
-    if not (waves > 0 and launches == 6 * waves):
-        raise AssertionError(f"int stream kernel launched {launches} times "
-                             f"for {waves} waves (want 6 per wave)")
+    if not (waves > 0 and launches == waves
+            and LAUNCHES["fir_mp_stream_octave_q"] == 0):
+        raise AssertionError(
+            f"int stream cascade kernel launched {launches} times for "
+            f"{waves} waves (want 1 per wave), the one-octave kernel "
+            f"{LAUNCHES['fir_mp_stream_octave_q']} times (want 0)")
     state = server.state
     if state.acc.dtype != torch.int32 or state.delays[0].dtype != torch.int32:
         raise AssertionError("fixed registers must stay int32")
@@ -755,7 +1303,7 @@ def phase_fixed_serve(audio, cal):
         lambda: pipe._session_step(state, chunk, valid),
         lambda: fir_mp_stream_q(prog, xq, valid, state.delays,
                                 state.consumed, state.acc, state.amax),
-        lambda: fx.readout_q(prog, state.acc), "fir_mp_stream_q_kernel")
+        lambda: fx.readout_q(prog, state.acc), "fixed")
     step_ms = sorted(secs)[len(secs) // 2] * 1e3
     octaves = prog.bank.octaves
     log(dict(phase="fixed_serve", streams=S, waves=waves,
@@ -1128,11 +1676,14 @@ def main() -> int:
     build_s = phase_build()
     fb = FilterBank(FILTERBANK, device="cuda")
     gen = torch.Generator().manual_seed(0)
-    stream_row = phase_stream_kernel(fb, gen)
-
     # seeded synthetic ESC-10-like audio (numpy), 1 s clips at 16 kHz
     clips = make_esc10_like(per_class_train=26, per_class_test=1,
                             fs=16000.0, seconds=1.0, seed=0).x_train
+    if "--profile-only" in sys.argv[1:]:
+        phase_octave_profile(fb, fixed_pipeline(clips[:8])[1], clips)
+        log(card)
+        return 0
+    stream_row = phase_stream_kernel(fb, gen, clips)
     x1 = torch.from_numpy(np.ascontiguousarray(clips[:8])).cuda()
     bank_rows = phase_bank_kernels(fb, x1)
 
@@ -1141,7 +1692,8 @@ def main() -> int:
 
     cal = clips[:8]
     _, prog = fixed_pipeline(cal)
-    int_stream_row = phase_int_stream_kernel(prog, gen)
+    int_stream_row = phase_int_stream_kernel(prog, gen, clips)
+    phase_octave_profile(fb, prog, clips)
     int_bank_row = phase_int_bank_kernel(prog, x1)
     fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)

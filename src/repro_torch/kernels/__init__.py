@@ -9,17 +9,20 @@ Layers, as in the reference's ``repro.kernels``:
   fir_mp.py     - one wrapper per FIR kernel: launch for CUDA tensors, the
                   plain version for CPU tensors
   mp_kernels.py - the same for the two MP solve kernels
-  ops.py        - public wrappers: leading dims, the per-octave stream
+  ops.py        - public wrappers: leading dims, the session step's octave
                   cascade, the forward-only ``mp_linear``
   ref.py        - the plain PyTorch versions
 
 Kernels:
-  fir_mp_stream_octave - one octave of the float session step (delay line,
-                 per-band partials and running amax held per slot; LP + ÷2
-                 at the slot's phase)
+  fir_mp_stream_cascade - the float session step's whole octave cascade in
+                 one launch (delay lines, per-band partials and running
+                 amax per slot; LP + ÷2 at each octave's phase; the kept
+                 signal carried from octave to octave on the card);
+                 ``fir_mp_stream_octave`` runs it on one octave
   fir_mp_bank  - one-shot MP FIR bank, optional fused HWR + accumulate
   fir_mp       - the bank kernel with one filter
-  fir_mp_stream_octave_q / fir_mp_bank_q - the integer twins of the two:
+  fir_mp_stream_cascade_q, fir_mp_stream_octave_q / fir_mp_bank_q - the
+                 integer twins of the two:
                  the fixed-point datapath (integer MP bisection, shift/add/
                  compare only), bit for bit ``core.fixed``'s torch ops
   mp_linear    - the fused multiplierless matrix product of eq. 9, every

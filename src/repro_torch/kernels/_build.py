@@ -35,12 +35,12 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures: every pointer and the stream as c_void_p
 SIGNATURES = {
-    "fir_mp_stream": ("fir_mp_stream_octave_launch",
-                      [_P] * 12 + [_I] * 7 + [_F, _F] + [_I] * 3 + [_P]),
+    "fir_mp_stream": ("fir_mp_stream_launch",
+                      [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P]),
     "fir_mp_bank": ("fir_mp_bank_launch",
                     [_P] * 4 + [_I] * 4 + [_F] + [_I] * 2 + [_P]),
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
-                        [_P] * 13 + [_I] * 5 + [_P]),
+                        [_P] * 9 + [_I] * 13 + [_P]),
     "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
     "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
     "mp_waterfill": ("mp_waterfill_launch", [_P] * 2 + [_I] * 2 + [_F, _I, _P]),

@@ -1,72 +1,102 @@
-// One octave of the integer session step: the fixed-point twin of
-// fir_mp_stream.cu.
+// The integer session step: the fixed-point twin of fir_mp_stream.cu, for
+// one octave or for the whole octave cascade of a served wave in one
+// launch.
 //
 // Replaces: src/repro/kernels/fir_mp.py, fir_mp_stream_octave_q (the
-// Pallas kernel _fir_mp_stream_q_kernel). Plain PyTorch version:
-// repro_torch/kernels/ref.py, fir_mp_stream_octave_q.
+// Pallas kernel _fir_mp_stream_q_kernel), and the per-octave loop around
+// it in src/repro/kernels/ops.py, fir_mp_stream_q. Plain PyTorch
+// versions: repro_torch/kernels/ref.py, fir_mp_stream_octave_q and
+// fir_mp_stream_q.
 //
-// What it computes, per slot s (one chunk row of int32 register codes):
-//   * for each block of LB positions (LB = accumulate_block_len(L)), in
-//     order: splice the slot's delay line in front of the block; for every
-//     position p and band-pass filter f, rescale the window codes by
-//     sig_shift and solve fxp_mp_dot (operands clamped onto the band
-//     spec, integer bisection with gamma_bp / iters_bp); add max(y, 0) of
-//     the valid positions (p < n) to that filter's partial sum;
-//   * solve only the kept low-pass positions at the slot's ÷2 phase
-//     (window start + 2j + k, rescaled by lp_sig_shift, lp spec, gamma_lp
-//     / iters_lp) and write clamp(rescale(kept, lp_out_shift), next_qmin,
+// What it computes, per slot s (one chunk row of int32 register codes) and
+// octave o in order:
+//   * for each block of LB positions (LB = accumulate_block_len(L_o)), in
+//     order: splice the octave's delay line in front of the block; for
+//     every valid position p and band-pass filter f, rescale the window
+//     codes by sig_shift and solve fxp_mp_dot (operands clamped onto the
+//     band spec, integer bisection with gamma_bp / iters_bp); add max(y, 0)
+//     to that filter's partial sum;
+//   * solve the kept low-pass positions at the slot's ÷2 phase (window
+//     start + 2j + k, rescaled by lp_sig_shift, lp spec, gamma_lp /
+//     iters_lp) and write clamp(rescale(kept, lp_out_shift), next_qmin,
 //     next_qmax): the next octave's register codes;
 //   * slide the delay line by the block's valid count, and (octave 0)
 //     raise the running amax to the block's max |code|;
-//   * at the end write acc + (part << acc_shift), the delay line, amax.
+//   * at the end of the octave write acc + (part << acc_shift) into its
+//     accumulator columns, the delay line and consumed + n; the next
+//     octave runs on the kept codes with n' = max(n - phase + 1, 0) >> 1.
 // A slot with n = 0 comes back bit for bit: its delay slides by 0 and its
-// partials stay 0.
+// partials stay 0. The one-octave entry runs one stage and writes every
+// kept position j < (L + 1) / 2, the full y_next.
 //
-// What bounds it on an H100: operations. At S = 256 slots and 160-sample
-// packets the codes are a few hundred KB, while every (position, filter)
-// costs ~1.6k int32 instructions. The Pallas grid (slot_block,
-// chunk_block, filter) ran in order so VMEM scratch could carry state; on
-// Hopper nothing carries between CTAs, so one CTA owns one slot and loops
-// over its chunk blocks with the delay line, the partials and amax in
-// shared memory; threads take positions and solve every filter from
-// registers. The stage's constants and tap codes ride in the parameter
-// space (__grid_constant__).
+// What bounds it on an H100: integer operations. The layout is the float
+// kernel's (one launch per wave, one CTA walking one slot through the
+// octaves, the kept codes in a per-slot scratch row read back after a
+// barrier; work items are one branch of one (valid position, filter) pair
+// or of one kept low-pass position, the two branches in adjacent lanes).
+// The bisection step runs in its cheapest exact form (fxp::mpabs_q_mag:
+// one max and one add per lane). The compiled program's stage constants and
+// tap codes (about 2.2 KB per octave) sit in one device table that the
+// wrapper packs once per program; each CTA copies its octave's record
+// into shared memory.
 //
 // Integer addition and max are associative, so the partial sums and the
-// amax reduce in any order and still give the reference's bits: warp
-// __reduce_add_sync / __reduce_max_sync, then shared-memory atomics. None
-// of the float kernel's adjacent-pair tree ordering is needed. Sums wrap
+// amax reduce in any order and still give the reference's bits. Sums wrap
 // in unsigned arithmetic, like the reference's int32 (the reference's
 // interval proof keeps every register far from 2**31 for sessions up to
 // 4,202,512 samples).
 
 #include <cuda_runtime.h>
-
-#include <cstddef>
-#include <cstring>
+#include <stdint.h>
 
 #include "fixed_point.cuh"
 
 namespace {
 
-constexpr int kMaxBP = 512;   // F * M band-pass tap codes
-constexpr int kLP = 8;        // low-pass lanes (M_lp <= 8)
+constexpr int kMaxOctaves = 8;
+constexpr int kMaxThreads = 256;
+constexpr int kMaxLB = 512;   // filterbank.STREAM_BLOCK
+constexpr int kMaxF = 32;
 constexpr int kP = 16;        // band-pass lanes (M <= 16)
+constexpr int kLP = 8;        // low-pass lanes (M_lp <= 8)
+constexpr int kHead = 32;     // stage header words
+constexpr int kMaxBP = 512;   // F * M band-pass tap codes
+constexpr int kSeg = 16;      // the float kernel's group sums (layout only)
+constexpr int kStageWords = kHead + kMaxBP + kLP;
 constexpr unsigned kFull = 0xffffffffu;
 
-// The compiled OctaveStage, flattened (core/fixed.py OctaveStage).
-struct Stage {
-  int bp[kMaxBP];   // (F, M) taps, each row reversed (conv order w = h[::-1])
-  int lp[kLP];      // low-pass taps, reversed
-  int F, M, M_lp, T1;
-  int sig_shift, lp_sig_shift, lp_out_shift, acc_shift;
-  int gamma_bp, iters_bp, gamma_lp, iters_lp;
-  int band_qmin, band_qmax, lp_qmin, lp_qmax, next_qmin, next_qmax;
+// The stage header, in the order kernels/fir_mp.py (STAGE_FIELDS) packs
+// it; then F x M band-pass codes at kHead (each row reversed: conv order
+// w = h[::-1]) and M_lp low-pass codes at kHead + kMaxBP (reversed).
+enum { hF, hM, hM_lp, hT1, hSigShift, hLpSigShift, hLpOutShift, hAccShift,
+       hGammaBp, hItersBp, hGammaLp, hItersLp, hBandQmin, hBandQmax,
+       hLpQmin, hLpQmax, hNextQmin, hNextQmax, hEmit, kHeadFields };
+static_assert(kHeadFields <= kHead, "the stage header must fit kHead");
+
+struct Octave {
+  const int* delay_in;   // (S, T1)
+  int* delay_out;        // (S, T1)
+  const int* phase_in;   // cascade: consumed (S,); one octave: start (S,)
+  int* consumed_out;     // (S,), cascade only
+  int col;               // first accumulator column
 };
-constexpr int kScalars = 18;  // F .. next_qmax, in this order
-static_assert(offsetof(Stage, next_qmax) - offsetof(Stage, F) ==
-                  (kScalars - 1) * sizeof(int),
-              "the scalars of Stage must be contiguous ints");
+
+struct Table {
+  Octave oct[kMaxOctaves];
+};
+
+__host__ __device__ inline int block_len(int n) {  // accumulate_block_len
+  int b = 2;
+  while (b < n && b < kMaxLB) b <<= 1;
+  return b;
+}
+
+// The float kernel's shared layout, so one launch plan sizes both.
+__host__ inline long smem_words(int L, int F, int M, int T1) {
+  const int LB = block_len(L);
+  return (long)T1 + LB + kHead + (long)F * M + kLP + (long)F * LB +
+         (long)F * kSeg + F + kMaxThreads / 32;
+}
 
 __device__ __forceinline__ int wadd(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
@@ -76,144 +106,258 @@ __device__ __forceinline__ int wsub(int a, int b) {
   return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
-__global__ void __launch_bounds__(512)
-fir_mp_stream_q_kernel(const int* __restrict__ x, const int* __restrict__ n,
-                       const int* __restrict__ start,
-                       const int* __restrict__ delay,
-                       const int* __restrict__ acc,
-                       const int* __restrict__ amax,
-                       const __grid_constant__ Stage st,
-                       int* __restrict__ acc_out, int* __restrict__ delay_out,
-                       int* __restrict__ amax_out, int* __restrict__ y_next,
-                       int L, int LB, int emit_next, int update_amax) {
+// One branch of fxp_mp_dot over the window xs (codes, rescaled by `shift`)
+// and the reversed taps ws: mpabs(clamp(w + x)) (br 0) or mpabs(clamp(w -
+// x)) (br 1), operands clamped onto [qmin, qmax] and solved from their
+// magnitudes.
+template <int P, int MC>
+__device__ __forceinline__ int mpabs_branch(const int* xs, const int* ws,
+                                            int M, int br, int shift,
+                                            int qmin, int qmax, int gamma,
+                                            int iters) {
+  const int m = MC ? MC : M;
+  int a[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    const int x = k < m ? fxp::rescale(xs[k], shift) : 0;
+    const int w = k < m ? ws[k] : 0;
+    a[k] = abs(fxp::clamp(br ? wsub(w, x) : wadd(w, x), qmin, qmax));
+  }
+  return fxp::mpabs_q_mag<P, MC>(a, M, gamma, iters);
+}
+
+struct Args {
+  const int* x;          // (S, L) chunk codes (octave 0)
+  const int* n;          // (S,) valid counts (octave 0)
+  const int* acc;        // (S, P) accumulators in
+  const int* amax;       // (S,) running max |code| in
+  int* acc_out;          // (S, P)
+  int* amax_out;         // (S,)
+  int* y;                // (S, ystride): y_next (one octave) or scratch
+  const int* stages;     // (num_octaves, kStageWords) device table
+  int L, P, ystride, num_octaves, M, M_lp, T1, F_max, update_amax, cascade;
+};
+
+template <int MB, int ML>
+__global__ void __launch_bounds__(kMaxThreads)
+fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
   extern __shared__ int smem[];
-  int* buf = smem;                                     // T1 + LB codes
-  unsigned* part = reinterpret_cast<unsigned*>(buf + st.T1 + LB);  // F
-  int* am_s = reinterpret_cast<int*>(part + st.F);     // running amax
+  const int T1 = a.T1, M = MB ? MB : a.M, M_lp = ML ? ML : a.M_lp;
+  const int LB0 = block_len(a.L);
+  int* buf = smem;                       // T1 + LB0: [delay line | block]
+  int* hd = buf + T1 + LB0;              // stage header
+  int* hs = hd + kHead;                  // F x M band-pass codes
+  int* ls = hs + a.F_max * M;            // M_lp low-pass codes
+  unsigned* hv = reinterpret_cast<unsigned*>(ls + kLP);  // F x LB HWR
+  unsigned* part = hv + a.F_max * LB0 + a.F_max * kSeg;  // F partials
+  int* am_s = reinterpret_cast<int*>(part + a.F_max);    // running amax
 
   const int s = blockIdx.x;
   const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int nthreads = blockDim.x;
-  const int T1 = st.T1, M = st.M, M_lp = st.M_lp;
-  const int NB = (L + LB - 1) / LB;
-  const int half = LB / 2;
-  const int l_next = (L + 1) / 2;
-  const int nv = n[s];
-  const int ph = start[s];
+  const int nwarps = nthreads >> 5;
 
-  for (int i = tid; i < T1; i += nthreads) buf[i] = delay[(size_t)s * T1 + i];
-  for (int i = tid; i < st.F; i += nthreads) part[i] = 0u;
-  if (tid == 0) *am_s = amax[s];
+  const int* src = a.x + (size_t)s * a.L;
+  int* yrow = a.y ? a.y + (size_t)s * a.ystride : nullptr;
+  int Lo = a.L;
+  int nv = a.n[s];
+  if (tid == 0) *am_s = a.amax[s];
 
-  for (int b = 0; b < NB; ++b) {
-    const int p = b * LB + tid;      // chunk position of this thread
-    if (tid < LB) buf[T1 + tid] = p < L ? x[(size_t)s * L + p] : 0;
+  for (int o = 0; o < a.num_octaves; ++o) {
+    const Octave& oc = t.oct[o];
+    const int* rec = a.stages + (size_t)o * kStageWords;
+    const int F = rec[hF];
+    for (int i = tid; i < kHead; i += nthreads) hd[i] = rec[i];
+    for (int i = tid; i < F * M; i += nthreads) hs[i] = rec[kHead + i];
+    for (int i = tid; i < M_lp; i += nthreads) ls[i] = rec[kHead + kMaxBP + i];
+    for (int i = tid; i < F; i += nthreads) part[i] = 0u;
     __syncthreads();
+    const int emit = hd[hEmit];
+    const int LB = block_len(Lo);
+    const int NB = (Lo + LB - 1) / LB;
+    const int half = LB / 2;
+    const int ph = a.cascade ? (oc.phase_in[s] & 1) : oc.phase_in[s];
+    const int n_next = max(nv - ph + 1, 0) >> 1;
+    const int kept = !emit ? 0 : (a.cascade ? n_next : a.ystride);
+    const bool reread = a.cascade && o > 0;  // src is the scratch row
 
-    if (update_amax) {               // integer max: any order
-      const int m = __reduce_max_sync(kFull, tid < LB ? abs(buf[T1 + tid]) : 0);
-      if ((tid & 31) == 0) atomicMax(am_s, m);
-    }
+    for (int i = tid; i < T1; i += nthreads)
+      buf[i] = oc.delay_in[(size_t)s * T1 + i];
 
-    // band-pass: window p covers buf[T1 - (M-1) + p .. + M-1]
-    int xw[kP];
-#pragma unroll
-    for (int k = 0; k < kP; ++k)
-      xw[k] = (tid < LB && k < M)
-                  ? fxp::rescale(buf[T1 - (M - 1) + tid + k], st.sig_shift)
-                  : 0;
-    for (int f = 0; f < st.F; ++f) {
-      int u[kP], v[kP];
-#pragma unroll
-      for (int k = 0; k < kP; ++k) {
-        const int w = k < M ? st.bp[f * M + k] : 0;
-        u[k] = fxp::clamp(wadd(w, xw[k]), st.band_qmin, st.band_qmax);
-        v[k] = fxp::clamp(wsub(w, xw[k]), st.band_qmin, st.band_qmax);
+    for (int b = 0; b < NB; ++b) {
+      const int v = min(max(nv - b * LB, 0), LB);
+      const int kb = min(max(kept - b * half, 0), half);
+      int m = 0;
+      for (int i = tid; i < LB; i += nthreads) {
+        const int p = b * LB + i;
+        // past the valid prefix the scratch row holds nothing written
+        const bool in = reread ? p < nv : p < Lo;
+        const int xv = in ? (reread ? __ldcg(src + p) : src[p]) : 0;
+        buf[T1 + i] = xv;
+        m = max(m, abs(xv));
       }
-      const int y = fxp::mp_dot_q(u, v, M, st.gamma_bp, st.iters_bp);
-      const unsigned h =
-          (tid < LB && p < nv) ? static_cast<unsigned>(max(y, 0)) : 0u;
-      const unsigned wsum = __reduce_add_sync(kFull, h);
-      if ((tid & 31) == 0 && wsum) atomicAdd(&part[f], wsum);
-    }
-
-    // low-pass + ÷2: only the kept positions, at this slot's phase, emitted
-    // on the next octave's register grid
-    const int j = b * half + tid;
-    if (emit_next && tid < half && j < l_next) {
-      int u[kLP], v[kLP];
-#pragma unroll
-      for (int k = 0; k < kLP; ++k) {
-        const int xl =
-            k < M_lp ? fxp::rescale(buf[T1 - (M_lp - 1) + ph + 2 * tid + k],
-                                    st.lp_sig_shift)
-                     : 0;
-        const int w = k < M_lp ? st.lp[k] : 0;
-        u[k] = fxp::clamp(wadd(w, xl), st.lp_qmin, st.lp_qmax);
-        v[k] = fxp::clamp(wsub(w, xl), st.lp_qmin, st.lp_qmax);
+      if (a.update_amax && o == 0) {   // integer max: any order
+        m = __reduce_max_sync(kFull, m);
+        if (lane == 0) atomicMax(am_s, m);
       }
-      const int kept = fxp::mp_dot_q(u, v, M_lp, st.gamma_lp, st.iters_lp);
-      y_next[(size_t)s * l_next + j] = fxp::clamp(
-          fxp::rescale(kept, st.lp_out_shift), st.next_qmin, st.next_qmax);
-    }
-    __syncthreads();
+      __syncthreads();
 
-    // slide the delay line by this block's valid count; a slot with no
-    // valid samples keeps its registers bit for bit
-    const int vb = min(max(nv - b * LB, 0), LB);
-    const int d = tid < T1 ? buf[vb + tid] : 0;
-    __syncthreads();
-    if (tid < T1) buf[tid] = d;
+      // work items: 2 branches x (v x F band-pass pairs, then kb low-pass)
+      const int nbp = v * F;
+      const int items = 2 * (nbp + kb);
+      for (int base = warp * 32; base < items; base += nthreads) {
+        const int i = base + lane;
+        const int q = i >> 1, br = i & 1;
+        const bool act = i < items;
+        const bool is_bp = q < nbp;
+        int f = 0, p = 0, z = 0;
+        if (act) {
+          if (is_bp) {
+            f = q / v;
+            p = q - f * v;
+            z = mpabs_branch<kP, MB>(buf + T1 - (M - 1) + p, hs + f * M, M,
+                                     br, hd[hSigShift], hd[hBandQmin],
+                                     hd[hBandQmax], hd[hGammaBp],
+                                     hd[hItersBp]);
+          } else {
+            p = q - nbp;                 // kept position within the block
+            z = mpabs_branch<kLP, ML>(buf + T1 - (M_lp - 1) + ph + 2 * p, ls,
+                                      M_lp, br, hd[hLpSigShift],
+                                      hd[hLpQmin], hd[hLpQmax],
+                                      hd[hGammaLp], hd[hItersLp]);
+          }
+        }
+        const int other = __shfl_xor_sync(kFull, z, 1);
+        if (act && br == 0) {
+          const int y = z - other;       // mpabs(u) - mpabs(v)
+          if (is_bp)
+            hv[f * LB + p] = static_cast<unsigned>(max(y, 0));
+          else
+            yrow[b * half + p] =
+                fxp::clamp(fxp::rescale(y, hd[hLpOutShift]), hd[hNextQmin],
+                           hd[hNextQmax]);
+        }
+      }
+      __syncthreads();
+
+      // each filter's valid HWR values, summed in any order
+      for (int f = warp; f < F; f += nwarps) {
+        unsigned sum = 0u;
+        for (int p = lane; p < v; p += 32) sum += hv[f * LB + p];
+        sum = __reduce_add_sync(kFull, sum);
+        if (lane == 0) part[f] += sum;
+      }
+
+      // slide the delay line by this block's valid count; a slot with no
+      // valid samples keeps its registers bit for bit
+      const int d = tid < T1 ? buf[v + tid] : 0;
+      __syncthreads();
+      if (tid < T1) buf[tid] = d;
+      __syncthreads();
+    }
+
+    for (int f = tid; f < F; f += nthreads) {
+      const size_t c = (size_t)s * a.P + oc.col + f;
+      a.acc_out[c] = wadd(a.acc[c], fxp::shl(static_cast<int>(part[f]),
+                                             hd[hAccShift]));
+    }
+    for (int i = tid; i < T1; i += nthreads)
+      oc.delay_out[(size_t)s * T1 + i] = buf[i];
+    if (oc.consumed_out && tid == 0)
+      oc.consumed_out[s] = wadd(oc.phase_in[s], nv);
+    // the next octave: the kept codes, read back after the barrier
+    src = yrow;
+    nv = n_next;
+    Lo = (Lo + 1) / 2;
     __syncthreads();
   }
+  if (tid == 0) a.amax_out[s] = *am_s;
+}
 
-  if (tid < st.F)
-    acc_out[(size_t)s * st.F + tid] =
-        wadd(acc[(size_t)s * st.F + tid],
-             fxp::shl(static_cast<int>(part[tid]), st.acc_shift));
-  for (int i = tid; i < T1; i += nthreads) delay_out[(size_t)s * T1 + i] = buf[i];
-  if (tid == 0) amax_out[s] = *am_s;
+// Fields of one host table row, as int64 (kernels/fir_mp.py packs them).
+enum { kDelayIn, kDelayOut, kPhaseIn, kConsumedOut, kCol, kOctFields };
+
+template <int MB, int ML>
+int launch(const Args& args, const Table& t, int S, int threads,
+           int smem_bytes, cudaStream_t stream) {
+  auto kernel = fir_mp_stream_q_kernel<MB, ML>;
+  if (smem_bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<S, threads, smem_bytes, stream>>>(args, t);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// One octave for S slots. x (S, L), n (S,), start (S,), delay (S, T1), acc
-// (S, F), amax (S,) int32 on the card; y_next (S, (L + 1) / 2) int32 (may
-// be null without emit_next). bp_host (F, M) and lp_host (M_lp,) int32 tap
-// codes and `scalars` (the 18 ints F, M, M_lp, T1, sig_shift, lp_sig_shift,
-// lp_out_shift, acc_shift, gamma_bp, iters_bp, gamma_lp, iters_lp,
-// band_qmin, band_qmax, lp_qmin, lp_qmax, next_qmin, next_qmax) are host
-// memory. Returns 0, a cudaError_t code, or -1 for shapes outside what it
-// takes (1 <= M <= 16, 1 <= M_lp <= 8, M - 1 <= T1, M_lp - 1 <= T1,
-// T1 <= 31, 1 <= F <= 32, L >= 1, even LB in [2, 512], iters >= 0).
+// The integer stream kernel for S slots over `num_octaves` stages. x (S,
+// L), n (S,), acc / acc_out (S, P), amax / amax_out (S,) int32 on the
+// card; y (S, ystride) int32: the one-octave entry's y_next (ystride = (L
+// + 1) / 2) or the cascade's scratch row (ystride >= (L + 1) / 2), null
+// when no stage emits. `stages` is the device table (num_octaves x 552
+// int32, kernels/fir_mp.py pack_stages); `octs` (num_octaves x kOctFields
+// int64) is host memory, copied into the launch's parameters; `F_max`, M,
+// M_lp and T1 must be the table's. `threads` and `smem_bytes` come from
+// the launch plan; a plan that does not cover this kernel's need is
+// refused. Returns 0, a cudaError_t code, or -1 for shapes outside what it
+// takes (1 <= M <= 16, 1 <= M_lp <= 8, M - 1 <= T1, M_lp - 1 <= T1, T1
+// <= 31, 1 <= F <= 32, 1 <= num_octaves <= 8, threads a multiple of 32 in
+// [32, 256]).
 extern "C" int fir_mp_stream_q_launch(
-    const void* x, const void* n, const void* start, const void* delay,
-    const void* acc, const void* amax, const void* bp_host,
-    const void* lp_host, const void* scalars, void* acc_out,
-    void* delay_out, void* amax_out, void* y_next, int S, int L, int LB,
-    int emit_next, int update_amax, void* stream) {
-  Stage st;
-  memcpy(&st.F, scalars, sizeof(int) * kScalars);
-  if (S < 1 || L < 1 || LB < 2 || LB > 512 || (LB & (LB - 1)) || st.F < 1 ||
-      st.F > 32 || st.M < 1 || st.M > kP || st.M_lp < 1 || st.M_lp > kLP ||
-      st.T1 > 31 || st.M - 1 > st.T1 || st.M_lp - 1 > st.T1 ||
-      st.iters_bp < 0 || st.iters_lp < 0 || (emit_next && !y_next))
+    const void* x, const void* n, const void* acc, const void* amax,
+    void* acc_out, void* amax_out, void* y, const void* stages,
+    const int64_t* octs, int num_octaves, int S, int L, int P, int ystride,
+    int F_max, int M, int M_lp, int T1, int update_amax, int cascade,
+    int threads, int smem_bytes, void* stream) {
+  if (S < 1 || L < 1 || num_octaves < 1 || num_octaves > kMaxOctaves ||
+      F_max < 1 || F_max > kMaxF || F_max * M > kMaxBP || M < 1 || M > kP ||
+      M_lp < 1 || M_lp > kLP || T1 > 31 || M - 1 > T1 || M_lp - 1 > T1 ||
+      threads < 32 || threads > kMaxThreads || threads % 32 || !stages ||
+      !amax_out || (cascade ? (num_octaves > 1 && ystride < (L + 1) / 2)
+                            : (num_octaves != 1 ||
+                               (y && ystride != (L + 1) / 2))))
     return -1;
-  const int* bp = static_cast<const int*>(bp_host);
-  const int* lp = static_cast<const int*>(lp_host);
-  for (int f = 0; f < st.F; ++f)
-    for (int k = 0; k < st.M; ++k)
-      st.bp[f * st.M + k] = bp[f * st.M + (st.M - 1 - k)];
-  for (int k = 0; k < st.M_lp; ++k) st.lp[k] = lp[st.M_lp - 1 - k];
-  const int threads = LB < 32 ? 32 : ((LB + 31) / 32) * 32;
-  const size_t bytes = sizeof(int) * ((size_t)st.T1 + LB + st.F + 1);
-  fir_mp_stream_q_kernel<<<S, threads, bytes,
-                           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(x), static_cast<const int*>(n),
-      static_cast<const int*>(start), static_cast<const int*>(delay),
-      static_cast<const int*>(acc), static_cast<const int*>(amax), st,
-      static_cast<int*>(acc_out), static_cast<int*>(delay_out),
-      static_cast<int*>(amax_out), static_cast<int*>(y_next), L, LB,
-      emit_next, update_amax);
-  return static_cast<int>(cudaGetLastError());
+  Table t = {};
+  for (int o = 0; o < num_octaves; ++o) {
+    const int64_t* r = octs + (size_t)o * kOctFields;
+    Octave& oc = t.oct[o];
+    oc.delay_in = reinterpret_cast<const int*>(r[kDelayIn]);
+    oc.delay_out = reinterpret_cast<int*>(r[kDelayOut]);
+    oc.phase_in = reinterpret_cast<const int*>(r[kPhaseIn]);
+    oc.consumed_out = reinterpret_cast<int*>(r[kConsumedOut]);
+    oc.col = static_cast<int>(r[kCol]);
+    if (oc.col < 0 || oc.col + 1 > P || !oc.delay_in || !oc.delay_out ||
+        !oc.phase_in || (cascade && !oc.consumed_out))
+      return -1;
+  }
+  if ((cascade && num_octaves > 1) && !y) return -1;
+  const long need = smem_words(L, F_max, M, T1) * (long)sizeof(int);
+  if (smem_bytes < need || smem_bytes > 227 * 1024) return -1;
+  Args args;
+  args.x = static_cast<const int*>(x);
+  args.n = static_cast<const int*>(n);
+  args.acc = static_cast<const int*>(acc);
+  args.amax = static_cast<const int*>(amax);
+  args.acc_out = static_cast<int*>(acc_out);
+  args.amax_out = static_cast<int*>(amax_out);
+  args.y = static_cast<int*>(y);
+  args.stages = static_cast<const int*>(stages);
+  args.L = L;
+  args.P = P;
+  args.ystride = ystride;
+  args.num_octaves = num_octaves;
+  args.M = M;
+  args.M_lp = M_lp;
+  args.T1 = T1;
+  args.F_max = F_max;
+  args.update_amax = update_amax;
+  args.cascade = cascade;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (M == 16 && M_lp == 6)
+    return launch<16, 6>(args, t, S, threads, smem_bytes, st);
+  return launch<0, 0>(args, t, S, threads, smem_bytes, st);
 }

@@ -1,6 +1,7 @@
 // The integer datapath shared by the two fixed-point kernels
 // (fir_mp_bank_q.cu, fir_mp_stream_q.cu): shifts with the reference's
-// semantics for any count, saturating clamps, and the integer MP solve.
+// semantics for any count, saturating clamps, and the integer MP solve
+// (both branches of a dot interleaved, or one branch alone).
 //
 // The reference (src/repro/core/fixed.py) shifts int32 with XLA's rules:
 // a left shift by 32 or more gives 0, an arithmetic right shift by 32 or
@@ -69,6 +70,41 @@ __device__ __forceinline__ int mp_dot_q(const int (&u)[P], const int (&v)[P],
     hv = tv ? hv : mv;
   }
   return hu - hv;
+}
+
+// mpabs(t) alone, over the first m of P lanes (MC: m at compile time, 0
+// for the runtime M), in the cheapest exact form of a bisection step. A
+// lane's two hinges are symmetric in t, so with a = |t|:
+//   relu(t - mid) + relu(-t - mid) = max(a, |mid|) - mid
+// (mid >= 0: the second hinge is 0 and relu(a - mid) = max(a, mid) - mid;
+// mid < 0: a - mid > 0 and adding relu(-a - mid) gives max(-2 mid, a -
+// mid)). So each step sums max(a_k, |mid|) over the lanes and subtracts
+// m * mid: the same integer as fxp_mpabs's constraint, so the same
+// compare and the same bits. Codes are 10-bit, far from overflow. The
+// caller passes the magnitudes a = |t|: given t, ptxas recomputes |t| in
+// every step (one IABS per lane per step, PERF.md §6).
+template <int P, int MC>
+__device__ __forceinline__ int mpabs_q_mag(const int (&a)[P], int M,
+                                           int gamma, int iters) {
+  const int m = MC ? MC : M;
+  int hi = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k)
+    if (k < m) hi = max(hi, a[k]);
+  int lo = hi - gamma;
+#pragma unroll 1  // keep code size down; lanes unroll
+  for (int it = 0; it < iters; ++it) {
+    const int mid = (lo + hi) >> 1;
+    const int am = abs(mid);
+    int s = -m * mid;
+#pragma unroll
+    for (int k = 0; k < P; ++k)
+      if (k < m) s += max(a[k], am);
+    const bool too_low = s > gamma;
+    lo = too_low ? mid : lo;
+    hi = too_low ? hi : mid;
+  }
+  return hi;
 }
 
 }  // namespace fxp

@@ -1,14 +1,17 @@
 """Wrappers of the hand-written CUDA kernels for the MP FIR.
 
-* ``fir_mp_stream_octave`` — ``csrc/fir_mp_stream.cu``, one octave of the
-  float session step (replaces the reference's Pallas
-  ``fir_mp_stream_octave``);
+* ``fir_mp_stream_cascade`` — ``csrc/fir_mp_stream.cu``, the float
+  session step's whole octave cascade in one launch (replaces the
+  reference's per-octave loop of Pallas ``fir_mp_stream_octave`` calls);
+* ``fir_mp_stream_octave`` — the same kernel on one octave (replaces the
+  Pallas ``fir_mp_stream_octave``);
 * ``fir_mp_bank_kernel`` — ``csrc/fir_mp_bank.cu``, the one-shot bank
   (replaces ``fir_mp_bank_pallas``);
 * ``fir_mp_kernel`` — the same source with one filter (replaces
   ``fir_mp_pallas``);
-* ``fir_mp_stream_octave_q`` — ``csrc/fir_mp_stream_q.cu``, one octave of
-  the integer session step (replaces ``fir_mp_stream_octave_q``);
+* ``fir_mp_stream_cascade_q`` / ``fir_mp_stream_octave_q`` —
+  ``csrc/fir_mp_stream_q.cu``, the integer session step, whole cascade or
+  one octave (replaces ``fir_mp_stream_octave_q``);
 * ``fir_mp_bank_q_kernel`` — ``csrc/fir_mp_bank_q.cu``, the one-shot
   integer bank, both modes (replaces ``fir_mp_bank_q_pallas``).
 
@@ -19,6 +22,12 @@ here with ``torch.empty``; a refused launch raises at once. The integer
 kernels take int32 codes (the hardware path); their plain versions also
 take codes carried in float32, which on the card raise (ROADMAP.md §2,
 "f32-carried codes through the CUDA int kernels").
+
+The two stream kernels take a launch plan (:func:`stream_plan`: threads,
+shared bytes, scratch) and a table of per-octave rows packed here
+(:func:`stream_octave_rows`, :func:`stream_q_octave_rows`); the integer
+one also reads the compiled stage constants from a device table
+(:func:`pack_stages`), packed once per program.
 
 Each launch is counted in ``kernels._wrap.LAUNCHES``.
 """
@@ -33,10 +42,172 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
                                        _on_cuda, _stream)
 
-__all__ = ["fir_mp_stream_octave", "fir_mp_bank_kernel", "fir_mp_kernel",
-           "fir_mp_stream_octave_q", "fir_mp_bank_q_kernel"]
+__all__ = ["fir_mp_stream_cascade", "fir_mp_stream_octave",
+           "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_stream_cascade_q",
+           "fir_mp_stream_octave_q", "fir_mp_bank_q_kernel", "stream_plan",
+           "stream_octave_rows", "stream_q_octave_rows", "pack_stages"]
 
 _SOLVERS = {"newton": 0, "bisect": 1}
+
+# -- the stream kernels' launch plan and tables --------------------------------
+
+STREAM_MAX_THREADS = 256   # the kernels' __launch_bounds__ (PERF.md §6)
+STREAM_MAX_OCTAVES = 8
+STREAM_MAX_F = 32          # filters per octave
+STREAM_MAX_M = 16          # band-pass taps
+STREAM_MAX_M_LP = 8        # low-pass taps
+STREAM_MAX_T1 = 31         # delay-line length
+# shared words beside the per-block arrays: the stage header, the low-pass
+# lanes, the group sums per filter and the per-warp maxima
+_HEAD, _LP_LANES, _SEG = 32, 8, 16
+# the int64 fields of one octave row, in the order of the C enums
+STREAM_OCTAVE_FIELDS = ("delay_in", "delay_out", "phase_in", "consumed_out",
+                        "bp", "lp", "F", "col", "emit")
+STREAM_Q_OCTAVE_FIELDS = ("delay_in", "delay_out", "phase_in",
+                          "consumed_out", "col")
+# the int32 header of one compiled stage in the device table, in the order
+# of csrc/fir_mp_stream_q.cu; the (F, M) band-pass codes follow at
+# STAGE_HEAD (rows reversed), the low-pass codes at STAGE_HEAD +
+# STAGE_MAX_BP (reversed)
+STAGE_FIELDS = ("F", "M", "M_lp", "T1", "sig_shift", "lp_sig_shift",
+                "lp_out_shift", "acc_shift", "gamma_bp", "iters_bp",
+                "gamma_lp", "iters_lp", "band_qmin", "band_qmax", "lp_qmin",
+                "lp_qmax", "next_qmin", "next_qmax", "emit")
+STAGE_HEAD, STAGE_MAX_BP = _HEAD, 512
+STAGE_WORDS = STAGE_HEAD + STAGE_MAX_BP + _LP_LANES
+
+
+def stream_plan(L: int, F: int, M: int, M_lp: int, T1: int, *,
+                octaves: int = 1, threads: int | None = None) -> dict:
+    """The launch plan of the two stream kernels for chunks of L samples
+    over ``octaves`` octaves of at most F filters, M band-pass taps, M_lp
+    low-pass taps and a delay line of T1.
+
+    Per octave o (L_o = ceil(L / 2^o)): the block length LB_o, the blocks,
+    and the work items of a full block (each band-pass (position, filter)
+    pair and each kept low-pass position, in two branches: the most a
+    block can hold; the kernel sizes its loop to the valid counts).
+    ``threads`` per CTA: as many as the largest block's items, rounded up
+    to a warp, capped at ``STREAM_MAX_THREADS`` (or as asked, a multiple
+    of 32 up to it); ``smem_bytes`` the dynamic shared memory;
+    ``scratch`` the length of the per-slot row that carries the kept
+    signal from octave to octave (0 for one octave). Shapes outside the
+    kernels raise ValueError, as the kernels refuse them."""
+    for name, val, lo, hi in (("F", F, 1, STREAM_MAX_F),
+                              ("M", M, 1, STREAM_MAX_M),
+                              ("M_lp", M_lp, 1, STREAM_MAX_M_LP),
+                              ("T1", T1, 0, STREAM_MAX_T1),
+                              ("octaves", octaves, 1, STREAM_MAX_OCTAVES),
+                              ("L", L, 1, None)):
+        if val < lo or (hi is not None and val > hi):
+            raise ValueError(f"stream kernels: {name} = {val} outside "
+                             f"[{lo}, {hi if hi is not None else 'inf'}]")
+    if M - 1 > T1 or M_lp - 1 > T1:
+        raise ValueError(f"stream kernels: the delay line (T1 = {T1}) must "
+                         f"hold M - 1 = {M - 1} and M_lp - 1 = {M_lp - 1}")
+    lens, blocks, items = [], [], []
+    L_o = L
+    for o in range(octaves):
+        LB = accumulate_block_len(L_o)
+        lens.append(LB)
+        blocks.append(-(-L_o // LB))
+        emit = o < octaves - 1 or octaves == 1
+        items.append(2 * (min(L_o, LB) * F + (LB // 2 if emit else 0)))
+        L_o = (L_o + 1) // 2
+    if threads is None:
+        threads = min(STREAM_MAX_THREADS, -(-max(items) // 32) * 32)
+    elif threads < 32 or threads > STREAM_MAX_THREADS or threads % 32:
+        raise ValueError(f"stream kernels: threads = {threads} is not a "
+                         f"multiple of 32 in [32, {STREAM_MAX_THREADS}]")
+    LB0 = lens[0]
+    words = (T1 + LB0 + _HEAD + F * M + _LP_LANES + F * LB0 + F * _SEG + F
+             + STREAM_MAX_THREADS // 32)
+    return dict(threads=threads, smem_bytes=4 * words,
+                scratch=(L + 1) // 2 if octaves > 1 else 0,
+                block_len=lens, blocks=blocks, items_per_block=items)
+
+
+def stream_octave_rows(delays, delays_out, phases, consumed_out, bp_taps,
+                       lp_taps, scales=None):
+    """The float stream kernel's table: one int64 row per octave in
+    ``STREAM_OCTAVE_FIELDS`` order (the tensors' addresses; F; the first
+    accumulator column, octaves laid out F after F; whether the octave
+    emits, i.e. has low-pass taps) and the f32 scales, 2^o unless given.
+    ``consumed_out`` may hold None (the one-octave entry writes none);
+    ``lp_taps[o]`` None for an octave that does not emit."""
+    O = len(delays)
+    rows = np.zeros((O, len(STREAM_OCTAVE_FIELDS)), np.int64)
+    col = 0
+    for o in range(O):
+        F = bp_taps[o].shape[0]
+        lp = lp_taps[o]
+        rows[o] = (delays[o].data_ptr(), delays_out[o].data_ptr(),
+                   phases[o].data_ptr(),
+                   0 if consumed_out[o] is None else consumed_out[o].data_ptr(),
+                   bp_taps[o].data_ptr(), 0 if lp is None else lp.data_ptr(),
+                   F, col, int(lp is not None))
+        col += F
+    if scales is None:
+        scales = [2.0 ** o for o in range(O)]
+    return rows, np.asarray(scales, np.float32)
+
+
+def stream_q_octave_rows(delays, delays_out, phases, consumed_out, cols):
+    """The int stream kernel's table: one int64 row per octave in
+    ``STREAM_Q_OCTAVE_FIELDS`` order; its constants live in the stage
+    table (:func:`pack_stages`)."""
+    return np.asarray([(d.data_ptr(), do.data_ptr(), ph.data_ptr(),
+                        0 if co is None else co.data_ptr(), c)
+                       for d, do, ph, co, c in zip(delays, delays_out, phases,
+                                                   consumed_out, cols)],
+                      np.int64).reshape(len(delays),
+                                        len(STREAM_Q_OCTAVE_FIELDS))
+
+
+def pack_stages(stages, next_specs, T1: int) -> np.ndarray:
+    """The int stream kernel's stage table: one row of ``STAGE_WORDS``
+    int32 per compiled ``OctaveStage``: the ``STAGE_FIELDS`` header, the
+    band-pass codes with each row reversed (conv order w = h[::-1]) at
+    ``STAGE_HEAD``, the low-pass codes reversed after ``STAGE_MAX_BP``.
+    ``next_specs[o]`` is the next octave's register spec, or None for a
+    stage that emits no low-pass output (its low-pass fields then hold the
+    band spec's bounds and zeros, which the kernel never reads)."""
+    table = np.zeros((len(stages), STAGE_WORDS), np.int32)
+    for o, (st, nxt) in enumerate(zip(stages, next_specs)):
+        bp = _host_codes(st.bp_q)
+        F, M = bp.shape
+        emit = nxt is not None
+        if emit and st.lp_q is None:
+            raise ValueError(f"stage {o} has no low-pass taps to emit with")
+        if F * M > STAGE_MAX_BP:
+            raise ValueError(f"stage {o}: F x M = {F * M} tap codes exceed "
+                             f"the table's {STAGE_MAX_BP}")
+        lp = _host_codes(st.lp_q).reshape(-1) if emit else np.zeros(0, np.int32)
+        lp_spec = st.lp_spec if emit else st.band_spec
+        nxt = nxt if emit else st.band_spec
+        head = dict(F=F, M=M, M_lp=lp.shape[0], T1=T1, sig_shift=st.sig_shift,
+                    lp_sig_shift=st.lp_sig_shift,
+                    lp_out_shift=st.lp_out_shift, acc_shift=st.acc_shift,
+                    gamma_bp=st.gamma_bp, iters_bp=st.iters_bp,
+                    gamma_lp=st.gamma_lp, iters_lp=st.iters_lp,
+                    band_qmin=st.band_spec.qmin, band_qmax=st.band_spec.qmax,
+                    lp_qmin=lp_spec.qmin, lp_qmax=lp_spec.qmax,
+                    next_qmin=nxt.qmin, next_qmax=nxt.qmax, emit=int(emit))
+        table[o, :len(STAGE_FIELDS)] = [head[k] for k in STAGE_FIELDS]
+        table[o, STAGE_HEAD:STAGE_HEAD + F * M] = bp[:, ::-1].reshape(-1)
+        lp0 = STAGE_HEAD + STAGE_MAX_BP
+        table[o, lp0:lp0 + lp.shape[0]] = lp[::-1]
+    return table
+
+
+def _device_table(owner, key, make, device) -> torch.Tensor:
+    """``make()`` on ``device``, cached on ``owner`` (a frozen program
+    object: the cache sits in its instance dict, outside its fields)."""
+    cache = vars(owner).setdefault("_cuda_stream_tables", {})
+    key = (str(device), key)
+    if key not in cache:
+        cache[key] = torch.from_numpy(make()).to(device)
+    return cache[key]
 
 
 def _i32(t: torch.Tensor) -> torch.Tensor:
@@ -61,18 +232,103 @@ def _host_codes(a) -> np.ndarray:
     return np.ascontiguousarray(np.asarray(a), dtype=np.int32)
 
 
+def _stream_launch(x, n, acc, amax, acc_out, amax_out, y, rows, scales, *,
+                   L, P, ystride, M, M_lp, T1, gamma, solver, update_amax,
+                   cascade, plan):
+    from repro_torch.kernels._build import load
+    S = x.shape[0]
+    return load("fir_mp_stream")(
+        x.data_ptr(), n.data_ptr(), acc.data_ptr(), amax.data_ptr(),
+        acc_out.data_ptr(), None if amax_out is None else amax_out.data_ptr(),
+        None if y is None else y.data_ptr(), rows.ctypes.data,
+        scales.ctypes.data, rows.shape[0], S, L, P, ystride, M, M_lp, T1,
+        float(gamma), _SOLVERS[solver], int(update_amax), int(cascade),
+        plan["threads"], plan["smem_bytes"], _stream())
+
+
+def fir_mp_stream_cascade(chunk, n, delays, consumed, acc, amax, bp_taps,
+                          lp_taps, gamma, *, solver: str = "newton",
+                          update_amax: bool = True,
+                          threads: int | None = None):
+    """The float session step's octave cascade in one launch.
+
+    chunk (S, L) with invalid tails zeroed; n (S,) valid counts;
+    ``delays[o]`` (S, T1) and ``consumed[o]`` (S,) int32 per octave; acc
+    (S, P), P = octaves x F; amax (S,); ``bp_taps[o]`` (F, M), ``lp_taps[o]``
+    (M_lp,) for every octave but the last. The kernel takes each octave's
+    phase from ``consumed[o] & 1``, its valid count from the previous
+    one's ``max(n - phase + 1, 0) >> 1``, and updates amax at octave 0
+    under ``update_amax`` (otherwise ``amax`` comes back as given).
+    ``threads`` overrides the plan's threads per CTA. Returns ``(delays',
+    consumed', acc', amax')``, bit for bit ``ref.fir_mp_stream``."""
+    if solver not in _SOLVERS:
+        raise ValueError(f"unknown MP solver: {solver!r}")
+    O = len(delays)
+    if len(consumed) != O or len(bp_taps) < O or len(lp_taps) < O - 1:
+        raise ValueError(f"{O} delay lines need {O} consumed counters, "
+                         f"{O} band-pass and {O - 1} low-pass tap sets")
+    lps = list(lp_taps[:O - 1])
+    if not _on_cuda(chunk, n, acc, amax, *delays, *consumed,
+                    *bp_taps[:O], *lps):
+        return ref.fir_mp_stream(chunk, n, delays, consumed, acc, amax,
+                                 bp_taps, lp_taps, gamma, solver=solver,
+                                 update_amax=update_amax)
+    key = "fir_mp_stream_cascade"
+    S, L = chunk.shape
+    Fn, M = bp_taps[0].shape
+    T1 = delays[0].shape[1]
+    M_lp = lps[0].shape[0] if lps else 1
+    for o in range(O):
+        _expect(f"delays[{o}]", delays[o], (S, T1))
+        _expect(f"consumed[{o}]", consumed[o], (S,))
+        _expect(f"bp_taps[{o}]", bp_taps[o], (Fn, M))
+        if o < O - 1:
+            _expect(f"lp_taps[{o}]", lps[o], (M_lp,))
+    for name, t, shape in (("n", n, (S,)), ("acc", acc, (S, O * Fn)),
+                           ("amax", amax, (S,))):
+        _expect(name, t, shape)
+    plan = stream_plan(L, Fn, M, M_lp, T1, octaves=O, threads=threads)
+    chunk, acc, amax = _f32(chunk, "chunk"), _f32(acc, "acc"), _f32(amax,
+                                                                    "amax")
+    delays = [_f32(d, f"delays[{o}]") for o, d in enumerate(delays)]
+    bps = [_f32(h, f"bp_taps[{o}]") for o, h in enumerate(bp_taps[:O])]
+    lps = [_f32(h, f"lp_taps[{o}]") for o, h in enumerate(lps)] + [None]
+    n, consumed = _i32(n), [_i32(c) for c in consumed]
+    dev = chunk.device
+    delays_out = torch.empty((O, S, T1), dtype=torch.float32, device=dev)
+    consumed_out = torch.empty((O, S), dtype=torch.int32, device=dev)
+    acc_out = torch.empty_like(acc)
+    amax_out = torch.empty_like(amax) if update_amax else None
+    scratch = (torch.empty((S, plan["scratch"]), dtype=torch.float32,
+                           device=dev) if O > 1 else None)
+    rows, scales = stream_octave_rows(delays, delays_out, consumed,
+                                      consumed_out, bps, lps)
+    code = _stream_launch(chunk, n, acc, amax, acc_out, amax_out, scratch,
+                          rows, scales, L=L, P=O * Fn,
+                          ystride=plan["scratch"], M=M, M_lp=M_lp, T1=T1,
+                          gamma=gamma, solver=solver,
+                          update_amax=update_amax, cascade=True, plan=plan)
+    _check(code, key, f"S={S} L={L} octaves={O} F={Fn} M={M} T1={T1} "
+                      f"M_lp={M_lp} threads={plan['threads']}")
+    LAUNCHES[key] += 1
+    return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
+            acc_out, amax_out if update_amax else amax)
+
+
 def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
                          scale: float = 1.0, solver: str = "newton",
                          emit_next: bool = True, update_amax: bool = False):
-    """One octave of the stateful session step.
+    """One octave of the stateful session step (the stream kernel with one
+    table row).
 
     x (S, L) this octave's chunk (octave 0: invalid tails zeroed); n (S,)
     valid counts; start (S,) ÷2 phase; delay (S, T1) delay line; acc
     (S, F) this octave's accumulators; amax (S,) running amax (updated only
     under ``update_amax``); H (F, M) band-pass taps; lp (M_lp,) low-pass
     taps (unused without ``emit_next``). Returns ``(acc', delay', amax',
-    y_next | None)``; y_next is (S, ceil(L/LB) * LB // 2), the next
-    octave's signal in its first ``(L + 1) // 2`` columns.
+    y_next | None)``; y_next is (S, ceil(L/LB) * LB // 2), every kept
+    low-pass position of every block, the next octave's signal in its
+    first ``(L + 1) // 2`` columns.
     """
     if solver not in _SOLVERS:
         raise ValueError(f"unknown MP solver: {solver!r}")
@@ -80,7 +336,6 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
         return ref.fir_mp_stream_octave(
             x, n, start, delay, acc, amax, H, lp, gamma, scale=scale,
             solver=solver, emit_next=emit_next, update_amax=update_amax)
-    from repro_torch.kernels._build import load
     S, L = x.shape
     Fn, M = H.shape
     T1 = delay.shape[1]
@@ -89,8 +344,9 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
                            ("delay", delay, (S, T1)), ("acc", acc, (S, Fn)),
                            ("amax", amax, (S,)), ("lp", lp, (M_lp,))):
         _expect(name, t, shape)
-    LB = accumulate_block_len(L)
-    NB = -(-L // LB)
+    plan = stream_plan(L, Fn, M, M_lp, T1)
+    LB = plan["block_len"][0]
+    ystride = plan["blocks"][0] * (LB // 2)
     x, delay, acc, amax, H, lp = (
         _f32(t, nm) for t, nm in ((x, "x"), (delay, "delay"), (acc, "acc"),
                                   (amax, "amax"), (H, "H"), (lp, "lp")))
@@ -98,15 +354,15 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
     acc_o = torch.empty_like(acc)
     delay_o = torch.empty_like(delay)
     amax_o = torch.empty_like(amax)
-    y_next = (torch.empty((S, NB * (LB // 2)), dtype=x.dtype, device=x.device)
+    y_next = (torch.empty((S, ystride), dtype=x.dtype, device=x.device)
               if emit_next else None)
-    code = load("fir_mp_stream")(
-        x.data_ptr(), n.data_ptr(), start.data_ptr(), delay.data_ptr(),
-        acc.data_ptr(), amax.data_ptr(), H.data_ptr(), lp.data_ptr(),
-        acc_o.data_ptr(), delay_o.data_ptr(), amax_o.data_ptr(),
-        y_next.data_ptr() if emit_next else None,
-        S, L, LB, Fn, M, T1, M_lp, float(gamma), float(scale),
-        _SOLVERS[solver], int(emit_next), int(update_amax), _stream())
+    rows, scales = stream_octave_rows([delay], [delay_o], [start], [None],
+                                      [H], [lp if emit_next else None],
+                                      [scale])
+    code = _stream_launch(x, n, acc, amax, acc_o, amax_o, y_next, rows,
+                          scales, L=L, P=Fn, ystride=ystride, M=M,
+                          M_lp=M_lp, T1=T1, gamma=gamma, solver=solver,
+                          update_amax=update_amax, cascade=False, plan=plan)
     _check(code, "fir_mp_stream_octave",
            f"S={S} L={L} F={Fn} M={M} T1={T1} M_lp={M_lp}")
     LAUNCHES["fir_mp_stream_octave"] += 1
@@ -158,10 +414,100 @@ def fir_mp_kernel(x, h, gamma, *, accumulate: bool = False,
     return out[:, 0]
 
 
+def _stream_q_launch(x, n, acc, amax, acc_out, amax_out, y, stages, rows,
+                     *, L, P, ystride, F_max, M, M_lp, T1, update_amax,
+                     cascade, plan):
+    from repro_torch.kernels._build import load
+    S = x.shape[0]
+    return load("fir_mp_stream_q")(
+        x.data_ptr(), n.data_ptr(), acc.data_ptr(), amax.data_ptr(),
+        acc_out.data_ptr(), amax_out.data_ptr(),
+        None if y is None else y.data_ptr(), stages.data_ptr(),
+        rows.ctypes.data, rows.shape[0], S, L, P, ystride, F_max, M, M_lp,
+        T1, int(update_amax), int(cascade), plan["threads"],
+        plan["smem_bytes"], _stream())
+
+
+def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax, *,
+                            threads: int | None = None):
+    """The integer session step's octave cascade in one launch: the kernel
+    route of ``core.fixed.session_step_q``'s cascade, with the same
+    registers.
+
+    ``prog`` the compiled ``core.fixed.FixedPointProgram`` (MP mode);
+    chunk_q (S, L) ADC codes with invalid tails zeroed, L >= 1; n (S,)
+    effective valid counts; the registers as in ``SessionState``, int32.
+    Per octave the phase is ``consumed & 1`` and the next valid count
+    ``max(n - phase + 1, 0) >> 1``; amax rises at octave 0. The stage
+    constants travel in a device table packed once per program and cached
+    on it. ``threads`` overrides the plan's threads per CTA. Returns
+    ``(delays', consumed', acc', amax')``, bit for bit
+    ``ref.fir_mp_stream_q``."""
+    bank = prog.bank
+    if bank.mode != "mp":
+        raise ValueError(
+            f"fir_mp_stream_cascade_q runs the MP stream kernel; it has no "
+            f"{bank.mode!r}-mode variant (use fixed.session_step_q)")
+    stages = bank.octaves
+    O = len(stages)
+    if len(delays) != O or len(consumed) != O:
+        raise ValueError(f"the program has {O} octaves: pass {O} delay "
+                         f"lines and consumed counters")
+    if not _on_cuda(chunk_q, n, acc, amax, *delays, *consumed):
+        return ref.fir_mp_stream_q(prog, chunk_q, n, delays, consumed, acc,
+                                   amax)
+    key = "fir_mp_stream_cascade_q"
+    S, L = chunk_q.shape
+    T1 = delays[0].shape[1]
+    Fs = [st.bp_q.shape[0] for st in stages]
+    Ms = {st.bp_q.shape[1] for st in stages}
+    M_lps = {st.lp_q.shape[-1] for st in stages if st.lp_q is not None}
+    if len(Ms) != 1 or len(M_lps) > 1:
+        raise ValueError(f"the stream kernel takes one band-pass and one "
+                         f"low-pass length, got {sorted(Ms)} and "
+                         f"{sorted(M_lps)}")
+    M, M_lp = Ms.pop(), (M_lps.pop() if M_lps else 1)
+    for o in range(O):
+        _expect(f"delays[{o}]", delays[o], (S, T1))
+        _expect(f"consumed[{o}]", consumed[o], (S,))
+    for name, t, shape in (("n", n, (S,)), ("acc", acc, (S, sum(Fs))),
+                           ("amax", amax, (S,))):
+        _expect(name, t, shape)
+    plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=O, threads=threads)
+    chunk_q, acc, amax = (_codes(t, nm, key) for t, nm in (
+        (chunk_q, "chunk_q"), (acc, "acc"), (amax, "amax")))
+    delays = [_codes(d, f"delays[{o}]", key) for o, d in enumerate(delays)]
+    n, consumed = _i32(n), [_i32(c) for c in consumed]
+    dev = chunk_q.device
+    table = _device_table(prog, ("cascade", T1), lambda: pack_stages(
+        stages, [stages[o + 1].in_spec if st.lp_q is not None else None
+                 for o, st in enumerate(stages[:-1])] + [None], T1), dev)
+    delays_out = torch.empty((O, S, T1), dtype=torch.int32, device=dev)
+    consumed_out = torch.empty((O, S), dtype=torch.int32, device=dev)
+    acc_out = torch.empty_like(acc)
+    amax_out = torch.empty_like(amax)
+    scratch = (torch.empty((S, plan["scratch"]), dtype=torch.int32,
+                           device=dev) if O > 1 else None)
+    cols = np.cumsum([0] + Fs[:-1]).tolist()
+    rows = stream_q_octave_rows(delays, delays_out, consumed, consumed_out,
+                                cols)
+    code = _stream_q_launch(chunk_q, n, acc, amax, acc_out, amax_out, scratch,
+                            table, rows, L=L, P=sum(Fs),
+                            ystride=plan["scratch"], F_max=max(Fs), M=M,
+                            M_lp=M_lp, T1=T1, update_amax=True, cascade=True,
+                            plan=plan)
+    _check(code, key, f"S={S} L={L} octaves={O} F={Fs} M={M} T1={T1} "
+                      f"M_lp={M_lp} threads={plan['threads']}")
+    LAUNCHES[key] += 1
+    return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
+            acc_out, amax_out)
+
+
 def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
                            next_spec=None, emit_next: bool = True,
                            update_amax: bool = False):
-    """One octave of the integer session step.
+    """One octave of the integer session step (the int stream kernel with
+    one stage).
 
     x (S, L) this octave's register codes (octave 0: invalid tails zeroed);
     n (S,) valid counts; start (S,) ÷2 phases; delay (S, T1) delay-line
@@ -178,43 +524,34 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
         return ref.fir_mp_stream_octave_q(
             x, n, start, delay, acc, amax, stage=stage, next_spec=next_spec,
             emit_next=emit_next, update_amax=update_amax)
-    from repro_torch.kernels._build import load
     key = "fir_mp_stream_octave_q"
     S, L = x.shape
-    bp = _host_codes(stage.bp_q)
-    Fn, M = bp.shape
+    Fn, M = stage.bp_q.shape
     T1 = delay.shape[1]
-    lp = (_host_codes(stage.lp_q).reshape(-1) if emit_next
-          else np.zeros(1, np.int32))
+    M_lp = stage.lp_q.shape[-1] if emit_next else 1
     for name, t, shape in (("n", n, (S,)), ("start", start, (S,)),
                            ("delay", delay, (S, T1)), ("acc", acc, (S, Fn)),
                            ("amax", amax, (S,))):
         _expect(name, t, shape)
+    plan = stream_plan(L, Fn, M, M_lp, T1)
     x, delay, acc, amax = (_codes(t, nm, key) for t, nm in (
         (x, "x"), (delay, "delay"), (acc, "acc"), (amax, "amax")))
     n, start = _i32(n), _i32(start)
-    lp_spec = stage.lp_spec if emit_next else stage.band_spec
-    nxt = next_spec if emit_next else stage.band_spec
-    scalars = np.asarray(
-        [Fn, M, lp.shape[0], T1, stage.sig_shift, stage.lp_sig_shift,
-         stage.lp_out_shift, stage.acc_shift, stage.gamma_bp, stage.iters_bp,
-         stage.gamma_lp, stage.iters_lp, stage.band_spec.qmin,
-         stage.band_spec.qmax, lp_spec.qmin, lp_spec.qmax, nxt.qmin,
-         nxt.qmax], np.int32)
+    nxt = next_spec if emit_next else None
+    table = _device_table(stage, ("octave", nxt, T1),
+                          lambda: pack_stages([stage], [nxt], T1), x.device)
     acc_o = torch.empty_like(acc)
     delay_o = torch.empty_like(delay)
     amax_o = torch.empty_like(amax)
-    y_next = (torch.empty((S, (L + 1) // 2), dtype=torch.int32,
-                          device=x.device) if emit_next else None)
-    code = load("fir_mp_stream_q")(
-        x.data_ptr(), n.data_ptr(), start.data_ptr(), delay.data_ptr(),
-        acc.data_ptr(), amax.data_ptr(), bp.ctypes.data, lp.ctypes.data,
-        scalars.ctypes.data, acc_o.data_ptr(), delay_o.data_ptr(),
-        amax_o.data_ptr(), y_next.data_ptr() if emit_next else None,
-        S, L, accumulate_block_len(L), int(emit_next), int(update_amax),
-        _stream())
-    _check(code, key, f"S={S} L={L} F={Fn} M={M} T1={T1} "
-                      f"M_lp={lp.shape[0]}")
+    l_next = (L + 1) // 2
+    y_next = (torch.empty((S, l_next), dtype=torch.int32, device=x.device)
+              if emit_next else None)
+    rows = stream_q_octave_rows([delay], [delay_o], [start], [None], [0])
+    code = _stream_q_launch(x, n, acc, amax, acc_o, amax_o, y_next, table,
+                            rows, L=L, P=Fn, ystride=l_next, F_max=Fn, M=M,
+                            M_lp=M_lp, T1=T1, update_amax=update_amax,
+                            cascade=False, plan=plan)
+    _check(code, key, f"S={S} L={L} F={Fn} M={M} T1={T1} M_lp={M_lp}")
     LAUNCHES[key] += 1
     return acc_o, delay_o, amax_o, y_next
 

@@ -1,5 +1,5 @@
 """Public wrappers around the port's kernels: leading batch dims, layouts,
-and the per-octave cascade of the session step.
+and the octave cascade of the session step.
 
 Every function here reaches a kernel wrapper in ``kernels.fir_mp`` or
 ``kernels.mp_kernels``, which launches the CUDA kernel for CUDA tensors
@@ -12,8 +12,8 @@ import torch
 
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_bank_q_kernel, fir_mp_kernel,
-                                         fir_mp_stream_octave,
-                                         fir_mp_stream_octave_q)
+                                         fir_mp_stream_cascade,
+                                         fir_mp_stream_cascade_q)
 from repro_torch.kernels.mp_kernels import (LINEAR_W_DTYPES,
                                             mp_linear_kernel,
                                             mp_waterfill_kernel)
@@ -88,52 +88,25 @@ def fir_mp_stream(chunk: torch.Tensor, n: torch.Tensor, delays: tuple,
                   consumed: tuple, acc: torch.Tensor, amax: torch.Tensor,
                   bp_taps: tuple, lp_taps: tuple, gamma, *,
                   solver: str = "newton", update_amax: bool = True):
-    """The multirate session step through the stream kernel, one launch
-    per octave.
+    """The multirate session step through the stream kernel: the whole
+    octave cascade in one launch on the card, the plain per-octave loop
+    (``ref.fir_mp_stream``) on the CPU.
 
     chunk (S, L), invalid tails zeroed (and quantized, if deployed
     quantized — then pass the already-updated running amax and
-    ``update_amax=False``; otherwise the octave-0 kernel updates amax
+    ``update_amax=False``; otherwise the kernel updates amax at octave 0
     itself). n (S,) valid counts (0 for inert slots); ``delays`` /
     ``consumed`` per-octave registers; acc (S, P); ``bp_taps[o]`` (F, M),
     ``lp_taps[o]`` (M_lp,).
 
     Per octave: the decimator phase is ``consumed % 2``, the next octave's
-    valid count ``max(0, (n - start + 1) // 2)`` and its signal
-    ``y_next[:, :(L + 1) // 2]``. Returns ``(delays', consumed', acc',
-    amax')``; a slot with n == 0 gets its registers back bit for bit.
+    valid count ``max(0, (n - start + 1) // 2)``. Returns ``(delays',
+    consumed', acc', amax')``; a slot with n == 0 gets its registers back
+    bit for bit.
     """
-    num_octaves = len(delays)
-    S, L = chunk.shape
-    F = bp_taps[0].shape[0]
-    x_o = chunk
-    n_o = n.to(torch.int32)
-    l_o = L
-    new_delays, new_consumed, acc_cols = [], [], []
-    amax_out = amax
-    for o in range(num_octaves):
-        start_o = torch.remainder(consumed[o], 2).to(torch.int32)
-        emit = o < num_octaves - 1
-        lp = lp_taps[o] if emit else chunk.new_zeros(1)
-        acc_o = acc[:, o * F:(o + 1) * F]
-        amax_in = amax if o == 0 else chunk.new_zeros(S)
-        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave(
-            x_o, n_o, start_o, delays[o], acc_o, amax_in, bp_taps[o], lp,
-            gamma, scale=2.0 ** o, solver=solver, emit_next=emit,
-            update_amax=(update_amax and o == 0))
-        if o == 0 and update_amax:
-            amax_out = amax_new
-        new_delays.append(delay_new)
-        new_consumed.append(consumed[o] + n_o)
-        acc_cols.append(acc_new)
-        if emit:
-            l_next = (l_o + 1) // 2
-            x_o = y_next[:, :l_next]
-            n_o = torch.clamp_min(
-                torch.div(n_o - start_o + 1, 2, rounding_mode="floor"), 0)
-            l_o = l_next
-    return (tuple(new_delays), tuple(new_consumed),
-            torch.cat(acc_cols, dim=1), amax_out)
+    return fir_mp_stream_cascade(chunk, n, delays, consumed, acc, amax,
+                                 bp_taps, lp_taps, gamma, solver=solver,
+                                 update_amax=update_amax)
 
 
 # ---------------------------------------------------------------------------
@@ -167,7 +140,8 @@ def fir_mp_stream_q(prog, chunk_q: torch.Tensor, n: torch.Tensor,
                     delays: tuple, consumed: tuple, acc: torch.Tensor,
                     amax: torch.Tensor):
     """The integer session step's octave cascade through the int stream
-    kernel, one launch per octave: the kernel route of
+    kernel, one launch on the card (the plain per-octave loop,
+    ``ref.fir_mp_stream_q``, on the CPU): the kernel route of
     ``core.fixed.session_step_q``, with the same registers.
 
     ``prog`` is the compiled ``core.fixed.FixedPointProgram``; chunk_q
@@ -177,34 +151,5 @@ def fir_mp_stream_q(prog, chunk_q: torch.Tensor, n: torch.Tensor,
     and the next valid count ``max(n - start + 1, 0) >> 1``. Returns
     ``(delays', consumed', acc', amax')``.
     """
-    bank = prog.bank
-    if bank.mode != "mp":
-        raise ValueError(
-            f"fir_mp_stream_q runs the MP stream kernel; it has no "
-            f"{bank.mode!r}-mode variant (use fixed.session_step_q)")
-    x_o = chunk_q
-    n_o = n.to(torch.int32)
-    new_delays, new_consumed, acc_cols = [], [], []
-    amax_out = amax
-    col = 0
-    for o, st in enumerate(bank.octaves):
-        Fn = st.bp_q.shape[0]
-        emit = st.lp_q is not None
-        start_o = torch.bitwise_and(consumed[o], 1).to(torch.int32)
-        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave_q(
-            x_o, n_o, start_o, delays[o], acc[:, col:col + Fn],
-            amax if o == 0 else torch.zeros_like(amax), stage=st,
-            next_spec=bank.octaves[o + 1].in_spec if emit else None,
-            emit_next=emit, update_amax=(o == 0))
-        if o == 0:
-            amax_out = amax_new
-        new_delays.append(delay_new)
-        new_consumed.append(consumed[o] + n_o)
-        acc_cols.append(acc_new)
-        col += Fn
-        if emit:
-            x_o = y_next
-            n_o = torch.bitwise_right_shift(
-                torch.clamp_min(n_o - start_o + 1, 0), 1)
-    return (tuple(new_delays), tuple(new_consumed),
-            torch.cat(acc_cols, dim=1), amax_out)
+    return fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc,
+                                   amax)

@@ -24,9 +24,10 @@ from repro_torch.core.filterbank import accumulate_block_len
 
 __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_bank_accumulate", "fir_mp", "fir_mp_accumulate",
-           "fir_mp_stream_octave", "tile_sum", "fir_mp_bank_q",
-           "fir_mp_bank_q_accumulate", "fir_mp_stream_octave_q",
-           "mp_waterfill", "mp_linear"]
+           "fir_mp_stream_octave", "fir_mp_stream", "tile_sum",
+           "fir_mp_bank_q", "fir_mp_bank_q_accumulate",
+           "fir_mp_stream_octave_q", "fir_mp_stream_q", "mp_waterfill",
+           "mp_linear"]
 
 DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
 BANK_TILE = 256      # positions per CTA of the bank kernel
@@ -156,6 +157,52 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
     return acc, delay, amax, (torch.cat(y_next, dim=1) if emit_next else None)
 
 
+def fir_mp_stream(chunk, n, delays, consumed, acc, amax, bp_taps, lp_taps,
+                  gamma, *, solver: str = "newton", update_amax: bool = True):
+    """The float session step's octave cascade, octave by octave through
+    :func:`fir_mp_stream_octave`: the plain version of the cascade kernel.
+
+    Per octave the decimator phase is ``consumed % 2``, the next octave's
+    valid count ``max(0, (n - start + 1) // 2)`` and its signal
+    ``y_next[:, :(L + 1) // 2]``; octave o adds its partials times 2^o to
+    its accumulator columns ``acc[:, o * F:(o + 1) * F]``. Returns
+    ``(delays', consumed', acc', amax')``; amax comes back as given
+    without ``update_amax``; a slot with n == 0 gets its registers back
+    bit for bit.
+    """
+    num_octaves = len(delays)
+    S, L = chunk.shape
+    F = bp_taps[0].shape[0]
+    x_o = chunk
+    n_o = n.to(torch.int32)
+    l_o = L
+    new_delays, new_consumed, acc_cols = [], [], []
+    amax_out = amax
+    for o in range(num_octaves):
+        start_o = torch.remainder(consumed[o], 2).to(torch.int32)
+        emit = o < num_octaves - 1
+        lp = lp_taps[o] if emit else chunk.new_zeros(1)
+        acc_o = acc[:, o * F:(o + 1) * F]
+        amax_in = amax if o == 0 else chunk.new_zeros(S)
+        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave(
+            x_o, n_o, start_o, delays[o], acc_o, amax_in, bp_taps[o], lp,
+            gamma, scale=2.0 ** o, solver=solver, emit_next=emit,
+            update_amax=(update_amax and o == 0))
+        if o == 0 and update_amax:
+            amax_out = amax_new
+        new_delays.append(delay_new)
+        new_consumed.append(consumed[o] + n_o)
+        acc_cols.append(acc_new)
+        if emit:
+            l_next = (l_o + 1) // 2
+            x_o = y_next[:, :l_next]
+            n_o = torch.clamp_min(
+                torch.div(n_o - start_o + 1, 2, rounding_mode="floor"), 0)
+            l_o = l_next
+    return (tuple(new_delays), tuple(new_consumed),
+            torch.cat(acc_cols, dim=1), amax_out)
+
+
 # ---------------------------------------------------------------------------
 # integer (fixed-point) kernels
 # ---------------------------------------------------------------------------
@@ -253,6 +300,47 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
     if emit_next:
         y_next = torch.cat(y_next, dim=1)[:, :(L + 1) // 2]
     return acc, delay, amax, (y_next if emit_next else None)
+
+
+def fir_mp_stream_q(prog, chunk_q, n, delays, consumed, acc, amax):
+    """The integer session step's octave cascade, octave by octave through
+    :func:`fir_mp_stream_octave_q`: the plain version of the int cascade
+    kernel (and the kernel route of ``core.fixed.session_step_q``'s
+    cascade, with the same registers).
+
+    ``prog`` the compiled ``core.fixed.FixedPointProgram``; chunk_q (S, L)
+    ADC codes with invalid tails zeroed, L >= 1; n (S,) effective valid
+    counts. Per octave the decimator phase is ``consumed & 1`` and the next
+    valid count ``max(n - start + 1, 0) >> 1``. Returns ``(delays',
+    consumed', acc', amax')``.
+    """
+    bank = prog.bank
+    x_o = chunk_q
+    n_o = n.to(torch.int32)
+    new_delays, new_consumed, acc_cols = [], [], []
+    amax_out = amax
+    col = 0
+    for o, st in enumerate(bank.octaves):
+        Fn = st.bp_q.shape[0]
+        emit = st.lp_q is not None
+        start_o = torch.bitwise_and(consumed[o], 1).to(torch.int32)
+        acc_new, delay_new, amax_new, y_next = fir_mp_stream_octave_q(
+            x_o, n_o, start_o, delays[o], acc[:, col:col + Fn],
+            amax if o == 0 else torch.zeros_like(amax), stage=st,
+            next_spec=bank.octaves[o + 1].in_spec if emit else None,
+            emit_next=emit, update_amax=(o == 0))
+        if o == 0:
+            amax_out = amax_new
+        new_delays.append(delay_new)
+        new_consumed.append(consumed[o] + n_o)
+        acc_cols.append(acc_new)
+        col += Fn
+        if emit:
+            x_o = y_next
+            n_o = torch.bitwise_right_shift(
+                torch.clamp_min(n_o - start_o + 1, 0), 1)
+    return (tuple(new_delays), tuple(new_consumed),
+            torch.cat(acc_cols, dim=1), amax_out)
 
 
 # ---------------------------------------------------------------------------

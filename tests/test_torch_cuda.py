@@ -20,6 +20,8 @@ from repro_torch.core import fixed as fx
 from repro_torch.data.acoustic import make_esc10_like
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_bank_q_kernel, fir_mp_kernel,
+                                        fir_mp_stream_cascade,
+                                        fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
                                         fir_mp_stream_octave_q)
 from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
@@ -76,6 +78,95 @@ def test_stream_octave_kernel_matches_plain(dev, bank, L, solver):
     assert torch.equal(got[1][0], args[3][0])
 
 
+def _registers(g, S, L, n, octaves, F, T1, *, fixed=None):
+    """Session registers and a chunk for the cascade tests: n (S,) valid
+    counts; consumed counters with odd phases; a chunk zeroed past n."""
+    cons = tuple(torch.randint(0, 1000, (S,), generator=g, dtype=torch.int32)
+                 for _ in range(octaves))
+    if fixed is None:
+        x = torch.randn(S, L, generator=g)
+        delays = tuple(torch.randn(S, T1, generator=g)
+                       for _ in range(octaves))
+        acc = torch.rand(S, octaves * F, generator=g)
+        amax = torch.rand(S, generator=g)
+        zero = 0.0
+    else:
+        lo, hi = fixed
+        i32 = dict(generator=g, dtype=torch.int32)
+        x = torch.randint(lo, hi, (S, L), **i32)
+        delays = tuple(torch.randint(lo, hi, (S, T1), **i32)
+                       for _ in range(octaves))
+        acc = torch.randint(0, 1 << 20, (S, octaves * F), **i32)
+        amax = torch.randint(0, 128, (S,), **i32)
+        zero = 0
+    x = torch.where(torch.arange(L)[None] < n[:, None], x, zero)
+    return x, delays, cons, acc, amax
+
+
+def _valid_counts(g, S, L, served):
+    if served:                       # a served wave: 160 of a 256 bucket
+        return torch.full((S,), min(L, 160), dtype=torch.int32)
+    n = torch.randint(0, L + 1, (S,), generator=g, dtype=torch.int32)
+    n[0], n[1], n[2] = 0, L, max(1, L - 1 - (L % 2 == 0))   # 0, full, odd
+    return n
+
+
+@pytest.mark.parametrize("S,L,served,solver,update_amax",
+                         [(256, 256, True, "newton", True),
+                          (37, 700, False, "newton", True),
+                          (37, 700, False, "newton", False),
+                          (19, 160, False, "bisect", True),
+                          (5, 1, False, "newton", True),
+                          (9, 33, False, "newton", True)])
+def test_stream_cascade_kernel_matches_plain(dev, bank, S, L, served, solver,
+                                             update_amax):
+    """The whole cascade in one launch against the per-octave plain loop:
+    a served wave, two blocks at octave 0 (L = 700), mixed valid counts
+    (0, full, odd), odd phases, both solvers, amax updated or not."""
+    g = torch.Generator().manual_seed(S * L)
+    c = bank.config
+    O, F, T1 = c.num_octaves, c.filters_per_octave, 15
+    n = _valid_counts(g, S, L, served)
+    x, delays, cons, acc, amax = _registers(g, S, L, n, O, F, T1)
+    args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+            tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev),
+            bank.bp_by_octave, bank.lp_filters, c.gamma_f]
+    kw = dict(solver=solver, update_amax=update_amax)
+    reset_launches()
+    got = fir_mp_stream_cascade(*args, **kw)
+    assert LAUNCHES["fir_mp_stream_cascade"] == 1
+    assert LAUNCHES["fir_mp_stream_octave"] == 0
+    want = ref.fir_mp_stream(*args, **kw)
+    for a, b in zip(got[0], want[0]):
+        _close(a, b)
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
+    _close(got[2], want[2])
+    _close(got[3], want[3])
+    inert = n.to(dev) == 0
+    assert torch.equal(got[2][inert], args[4][inert])
+    for o in range(O):
+        assert torch.equal(got[0][o][inert], args[2][o][inert])
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128, 256])
+def test_stream_cascade_each_thread_count(dev, bank, threads):
+    """Every CTA size the plan may take gives the same result."""
+    g = torch.Generator().manual_seed(threads)
+    c = bank.config
+    S, L, O, F = 21, 600, c.num_octaves, c.filters_per_octave
+    n = _valid_counts(g, S, L, False)
+    x, delays, cons, acc, amax = _registers(g, S, L, n, O, F, 15)
+    args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+            tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev),
+            bank.bp_by_octave, bank.lp_filters, c.gamma_f]
+    got = fir_mp_stream_cascade(*args, threads=threads)
+    want = ref.fir_mp_stream(*args)
+    _close(got[2], want[2])
+    for a, b in zip(got[0], want[0]):
+        _close(a, b)
+
+
 @pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000)])
 def test_bank_kernels_match_plain(dev, bank, B, N):
     x = torch.from_numpy(np.random.default_rng(N).standard_normal(
@@ -109,8 +200,10 @@ def test_session_step_through_the_kernel_matches_torch_ops(dev, quant_bits,
         reset_launches()
         for i in range(0, 700, 160):
             p, state = pipe.apply(x[:, i:i + 160], state)
-        out[impl] = (p, state.acc, LAUNCHES["fir_mp_stream_octave"])
-    assert out["pallas"][2] == 6 * 5 and out["xla"][2] == 0
+        out[impl] = (p, state.acc, (LAUNCHES["fir_mp_stream_cascade"],
+                                    LAUNCHES["fir_mp_stream_octave"]))
+    # one cascade launch per wave, no per-octave launch
+    assert out["pallas"][2] == (5, 0) and out["xla"][2] == (0, 0)
     _close(out["pallas"][1], out["xla"][1])
     _close(out["pallas"][0], out["xla"][0])
 
@@ -170,6 +263,38 @@ def test_stream_octave_q_kernel_matches_plain(dev, prog, S, L, o):
     assert torch.equal(got[1][0], args[3][0])
 
 
+@pytest.mark.parametrize("S,L,served,threads", [(256, 256, True, None),
+                                                 (37, 700, False, None),
+                                                 (5, 1, False, None),
+                                                 (9, 33, False, 64),
+                                                 (21, 600, False, 256)])
+def test_stream_cascade_q_kernel_matches_plain(dev, prog, S, L, served,
+                                               threads):
+    """The int cascade in one launch against the per-octave plain loop,
+    exactly: a served wave, two blocks at octave 0, mixed valid counts,
+    odd phases, two CTA sizes asked for."""
+    g = torch.Generator().manual_seed(S + L)
+    O = len(prog.bank.octaves)
+    F = prog.bank.octaves[0].bp_q.shape[0]
+    n = _valid_counts(g, S, L, served)
+    x, delays, cons, acc, amax = _registers(g, S, L, n, O, F, 15,
+                                            fixed=(-128, 128))
+    args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+            tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev)]
+    reset_launches()
+    got = fir_mp_stream_cascade_q(prog, *args, threads=threads)
+    assert LAUNCHES["fir_mp_stream_cascade_q"] == 1
+    assert LAUNCHES["fir_mp_stream_octave_q"] == 0
+    want = ref.fir_mp_stream_q(prog, *args)
+    for gs, ws in zip(got[:2], want[:2]):
+        for a, b in zip(gs, ws):
+            _exact(a, b)
+    _exact(got[2], want[2])
+    _exact(got[3], want[3])
+    inert = args[1] == 0
+    assert torch.equal(got[2][inert], args[4][inert])
+
+
 @pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000)])
 def test_bank_q_kernel_matches_plain(dev, prog, B, N):
     g = torch.Generator().manual_seed(N)
@@ -221,8 +346,10 @@ def test_fixed_served_codes_equal_oneshot_on_the_card(dev, clips, impl):
     for r in range(5):
         server.feed([(sid, clips[i, r * 160:(r + 1) * 160])
                      for i, sid in enumerate(ids)])
-    assert LAUNCHES["fir_mp_stream_octave_q"] == (30 if impl == "pallas"
-                                                  else 0)
+    # one cascade launch per wave, no per-octave launch
+    assert LAUNCHES["fir_mp_stream_cascade_q"] == (5 if impl == "pallas"
+                                                   else 0)
+    assert LAUNCHES["fir_mp_stream_octave_q"] == 0
     assert server.state.acc.dtype == torch.int32
     p, _ = pipe.apply(torch.zeros(S, 0, device=dev), server.state)
     x = torch.from_numpy(np.ascontiguousarray(clips[:, :800])).to(dev)
