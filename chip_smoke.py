@@ -1,8 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's main path on one card and check it.
 
-    python3 chip_smoke.py                 # every phase below
-    python3 chip_smoke.py --profile-only  # build + the octave profile
+    python3 chip_smoke.py    # every phase below
 
 Runs from the root of a checkout (it imports ``src/repro_torch``; no JAX,
 nothing of the reference package). Phases, each failing loudly:
@@ -23,14 +22,14 @@ nothing of the reference package). Phases, each failing loudly:
              (n = 160 of 256, fresh and one wave later with odd phases)
              and on mixed valid counts at L = 700, every delay line,
              consumed counter (exactly), acc and amax, n == 0 slots bit for
-             bit, at the plan's CTA size and every other (timed); the
-             cascade's row is timed on the served wave by torch.profiler
-             (its ms: the kernel is shorter than its wrapper's host work,
-             which CUDA events around the calls would time; those are
-             printed beside), with its bound and the one-octave entries'
-             device time per octave. Then the octave profile (``--profile-only``): a served
-             wave's per-octave device time through the one-octave entries
-             and its cascade as the session step runs it, float and fixed.
+             bit. The cascade's row is timed on the served wave: ms by CUDA
+             events over back-to-back calls, as every row (the wrapper's
+             host work outlasts the kernel, so this is host time), its
+             device_ms by torch.profiler, the wrapper's host microseconds
+             part by part (checks and conversions, output allocations, the
+             octave table, the C launch call, the cached and uncached
+             launch plan), and the one-octave entries' device time per
+             octave of the same wave (the octave profile).
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
              slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
              16 kHz). The stream cascade kernel must launch once per wave
@@ -49,8 +48,10 @@ nothing of the reference package). Phases, each failing loudly:
              of phase 3 (the clips' ADC codes), and the int bank kernel on
              the 6 + 5 calls of one ``apply`` (B = 8, N = 16000), each
              against its plain version. Gate: every output exactly equal,
-             int32. The cascade's bound counts the cheapest exact step (the
-             kernel's); the reference algorithm's count is printed beside.
+             int32. The cascade's row as phase 3's; its bound counts the
+             cheapest exact step (the kernel's) in the instructions the card
+             issues (three-input adds); the reference algorithm's count is
+             printed beside.
 7. fixed serve — the serve phase's 256 sessions x 50 packets through a
              fixed pipeline: one int stream cascade launch per wave and no
              one-octave launch; the final codes
@@ -99,6 +100,7 @@ line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import importlib
 import json
 import math
 import re
@@ -217,15 +219,19 @@ def ops_int_dot(M: int, iters: int) -> int:
 
 
 def ops_int_dot_min(M: int, iters: int) -> int:
-    """int32 ops of one fxp_mp_dot over M lanes in the cheapest exact
-    form of a step, the one the int stream kernel runs: a lane's two
-    hinges relu(t - mid) + relu(-t - mid) equal max(|t|, |mid|) - mid, so
-    after the operands (add or sub, then a two-sided clamp: 6M for u and
-    v) each mpabs takes |t| and the running max per lane and lo (2M + 1),
-    then per step mid (add, shift), |mid|, the seed -M mid, a max and an
-    add per lane, the compare and 2 selects (2M + 7); then the final sub.
-    About 0.42 of ``ops_int_dot`` at M = 16."""
-    mpabs = 2 * M + 1 + iters * (2 * M + 7)
+    """int32 instructions of one fxp_mp_dot over M lanes in the cheapest
+    exact form of a step, the one the int stream kernel runs, counted as
+    the card issues them (one lane op each; an add takes three inputs): a
+    lane's two hinges relu(t - mid) + relu(-t - mid) equal max(|t|, |mid|)
+    - mid. The operands, add or sub and a two-sided clamp (6M for u and
+    v); each mpabs takes |t| per lane, their max and lo (2M), then per
+    step mid (add, shift), |mid|, the seed -M mid (one multiply-add), a
+    max per lane, the M + 1 terms in ceil(M / 2) three-input adds, the
+    compare and 2 selects (M + ceil(M / 2) + 7: 31 at M = 16, where the
+    kernel's loop takes 34 with its loop control, PERF.md §6); then the
+    final sub. About 0.35 of ``ops_int_dot`` at M = 16."""
+    step = M + -(-M // 2) + 7
+    mpabs = 2 * M + iters * step
     return 6 * M + 2 * mpabs + 1
 
 
@@ -317,52 +323,6 @@ def phase_build():
                                          solve_census).items():
             log({"sass_solve_step": entry, **census})
     return secs
-
-
-def phase_octave_profile(fb, prog, clips) -> dict:
-    """One served wave (S = 256, n = 160 of 256, fresh registers) on the
-    device, float and fixed: each octave's device time through the
-    one-octave entries, and the session step's cascade as
-    ``ops.fir_mp_stream`` / ``ops.fir_mp_stream_q`` run it (device time of
-    its stream kernel launches, of every kernel, CUDA-event ms per wave).
-    Uses only entry points whose signatures are stable, so the same
-    function measures an older checkout's kernels."""
-    import torch
-    from repro_torch.core import fixed as fx
-    from repro_torch.kernels import ops
-    from repro_torch.kernels.fir_mp import (fir_mp_stream_octave,
-                                            fir_mp_stream_octave_q)
-    dev = torch.device("cuda")
-    c = fb.config
-    O, F, T1 = c.num_octaves, c.filters_per_octave, 15
-    gen = torch.Generator().manual_seed(0)
-
-    def on_dev(case):
-        chunk, n, delays, consumed, acc, amax = case
-        return (chunk.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
-                tuple(t.to(dev) for t in consumed), acc.to(dev), amax.to(dev))
-
-    out = {}
-    wave = on_dev(cascade_case("served", 256, 256, O, O * F, T1, gen, clips))
-    taps = (fb.bp_by_octave, fb.lp_filters, c.gamma_f)
-    wave_q = on_dev(cascade_case("served", 256, 256, O, O * F, T1, gen, clips,
-                                 codes=lambda x: fx.quantize_signal(prog, x)))
-    for numerics, octave, case, steps, run in (
-            ("float", fir_mp_stream_octave, wave, float_steps(fb),
-             lambda: ops.fir_mp_stream(*wave, *taps, solver=c.solver)),
-            ("fixed", fir_mp_stream_octave_q, wave_q, fixed_steps(prog),
-             lambda: ops.fir_mp_stream_q(prog, *wave_q))):
-        chain = device_us(lambda: octave_chain(octave, *case, steps),
-                          numerics)
-        step = device_us(run, numerics)
-        out[numerics] = dict(one_octave_device_us=chain["launch_us"],
-                             cascade_stream_device_us=step["stream_us"],
-                             cascade_stream_launches=len(step["launch_us"]),
-                             cascade_all_device_us=step["all_us"],
-                             cascade_kernels=step["kernels_per_call"],
-                             cascade_event_ms=cuda_ms(run, 50))
-    log({"octave_profile": out})
-    return out
 
 
 def inner_loops(lines: list) -> list:
@@ -709,17 +669,38 @@ def cascade_bytes(S: int, L: int, octaves: int, P: int, T1: int,
                 + 2 * S + taps)
 
 
-def thread_sweep(run, check, numerics: str) -> list:
-    """The cascade on one case at every CTA size the plan may take, each
-    held to ``check`` and timed (CUDA events and profiler)."""
-    from repro_torch.kernels.fir_mp import STREAM_MAX_THREADS
-    out = []
-    for threads in (64, 128, STREAM_MAX_THREADS):
-        check(run(threads), f"threads={threads}")
-        out.append(dict(threads=threads,
-                        ms=cuda_ms(lambda: run(threads), 50),
-                        device_us=device_us(lambda: run(threads),
-                                            numerics)["stream_us"]))
+def host_split(whole, parts: dict, reps: int = 200) -> dict:
+    """Host microseconds per call, by the host clock over ``reps`` calls,
+    of each part of a cascade wrapper (``parts``: name -> that part called
+    on the inputs the wrapper got) and of the whole wrapper (``whole``);
+    ``rest`` is the whole less its parts (routing, the launch count, the
+    result tuples). Launches are queued, not waited for: at these sizes
+    the host is the slower side."""
+    import torch
+    out = {}
+    for name, fn in list(parts.items()) + [("whole", whole)]:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
+        torch.cuda.synchronize()
+    out["rest"] = out["whole"] - sum(out[k] for k in parts)
+    return out
+
+
+def plan_us(args: tuple, kw: dict, reps: int = 2000) -> dict:
+    """Host microseconds of one ``stream_plan`` call, cached (as the
+    wrappers call it) and computed afresh."""
+    from repro_torch.kernels.fir_mp import stream_plan
+    out = {}
+    for name, fn in (("plan_cached", stream_plan),
+                     ("plan_uncached", stream_plan.__wrapped__)):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn(*args, **kw)
+        out[name] = (time.perf_counter() - t0) / reps * 1e6
     return out
 
 
@@ -730,9 +711,10 @@ def phase_stream_kernel(fb, gen, clips):
     phases), then the cascade (one launch for all six octaves) on a
     served wave (n = 160 of 256 for every slot, fresh and one wave later
     with odd phases) and on mixed valid counts at L = 700 (two blocks at
-    octave 0), at the plan's CTA size and at every other."""
+    octave 0); then the cascade's times, bound and host split."""
     import torch
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    fm = importlib.import_module("repro_torch.kernels.fir_mp")
     from repro_torch.kernels.fir_mp import (fir_mp_stream_cascade,
                                             fir_mp_stream_octave,
                                             stream_plan)
@@ -807,11 +789,6 @@ def phase_stream_kernel(fb, gen, clips):
                 ref.fir_mp_stream(*case, *taps, **k), case,
                 f"fir_mp_stream_cascade ({name}, update_amax={upd})", False))
     launches_here = LAUNCHES["fir_mp_stream_cascade"]
-    want = ref.fir_mp_stream(*served, *taps, **kw)
-    sweep = thread_sweep(
-        lambda th: fir_mp_stream_cascade(*served, *taps, threads=th, **kw),
-        lambda got, what: check_cascade(got, want, served, what, False),
-        "float")
     run = lambda: fir_mp_stream_cascade(*served, *taps, **kw)  # noqa: E731
     prof = device_us(run, "float")
     counts = served_counts(served[1], served[3])
@@ -822,18 +799,41 @@ def phase_stream_kernel(fb, gen, clips):
     k_ms = cuda_ms(run, 50)
     chain = device_us(lambda: octave_chain(fir_mp_stream_octave, *served,
                                            float_steps(fb)), "float")
-    plan = stream_plan(L, F, c.bp_taps, c.lp_taps, T1, octaves=O)
+    plan_args = (L, F, c.bp_taps, c.lp_taps, T1)
+    plan = stream_plan(*plan_args, octaves=O)
+    # the wrapper's host work, part by part, on the served wave
+    chunk, n, delays, consumed, acc, amax = served
+    bps, lps = fb.bp_by_octave[:O], list(fb.lp_filters[:O - 1])
+    _, ins = fm._cascade_inputs(chunk, n, delays, consumed, acc, amax, bps,
+                                lps)
+    outs = fm._cascade_outputs(plan, acc, amax, O, T1=T1)
+    rows = fm.stream_octave_rows(ins[2], outs[0], ins[3], outs[1], ins[6],
+                                 ins[7] + [None])
+    host = host_split(run, {
+        "inputs": lambda: fm._cascade_inputs(chunk, n, delays, consumed, acc,
+                                             amax, bps, lps),
+        "outputs": lambda: fm._cascade_outputs(plan, acc, amax, O, T1=T1),
+        "rows": lambda: fm.stream_octave_rows(ins[2], outs[0], ins[3],
+                                              outs[1], ins[6],
+                                              ins[7] + [None]),
+        "launch": lambda: fm._stream_launch(
+            ins[0], ins[1], ins[4], ins[5], outs[2], outs[3], outs[4], *rows,
+            L=L, P=O * F, ystride=plan["scratch"], M=c.bp_taps,
+            M_lp=c.lp_taps, T1=T1, gamma=c.gamma_f, solver=c.solver,
+            update_amax=True, cascade=True, plan=plan)})
+    host.update(plan_us(plan_args, dict(octaves=O)))
+    device_ms = prof["stream_us"] * 1e-3
     row = dict(name="fir_mp_stream_cascade",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
-               max_abs_err=err, ms=prof["stream_us"] * 1e-3, event_ms=k_ms,
+               max_abs_err=err, ms=k_ms, device_ms=device_ms,
                plain_ms=cuda_ms(lambda: ref.fir_mp_stream(*served, *taps,
                                                           **kw), 3),
-               bound_ms=b_ms, bound_by=b_by, x_bound=prof["stream_us"] * 1e-3
-               / b_ms, bound_ms_reference_algorithm=bound_ms(ops_ref, nb)[0],
-               threads=plan["threads"],
-               smem_bytes=plan["smem_bytes"],
+               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               x_bound_events=k_ms / b_ms,
+               bound_ms_reference_algorithm=bound_ms(ops_ref, nb)[0],
+               threads=plan["threads"], smem_bytes=plan["smem_bytes"],
                valid_per_octave=[int(nv[0]) for nv, _ in counts],
-               launches_here=launches_here, thread_sweep=sweep,
+               launches_here=launches_here, host_us=host,
                one_octave_entry=octave_entry,
                one_octave_chain_device_us=chain["launch_us"])
     log({"kernel_vs_plain": row})
@@ -1084,10 +1084,11 @@ def phase_int_stream_kernel(prog, gen, clips):
     phases, register codes in their 8-bit range), then the cascade (one
     launch) on a served wave (n = 160 of 256, the clips' ADC codes, fresh
     and one wave later with odd phases) and on mixed valid counts at L =
-    700, at the plan's CTA size and at every other."""
+    700; then the cascade's times, bound and host split."""
     import torch
     from repro_torch.core import fixed as fx
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    fm = importlib.import_module("repro_torch.kernels.fir_mp")
     from repro_torch.kernels.fir_mp import (fir_mp_stream_cascade_q,
                                             fir_mp_stream_octave_q,
                                             stream_plan)
@@ -1159,11 +1160,6 @@ def phase_int_stream_kernel(prog, gen, clips):
                       ref.fir_mp_stream_q(prog, *case), case,
                       f"fir_mp_stream_cascade_q ({name})", True)
     launches_here = LAUNCHES["fir_mp_stream_cascade_q"]
-    want = ref.fir_mp_stream_q(prog, *served)
-    sweep = thread_sweep(
-        lambda th: fir_mp_stream_cascade_q(prog, *served, threads=th),
-        lambda got, what: check_cascade(got, want, served, what, True),
-        "fixed")
     run = lambda: fir_mp_stream_cascade_q(prog, *served)  # noqa: E731
     prof = device_us(run, "fixed")
     counts = served_counts(served[1], served[3])
@@ -1186,20 +1182,41 @@ def phase_int_stream_kernel(prog, gen, clips):
     b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
     chain = device_us(lambda: octave_chain(fir_mp_stream_octave_q, *served,
                                            fixed_steps(prog)), "fixed")
-    plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=O)
+    plan_args = (L, max(Fs), M, M_lp, T1)
+    plan = stream_plan(*plan_args, octaves=O, integer=True)
+    # the wrapper's host work, part by part, on the served wave
+    chunk, n, delays, consumed, acc, amax = served
+    table, Fs_t, _, _, cols = fm._program_table(prog, T1, chunk.device)
+    _, ins = fm._cascade_q_inputs(chunk, n, delays, consumed, acc, amax,
+                                  Fs_t, M, M_lp)
+    outs = fm._cascade_outputs(plan, acc, amax, O, T1=T1)
+    rows = fm.stream_q_octave_rows(ins[2], outs[0], ins[3], outs[1], cols)
+    host = host_split(run, {
+        "program_table": lambda: fm._program_table(prog, T1, chunk.device),
+        "inputs": lambda: fm._cascade_q_inputs(chunk, n, delays, consumed,
+                                               acc, amax, Fs_t, M, M_lp),
+        "outputs": lambda: fm._cascade_outputs(plan, acc, amax, O, T1=T1),
+        "rows": lambda: fm.stream_q_octave_rows(ins[2], outs[0], ins[3],
+                                                outs[1], cols),
+        "launch": lambda: fm._stream_q_launch(
+            ins[0], ins[1], ins[4], ins[5], outs[2], outs[3], outs[4], table,
+            rows, L=L, P=P, ystride=plan["scratch"], F_max=max(Fs), M=M,
+            M_lp=M_lp, T1=T1, update_amax=True, cascade=True, plan=plan)})
+    host.update(plan_us(plan_args, dict(octaves=O, integer=True)))
+    device_ms = prof["stream_us"] * 1e-3
+    k_ms = cuda_ms(run, 50)
     row = dict(name="fir_mp_stream_cascade_q",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
-               max_abs_err=0.0, ms=prof["stream_us"] * 1e-3,
-               event_ms=cuda_ms(run, 50),
+               max_abs_err=0.0, ms=k_ms, device_ms=device_ms,
                plain_ms=cuda_ms(lambda: ref.fir_mp_stream_q(prog, *served),
                                 3),
-               bound_ms=b_ms, bound_by=b_by,
-               x_bound=prof["stream_us"] * 1e-3 / b_ms,
+               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               x_bound_events=k_ms / b_ms,
                bound_ms_reference_algorithm=bound_ms(ops_ref, nb,
                                                      INT32_OPS_PER_S)[0],
                threads=plan["threads"], smem_bytes=plan["smem_bytes"],
                valid_per_octave=[int(nv[0]) for nv, _ in counts],
-               launches_here=launches_here, thread_sweep=sweep,
+               launches_here=launches_here, host_us=host,
                one_octave_entry=octave_entry,
                one_octave_chain_device_us=chain["launch_us"])
     log({"kernel_vs_plain": row})
@@ -1651,7 +1668,7 @@ def phase_decode(cfg):
                peak_memory_bytes=peak_bytes,
                generated=res.tokens.tolist())
     log(out)
-    return launches
+    return launches, kern_us * 1e-3
 
 
 def main() -> int:
@@ -1679,10 +1696,6 @@ def main() -> int:
     # seeded synthetic ESC-10-like audio (numpy), 1 s clips at 16 kHz
     clips = make_esc10_like(per_class_train=26, per_class_test=1,
                             fs=16000.0, seconds=1.0, seed=0).x_train
-    if "--profile-only" in sys.argv[1:]:
-        phase_octave_profile(fb, fixed_pipeline(clips[:8])[1], clips)
-        log(card)
-        return 0
     stream_row = phase_stream_kernel(fb, gen, clips)
     x1 = torch.from_numpy(np.ascontiguousarray(clips[:8])).cuda()
     bank_rows = phase_bank_kernels(fb, x1)
@@ -1693,14 +1706,13 @@ def main() -> int:
     cal = clips[:8]
     _, prog = fixed_pipeline(cal)
     int_stream_row = phase_int_stream_kernel(prog, gen, clips)
-    phase_octave_profile(fb, prog, clips)
     int_bank_row = phase_int_bank_kernel(prog, x1)
     fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
 
     qwen = qwen3_mp()
     lin_row, wf_row = phase_mp_kernels(qwen)
-    decode_launches = phase_decode(qwen)
+    decode_launches, decode_device_ms = phase_decode(qwen)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -1723,16 +1735,18 @@ def main() -> int:
              launches=fixed_serve_launches, library_ms=None),
         dict(lin_row, route="cuda", source=src + "mp_linear.cu",
              replaces="src/repro/kernels/mp_linear.py:89",
-             launches=decode_launches, library_ms=None),
+             launches=decode_launches, device_ms=decode_device_ms,
+             library_ms=None),
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
              replaces="src/repro/kernels/mp_waterfill.py:46",
              launches=wf_row["launches_here"], library_ms=None),
     ]
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
-    log({"kernels": [{k: r[k] for k in keys} for r in kernels]})
+    log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})
     log({"ok": True, "device": {"platform": "gpu",
                                 "kind": torch.cuda.get_device_name(0),
                                 "count": torch.cuda.device_count()}})

@@ -61,7 +61,6 @@ constexpr int kP = 16;        // band-pass lanes (M <= 16)
 constexpr int kLP = 8;        // low-pass lanes (M_lp <= 8)
 constexpr int kHead = 32;     // stage header words
 constexpr int kMaxBP = 512;   // F * M band-pass tap codes
-constexpr int kSeg = 16;      // the float kernel's group sums (layout only)
 constexpr int kStageWords = kHead + kMaxBP + kLP;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -91,11 +90,10 @@ __host__ __device__ inline int block_len(int n) {  // accumulate_block_len
   return b;
 }
 
-// The float kernel's shared layout, so one launch plan sizes both.
+// The shared words below (kernels/fir_mp.py, stream_plan(integer=True)).
 __host__ inline long smem_words(int L, int F, int M, int T1) {
   const int LB = block_len(L);
-  return (long)T1 + LB + kHead + (long)F * M + kLP + (long)F * LB +
-         (long)F * kSeg + F + kMaxThreads / 32;
+  return (long)T1 + LB + kHead + (long)F * M + kLP + (long)F * LB + F + 1;
 }
 
 __device__ __forceinline__ int wadd(int a, int b) {
@@ -149,7 +147,7 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
   int* hs = hd + kHead;                  // F x M band-pass codes
   int* ls = hs + a.F_max * M;            // M_lp low-pass codes
   unsigned* hv = reinterpret_cast<unsigned*>(ls + kLP);  // F x LB HWR
-  unsigned* part = hv + a.F_max * LB0 + a.F_max * kSeg;  // F partials
+  unsigned* part = hv + a.F_max * LB0;                   // F partials
   int* am_s = reinterpret_cast<int*>(part + a.F_max);    // running amax
 
   const int s = blockIdx.x;

@@ -34,6 +34,10 @@ Each launch is counted in ``kernels._wrap.LAUNCHES``.
 
 from __future__ import annotations
 
+import functools
+import itertools
+import types
+
 import numpy as np
 import torch
 
@@ -77,22 +81,24 @@ STAGE_HEAD, STAGE_MAX_BP = _HEAD, 512
 STAGE_WORDS = STAGE_HEAD + STAGE_MAX_BP + _LP_LANES
 
 
+@functools.lru_cache(maxsize=64)
 def stream_plan(L: int, F: int, M: int, M_lp: int, T1: int, *,
-                octaves: int = 1, threads: int | None = None) -> dict:
-    """The launch plan of the two stream kernels for chunks of L samples
-    over ``octaves`` octaves of at most F filters, M band-pass taps, M_lp
-    low-pass taps and a delay line of T1.
+                octaves: int = 1, integer: bool = False):
+    """The launch plan of a stream kernel (the float one, or the int one
+    under ``integer``) for chunks of L samples over ``octaves`` octaves of
+    at most F filters, M band-pass taps, M_lp low-pass taps and a delay
+    line of T1. Cached per shape, read-only.
 
     Per octave o (L_o = ceil(L / 2^o)): the block length LB_o, the blocks,
     and the work items of a full block (each band-pass (position, filter)
     pair and each kept low-pass position, in two branches: the most a
     block can hold; the kernel sizes its loop to the valid counts).
     ``threads`` per CTA: as many as the largest block's items, rounded up
-    to a warp, capped at ``STREAM_MAX_THREADS`` (or as asked, a multiple
-    of 32 up to it); ``smem_bytes`` the dynamic shared memory;
-    ``scratch`` the length of the per-slot row that carries the kept
-    signal from octave to octave (0 for one octave). Shapes outside the
-    kernels raise ValueError, as the kernels refuse them."""
+    to a warp, capped at ``STREAM_MAX_THREADS``; ``smem_bytes`` the
+    kernel's dynamic shared memory; ``scratch`` the length of the per-slot
+    row that carries the kept signal from octave to octave (0 for one
+    octave). Shapes outside the kernels raise ValueError, as the kernels
+    refuse them."""
     for name, val, lo, hi in (("F", F, 1, STREAM_MAX_F),
                               ("M", M, 1, STREAM_MAX_M),
                               ("M_lp", M_lp, 1, STREAM_MAX_M_LP),
@@ -114,17 +120,17 @@ def stream_plan(L: int, F: int, M: int, M_lp: int, T1: int, *,
         emit = o < octaves - 1 or octaves == 1
         items.append(2 * (min(L_o, LB) * F + (LB // 2 if emit else 0)))
         L_o = (L_o + 1) // 2
-    if threads is None:
-        threads = min(STREAM_MAX_THREADS, -(-max(items) // 32) * 32)
-    elif threads < 32 or threads > STREAM_MAX_THREADS or threads % 32:
-        raise ValueError(f"stream kernels: threads = {threads} is not a "
-                         f"multiple of 32 in [32, {STREAM_MAX_THREADS}]")
     LB0 = lens[0]
-    words = (T1 + LB0 + _HEAD + F * M + _LP_LANES + F * LB0 + F * _SEG + F
-             + STREAM_MAX_THREADS // 32)
-    return dict(threads=threads, smem_bytes=4 * words,
-                scratch=(L + 1) // 2 if octaves > 1 else 0,
-                block_len=lens, blocks=blocks, items_per_block=items)
+    # [delay line | block], the stage header, the taps, the low-pass lanes,
+    # the F x LB HWR values, then the float kernel's group sums, partials
+    # and per-warp maxima, or the int kernel's partials and running amax
+    words = T1 + LB0 + _HEAD + F * M + _LP_LANES + F * LB0 + F
+    words += 1 if integer else F * _SEG + STREAM_MAX_THREADS // 32
+    return types.MappingProxyType(dict(
+        threads=min(STREAM_MAX_THREADS, -(-max(items) // 32) * 32),
+        smem_bytes=4 * words, scratch=(L + 1) // 2 if octaves > 1 else 0,
+        block_len=tuple(lens), blocks=tuple(blocks),
+        items_per_block=tuple(items)))
 
 
 def stream_octave_rows(delays, delays_out, phases, consumed_out, bp_taps,
@@ -136,20 +142,25 @@ def stream_octave_rows(delays, delays_out, phases, consumed_out, bp_taps,
     ``consumed_out`` may hold None (the one-octave entry writes none);
     ``lp_taps[o]`` None for an octave that does not emit."""
     O = len(delays)
-    rows = np.zeros((O, len(STREAM_OCTAVE_FIELDS)), np.int64)
-    col = 0
-    for o in range(O):
-        F = bp_taps[o].shape[0]
-        lp = lp_taps[o]
-        rows[o] = (delays[o].data_ptr(), delays_out[o].data_ptr(),
-                   phases[o].data_ptr(),
-                   0 if consumed_out[o] is None else consumed_out[o].data_ptr(),
-                   bp_taps[o].data_ptr(), 0 if lp is None else lp.data_ptr(),
-                   F, col, int(lp is not None))
+    rows, col = [], 0
+    for d, do, ph, co, bp, lp in zip(delays, delays_out, phases,
+                                     consumed_out, bp_taps, lp_taps):
+        F = bp.shape[0]
+        rows.append((d.data_ptr(), do.data_ptr(), ph.data_ptr(),
+                     0 if co is None else co.data_ptr(), bp.data_ptr(),
+                     0 if lp is None else lp.data_ptr(), F, col,
+                     int(lp is not None)))
         col += F
-    if scales is None:
-        scales = [2.0 ** o for o in range(O)]
-    return rows, np.asarray(scales, np.float32)
+    return (np.array(rows, np.int64), _octave_scales(O) if scales is None
+            else np.asarray(scales, np.float32))
+
+
+@functools.lru_cache(maxsize=None)
+def _octave_scales(O: int) -> np.ndarray:
+    """2^o for o < O, as the float kernel reads them (read-only)."""
+    scales = np.float32(2.0) ** np.arange(O, dtype=np.float32)
+    scales.flags.writeable = False
+    return scales
 
 
 def stream_q_octave_rows(delays, delays_out, phases, consumed_out, cols):
@@ -248,71 +259,94 @@ def _stream_launch(x, n, acc, amax, acc_out, amax_out, y, rows, scales, *,
 
 def fir_mp_stream_cascade(chunk, n, delays, consumed, acc, amax, bp_taps,
                           lp_taps, gamma, *, solver: str = "newton",
-                          update_amax: bool = True,
-                          threads: int | None = None):
-    """The float session step's octave cascade in one launch.
+                          update_amax: bool = True):
+    """The float session step's octave cascade: one launch on the card,
+    the plain per-octave loop (``ref.fir_mp_stream``) on the CPU.
 
-    chunk (S, L) with invalid tails zeroed; n (S,) valid counts;
+    chunk (S, L), invalid tails zeroed (and quantized, if deployed
+    quantized: then pass the already-updated running amax and
+    ``update_amax=False``); n (S,) valid counts (0 for inert slots);
     ``delays[o]`` (S, T1) and ``consumed[o]`` (S,) int32 per octave; acc
-    (S, P), P = octaves x F; amax (S,); ``bp_taps[o]`` (F, M), ``lp_taps[o]``
-    (M_lp,) for every octave but the last. The kernel takes each octave's
-    phase from ``consumed[o] & 1``, its valid count from the previous
-    one's ``max(n - phase + 1, 0) >> 1``, and updates amax at octave 0
-    under ``update_amax`` (otherwise ``amax`` comes back as given).
-    ``threads`` overrides the plan's threads per CTA. Returns ``(delays',
-    consumed', acc', amax')``, bit for bit ``ref.fir_mp_stream``."""
+    (S, P), P = octaves x F; amax (S,); ``bp_taps[o]`` (F, M),
+    ``lp_taps[o]`` (M_lp,) for every octave but the last. Each octave's
+    phase is ``consumed[o] & 1``, the next valid count
+    ``max(n - phase + 1, 0) >> 1``; amax rises at octave 0 under
+    ``update_amax`` (otherwise ``amax`` comes back as given). Returns
+    ``(delays', consumed', acc', amax')``, bit for bit
+    ``ref.fir_mp_stream``; a slot with n == 0 gets its registers back."""
     if solver not in _SOLVERS:
         raise ValueError(f"unknown MP solver: {solver!r}")
     O = len(delays)
     if len(consumed) != O or len(bp_taps) < O or len(lp_taps) < O - 1:
         raise ValueError(f"{O} delay lines need {O} consumed counters, "
                          f"{O} band-pass and {O - 1} low-pass tap sets")
-    lps = list(lp_taps[:O - 1])
-    if not _on_cuda(chunk, n, acc, amax, *delays, *consumed,
-                    *bp_taps[:O], *lps):
+    bps, lps = bp_taps[:O], lp_taps[:O - 1]
+    if not _on_cuda(chunk, n, acc, amax, *delays, *consumed, *bps, *lps):
         return ref.fir_mp_stream(chunk, n, delays, consumed, acc, amax,
                                  bp_taps, lp_taps, gamma, solver=solver,
                                  update_amax=update_amax)
-    key = "fir_mp_stream_cascade"
-    S, L = chunk.shape
-    Fn, M = bp_taps[0].shape
-    T1 = delays[0].shape[1]
+    plan, ins = _cascade_inputs(chunk, n, delays, consumed, acc, amax, bps,
+                                lps)
+    chunk, n, delays, consumed, acc, amax, bps, lps = ins
+    (S, L), (Fn, M), T1 = chunk.shape, bps[0].shape, delays[0].shape[1]
     M_lp = lps[0].shape[0] if lps else 1
-    for o in range(O):
-        _expect(f"delays[{o}]", delays[o], (S, T1))
-        _expect(f"consumed[{o}]", consumed[o], (S,))
-        _expect(f"bp_taps[{o}]", bp_taps[o], (Fn, M))
-        if o < O - 1:
-            _expect(f"lp_taps[{o}]", lps[o], (M_lp,))
-    for name, t, shape in (("n", n, (S,)), ("acc", acc, (S, O * Fn)),
-                           ("amax", amax, (S,))):
-        _expect(name, t, shape)
-    plan = stream_plan(L, Fn, M, M_lp, T1, octaves=O, threads=threads)
-    chunk, acc, amax = _f32(chunk, "chunk"), _f32(acc, "acc"), _f32(amax,
-                                                                    "amax")
-    delays = [_f32(d, f"delays[{o}]") for o, d in enumerate(delays)]
-    bps = [_f32(h, f"bp_taps[{o}]") for o, h in enumerate(bp_taps[:O])]
-    lps = [_f32(h, f"lp_taps[{o}]") for o, h in enumerate(lps)] + [None]
-    n, consumed = _i32(n), [_i32(c) for c in consumed]
-    dev = chunk.device
-    delays_out = torch.empty((O, S, T1), dtype=torch.float32, device=dev)
-    consumed_out = torch.empty((O, S), dtype=torch.int32, device=dev)
-    acc_out = torch.empty_like(acc)
-    amax_out = torch.empty_like(amax) if update_amax else None
-    scratch = (torch.empty((S, plan["scratch"]), dtype=torch.float32,
-                           device=dev) if O > 1 else None)
+    delays_out, consumed_out, acc_out, amax_out, scratch = _cascade_outputs(
+        plan, acc, amax, O, T1=T1, update_amax=update_amax)
     rows, scales = stream_octave_rows(delays, delays_out, consumed,
-                                      consumed_out, bps, lps)
+                                      consumed_out, bps, lps + [None])
     code = _stream_launch(chunk, n, acc, amax, acc_out, amax_out, scratch,
                           rows, scales, L=L, P=O * Fn,
                           ystride=plan["scratch"], M=M, M_lp=M_lp, T1=T1,
                           gamma=gamma, solver=solver,
                           update_amax=update_amax, cascade=True, plan=plan)
-    _check(code, key, f"S={S} L={L} octaves={O} F={Fn} M={M} T1={T1} "
-                      f"M_lp={M_lp} threads={plan['threads']}")
-    LAUNCHES[key] += 1
+    if code:
+        _check(code, "fir_mp_stream_cascade", f"S={S} L={L} octaves={O} "
+                                              f"F={Fn} M={M} T1={T1} "
+                                              f"M_lp={M_lp}")
+    LAUNCHES["fir_mp_stream_cascade"] += 1
     return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
             acc_out, amax_out if update_amax else amax)
+
+
+def _cascade_inputs(chunk, n, delays, consumed, acc, amax, bps, lps):
+    """The float cascade's checks and conversions on CUDA tensors: its
+    launch plan and the inputs as the kernel reads them (contiguous, f32
+    or int32). Shapes the kernel does not take raise."""
+    O = len(delays)
+    S, L = chunk.shape
+    Fn, M = bps[0].shape
+    T1 = delays[0].shape[1]
+    M_lp = lps[0].shape[0] if lps else 1
+    for o in range(O):
+        _expect(f"delays[{o}]", delays[o], (S, T1))
+        _expect(f"consumed[{o}]", consumed[o], (S,))
+        _expect(f"bp_taps[{o}]", bps[o], (Fn, M))
+        if o < O - 1:
+            _expect(f"lp_taps[{o}]", lps[o], (M_lp,))
+    for name, t, shape in (("n", n, (S,)), ("acc", acc, (S, O * Fn)),
+                           ("amax", amax, (S,))):
+        _expect(name, t, shape)
+    plan = stream_plan(L, Fn, M, M_lp, T1, octaves=O)
+    return plan, (_f32(chunk, "chunk"), _i32(n),
+                  [_f32(d, f"delays[{o}]") for o, d in enumerate(delays)],
+                  [_i32(c) for c in consumed], _f32(acc, "acc"),
+                  _f32(amax, "amax"),
+                  [_f32(h, f"bp_taps[{o}]") for o, h in enumerate(bps)],
+                  [_f32(h, f"lp_taps[{o}]") for o, h in enumerate(lps)])
+
+
+def _cascade_outputs(plan, acc, amax, O, *, T1, update_amax=True):
+    """A cascade's fresh outputs beside acc (S, P) and amax (S,), in their
+    dtype: the delay lines (O, S, T1), the consumed counters (O, S) int32,
+    acc', amax' (None unless ``update_amax``) and the scratch row (None
+    for one octave)."""
+    S, dev = acc.shape[0], acc.device
+    return (torch.empty((O, S, T1), dtype=acc.dtype, device=dev),
+            torch.empty((O, S), dtype=torch.int32, device=dev),
+            torch.empty_like(acc),
+            torch.empty_like(amax) if update_amax else None,
+            torch.empty((S, plan["scratch"]), dtype=acc.dtype, device=dev)
+            if O > 1 else None)
 
 
 def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
@@ -428,28 +462,27 @@ def _stream_q_launch(x, n, acc, amax, acc_out, amax_out, y, stages, rows,
         plan["smem_bytes"], _stream())
 
 
-def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax, *,
-                            threads: int | None = None):
-    """The integer session step's octave cascade in one launch: the kernel
-    route of ``core.fixed.session_step_q``'s cascade, with the same
+def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
+    """The integer session step's octave cascade: one launch on the card,
+    the plain per-octave loop (``ref.fir_mp_stream_q``) on the CPU; the
+    kernel route of ``core.fixed.session_step_q``, with the same
     registers.
 
     ``prog`` the compiled ``core.fixed.FixedPointProgram`` (MP mode);
-    chunk_q (S, L) ADC codes with invalid tails zeroed, L >= 1; n (S,)
-    effective valid counts; the registers as in ``SessionState``, int32.
-    Per octave the phase is ``consumed & 1`` and the next valid count
-    ``max(n - phase + 1, 0) >> 1``; amax rises at octave 0. The stage
-    constants travel in a device table packed once per program and cached
-    on it. ``threads`` overrides the plan's threads per CTA. Returns
-    ``(delays', consumed', acc', amax')``, bit for bit
-    ``ref.fir_mp_stream_q``."""
+    chunk_q (S, L) ADC codes with invalid tails zeroed, L >= 1 (the caller
+    handles the L == 0 readout); n (S,) effective valid counts; the
+    registers as in ``SessionState``, int32. Per octave the phase is
+    ``consumed & 1`` and the next valid count ``max(n - phase + 1, 0) >>
+    1``; amax rises at octave 0. The stage constants travel in a device
+    table packed once per program and cached on it
+    (:func:`_program_table`). Returns ``(delays', consumed', acc',
+    amax')``, bit for bit ``ref.fir_mp_stream_q``."""
     bank = prog.bank
     if bank.mode != "mp":
         raise ValueError(
             f"fir_mp_stream_cascade_q runs the MP stream kernel; it has no "
             f"{bank.mode!r}-mode variant (use fixed.session_step_q)")
-    stages = bank.octaves
-    O = len(stages)
+    O = len(bank.octaves)
     if len(delays) != O or len(consumed) != O:
         raise ValueError(f"the program has {O} octaves: pass {O} delay "
                          f"lines and consumed counters")
@@ -457,50 +490,74 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax, *,
         return ref.fir_mp_stream_q(prog, chunk_q, n, delays, consumed, acc,
                                    amax)
     key = "fir_mp_stream_cascade_q"
+    T1 = delays[0].shape[1]
+    table, Fs, M, M_lp, cols = _program_table(prog, T1, chunk_q.device)
+    plan, ins = _cascade_q_inputs(chunk_q, n, delays, consumed, acc, amax,
+                                  Fs, M, M_lp)
+    chunk_q, n, delays, consumed, acc, amax = ins
+    delays_out, consumed_out, acc_out, amax_out, scratch = _cascade_outputs(
+        plan, acc, amax, O, T1=T1)
+    rows = stream_q_octave_rows(delays, delays_out, consumed, consumed_out,
+                                cols)
+    S, L = chunk_q.shape
+    code = _stream_q_launch(chunk_q, n, acc, amax, acc_out, amax_out, scratch,
+                            table, rows, L=L, P=acc.shape[1],
+                            ystride=plan["scratch"], F_max=max(Fs), M=M,
+                            M_lp=M_lp, T1=T1, update_amax=True, cascade=True,
+                            plan=plan)
+    if code:
+        _check(code, key, f"S={S} L={L} octaves={O} F={list(Fs)} M={M} "
+                          f"T1={T1} M_lp={M_lp}")
+    LAUNCHES[key] += 1
+    return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
+            acc_out, amax_out)
+
+
+def _program_table(prog, T1: int, device):
+    """What the int cascade needs of a program, made once per (program,
+    T1, device) and cached on it: the stage table on ``device``
+    (:func:`pack_stages`), the filters per octave, the band-pass and
+    low-pass lengths and each octave's first accumulator column."""
+    cache = vars(prog).setdefault("_cuda_stream_tables", {})
+    key = ("cascade", T1, str(device))
+    if key not in cache:
+        stages = prog.bank.octaves
+        Fs = tuple(st.bp_q.shape[0] for st in stages)
+        Ms = {st.bp_q.shape[1] for st in stages}
+        M_lps = {st.lp_q.shape[-1] for st in stages if st.lp_q is not None}
+        if len(Ms) != 1 or len(M_lps) > 1:
+            raise ValueError(f"the stream kernel takes one band-pass and one "
+                             f"low-pass length, got {sorted(Ms)} and "
+                             f"{sorted(M_lps)}")
+        nxt = [stages[o + 1].in_spec if st.lp_q is not None else None
+               for o, st in enumerate(stages[:-1])] + [None]
+        table = torch.from_numpy(pack_stages(stages, nxt, T1)).to(device)
+        cols = tuple(itertools.accumulate((0,) + Fs[:-1]))
+        cache[key] = (table, Fs, Ms.pop(), M_lps.pop() if M_lps else 1,
+                      cols)
+    return cache[key]
+
+
+def _cascade_q_inputs(chunk_q, n, delays, consumed, acc, amax, Fs, M, M_lp):
+    """The int cascade's checks and conversions on CUDA tensors: its launch
+    plan and the inputs as the kernel reads them (contiguous int32 codes;
+    float-carried codes raise)."""
+    key = "fir_mp_stream_cascade_q"
     S, L = chunk_q.shape
     T1 = delays[0].shape[1]
-    Fs = [st.bp_q.shape[0] for st in stages]
-    Ms = {st.bp_q.shape[1] for st in stages}
-    M_lps = {st.lp_q.shape[-1] for st in stages if st.lp_q is not None}
-    if len(Ms) != 1 or len(M_lps) > 1:
-        raise ValueError(f"the stream kernel takes one band-pass and one "
-                         f"low-pass length, got {sorted(Ms)} and "
-                         f"{sorted(M_lps)}")
-    M, M_lp = Ms.pop(), (M_lps.pop() if M_lps else 1)
-    for o in range(O):
+    for o in range(len(delays)):
         _expect(f"delays[{o}]", delays[o], (S, T1))
         _expect(f"consumed[{o}]", consumed[o], (S,))
     for name, t, shape in (("n", n, (S,)), ("acc", acc, (S, sum(Fs))),
                            ("amax", amax, (S,))):
         _expect(name, t, shape)
-    plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=O, threads=threads)
-    chunk_q, acc, amax = (_codes(t, nm, key) for t, nm in (
-        (chunk_q, "chunk_q"), (acc, "acc"), (amax, "amax")))
-    delays = [_codes(d, f"delays[{o}]", key) for o, d in enumerate(delays)]
-    n, consumed = _i32(n), [_i32(c) for c in consumed]
-    dev = chunk_q.device
-    table = _device_table(prog, ("cascade", T1), lambda: pack_stages(
-        stages, [stages[o + 1].in_spec if st.lp_q is not None else None
-                 for o, st in enumerate(stages[:-1])] + [None], T1), dev)
-    delays_out = torch.empty((O, S, T1), dtype=torch.int32, device=dev)
-    consumed_out = torch.empty((O, S), dtype=torch.int32, device=dev)
-    acc_out = torch.empty_like(acc)
-    amax_out = torch.empty_like(amax)
-    scratch = (torch.empty((S, plan["scratch"]), dtype=torch.int32,
-                           device=dev) if O > 1 else None)
-    cols = np.cumsum([0] + Fs[:-1]).tolist()
-    rows = stream_q_octave_rows(delays, delays_out, consumed, consumed_out,
-                                cols)
-    code = _stream_q_launch(chunk_q, n, acc, amax, acc_out, amax_out, scratch,
-                            table, rows, L=L, P=sum(Fs),
-                            ystride=plan["scratch"], F_max=max(Fs), M=M,
-                            M_lp=M_lp, T1=T1, update_amax=True, cascade=True,
-                            plan=plan)
-    _check(code, key, f"S={S} L={L} octaves={O} F={Fs} M={M} T1={T1} "
-                      f"M_lp={M_lp} threads={plan['threads']}")
-    LAUNCHES[key] += 1
-    return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
-            acc_out, amax_out)
+    plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=len(delays),
+                       integer=True)
+    return plan, (_codes(chunk_q, "chunk_q", key), _i32(n),
+                  [_codes(d, f"delays[{o}]", key)
+                   for o, d in enumerate(delays)],
+                  [_i32(c) for c in consumed], _codes(acc, "acc", key),
+                  _codes(amax, "amax", key))
 
 
 def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
@@ -533,7 +590,7 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
                            ("delay", delay, (S, T1)), ("acc", acc, (S, Fn)),
                            ("amax", amax, (S,))):
         _expect(name, t, shape)
-    plan = stream_plan(L, Fn, M, M_lp, T1)
+    plan = stream_plan(L, Fn, M, M_lp, T1, integer=True)
     x, delay, acc, amax = (_codes(t, nm, key) for t, nm in (
         (x, "x"), (delay, "delay"), (acc, "acc"), (amax, "amax")))
     n, start = _i32(n), _i32(start)

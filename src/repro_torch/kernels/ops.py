@@ -84,29 +84,12 @@ def fir_mp_bank_accumulate(x: torch.Tensor, H: torch.Tensor, gamma, *,
     return s.reshape(*x.shape[:-1], H.shape[0])
 
 
-def fir_mp_stream(chunk: torch.Tensor, n: torch.Tensor, delays: tuple,
-                  consumed: tuple, acc: torch.Tensor, amax: torch.Tensor,
-                  bp_taps: tuple, lp_taps: tuple, gamma, *,
-                  solver: str = "newton", update_amax: bool = True):
-    """The multirate session step through the stream kernel: the whole
-    octave cascade in one launch on the card, the plain per-octave loop
-    (``ref.fir_mp_stream``) on the CPU.
-
-    chunk (S, L), invalid tails zeroed (and quantized, if deployed
-    quantized — then pass the already-updated running amax and
-    ``update_amax=False``; otherwise the kernel updates amax at octave 0
-    itself). n (S,) valid counts (0 for inert slots); ``delays`` /
-    ``consumed`` per-octave registers; acc (S, P); ``bp_taps[o]`` (F, M),
-    ``lp_taps[o]`` (M_lp,).
-
-    Per octave: the decimator phase is ``consumed % 2``, the next octave's
-    valid count ``max(0, (n - start + 1) // 2)``. Returns ``(delays',
-    consumed', acc', amax')``; a slot with n == 0 gets its registers back
-    bit for bit.
-    """
-    return fir_mp_stream_cascade(chunk, n, delays, consumed, acc, amax,
-                                 bp_taps, lp_taps, gamma, solver=solver,
-                                 update_amax=update_amax)
+# The multirate session step: the whole octave cascade in one launch on the
+# card, the plain per-octave loop on the CPU (float: ``ref.fir_mp_stream``,
+# integer: ``ref.fir_mp_stream_q``, the kernel route of
+# ``core.fixed.session_step_q``). The wrappers take these calls as they are.
+fir_mp_stream = fir_mp_stream_cascade
+fir_mp_stream_q = fir_mp_stream_cascade_q
 
 
 # ---------------------------------------------------------------------------
@@ -134,22 +117,3 @@ def fir_mp_bank_q_accumulate(xq: torch.Tensor, H_q, *, gamma_q: int,
     s = fir_mp_bank_q_kernel(x2, H_q, gamma_q=gamma_q, iters=iters,
                              qmin=qmin, qmax=qmax, accumulate=True)
     return s.reshape(*xq.shape[:-1], s.shape[1])
-
-
-def fir_mp_stream_q(prog, chunk_q: torch.Tensor, n: torch.Tensor,
-                    delays: tuple, consumed: tuple, acc: torch.Tensor,
-                    amax: torch.Tensor):
-    """The integer session step's octave cascade through the int stream
-    kernel, one launch on the card (the plain per-octave loop,
-    ``ref.fir_mp_stream_q``, on the CPU): the kernel route of
-    ``core.fixed.session_step_q``, with the same registers.
-
-    ``prog`` is the compiled ``core.fixed.FixedPointProgram``; chunk_q
-    (S, L) ADC codes with invalid tails zeroed, L >= 1 (the caller handles
-    the L == 0 readout); n (S,) effective valid counts; the registers as in
-    ``SessionState``. Per octave the decimator phase is ``consumed & 1``
-    and the next valid count ``max(n - start + 1, 0) >> 1``. Returns
-    ``(delays', consumed', acc', amax')``.
-    """
-    return fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc,
-                                   amax)

@@ -23,7 +23,7 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_stream_cascade,
                                         fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
-                                        fir_mp_stream_octave_q)
+                                        fir_mp_stream_octave_q, stream_plan)
 from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
                                             mp_linear_plan,
                                             mp_waterfill_kernel)
@@ -149,22 +149,29 @@ def test_stream_cascade_kernel_matches_plain(dev, bank, S, L, served, solver,
         assert torch.equal(got[0][o][inert], args[2][o][inert])
 
 
-@pytest.mark.parametrize("threads", [32, 64, 128, 256])
-def test_stream_cascade_each_thread_count(dev, bank, threads):
-    """Every CTA size the plan may take gives the same result."""
-    g = torch.Generator().manual_seed(threads)
+@pytest.mark.parametrize("L,threads", [(1, 32), (4, 64), (8, 96),
+                                       (16, 192), (600, 256)])
+def test_stream_cascade_each_thread_count(dev, bank, L, threads):
+    """Every CTA size the plan takes (it follows L) gives the plain
+    cascade's result."""
+    g = torch.Generator().manual_seed(L)
     c = bank.config
-    S, L, O, F = 21, 600, c.num_octaves, c.filters_per_octave
+    S, O, F = 21, c.num_octaves, c.filters_per_octave
+    assert stream_plan(L, F, c.bp_taps, c.lp_taps, 15,
+                       octaves=O)["threads"] == threads
     n = _valid_counts(g, S, L, False)
     x, delays, cons, acc, amax = _registers(g, S, L, n, O, F, 15)
     args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
             tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev),
             bank.bp_by_octave, bank.lp_filters, c.gamma_f]
-    got = fir_mp_stream_cascade(*args, threads=threads)
+    got = fir_mp_stream_cascade(*args)
     want = ref.fir_mp_stream(*args)
     _close(got[2], want[2])
+    _close(got[3], want[3])
     for a, b in zip(got[0], want[0]):
         _close(a, b)
+    for a, b in zip(got[1], want[1]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000)])
@@ -263,16 +270,13 @@ def test_stream_octave_q_kernel_matches_plain(dev, prog, S, L, o):
     assert torch.equal(got[1][0], args[3][0])
 
 
-@pytest.mark.parametrize("S,L,served,threads", [(256, 256, True, None),
-                                                 (37, 700, False, None),
-                                                 (5, 1, False, None),
-                                                 (9, 33, False, 64),
-                                                 (21, 600, False, 256)])
-def test_stream_cascade_q_kernel_matches_plain(dev, prog, S, L, served,
-                                               threads):
+@pytest.mark.parametrize("S,L,served", [(256, 256, True), (37, 700, False),
+                                        (5, 1, False), (9, 33, False),
+                                        (21, 8, False), (21, 600, False)])
+def test_stream_cascade_q_kernel_matches_plain(dev, prog, S, L, served):
     """The int cascade in one launch against the per-octave plain loop,
     exactly: a served wave, two blocks at octave 0, mixed valid counts,
-    odd phases, two CTA sizes asked for."""
+    odd phases, CTAs of 32 to 256 threads (the plan's, by L)."""
     g = torch.Generator().manual_seed(S + L)
     O = len(prog.bank.octaves)
     F = prog.bank.octaves[0].bp_q.shape[0]
@@ -282,7 +286,7 @@ def test_stream_cascade_q_kernel_matches_plain(dev, prog, S, L, served,
     args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
             tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev)]
     reset_launches()
-    got = fir_mp_stream_cascade_q(prog, *args, threads=threads)
+    got = fir_mp_stream_cascade_q(prog, *args)
     assert LAUNCHES["fir_mp_stream_cascade_q"] == 1
     assert LAUNCHES["fir_mp_stream_octave_q"] == 0
     want = ref.fir_mp_stream_q(prog, *args)

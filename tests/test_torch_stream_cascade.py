@@ -30,6 +30,8 @@ from repro_torch.kernels.fir_mp import (STAGE_FIELDS, STAGE_HEAD,
                                         STREAM_Q_OCTAVE_FIELDS,
                                         STREAM_MAX_THREADS,
                                         fir_mp_stream_cascade,
+                                        _cascade_inputs, _cascade_outputs,
+                                        _cascade_q_inputs, _program_table,
                                         fir_mp_stream_cascade_q, pack_stages,
                                         stream_octave_rows,
                                         stream_q_octave_rows, stream_plan)
@@ -163,33 +165,48 @@ def test_plain_cascade_q_matches_reference(progs, S, L):
 
 def test_stream_plan_sizes_the_served_wave():
     plan = stream_plan(256, 5, 16, 6, T1, octaves=6)
-    assert plan["block_len"] == [256, 128, 64, 32, 16, 8]
-    assert plan["blocks"] == [1] * 6
+    assert plan["block_len"] == (256, 128, 64, 32, 16, 8)
+    assert plan["blocks"] == (1,) * 6
     # both branches of every (position, filter) pair and kept position
     assert plan["items_per_block"][0] == 2 * (256 * 5 + 128)
     assert plan["items_per_block"][-1] == 2 * 8 * 5     # the last keeps none
     assert plan["threads"] == STREAM_MAX_THREADS
     assert plan["scratch"] == 128
-    words = (T1 + 256 + 32 + 5 * 16 + 8 + 5 * 256 + 5 * 16 + 5
-             + STREAM_MAX_THREADS // 32)
-    assert plan["smem_bytes"] == 4 * words
+    head = T1 + 256 + 32 + 5 * 16 + 8 + 5 * 256 + 5
+    # the float kernel: group sums and per-warp maxima; the int kernel:
+    # its running amax
+    assert plan["smem_bytes"] == 4 * (head + 5 * 16 + STREAM_MAX_THREADS // 32)
+    assert stream_plan(256, 5, 16, 6, T1, octaves=6,
+                       integer=True)["smem_bytes"] == 4 * (head + 1)
+    # cached per shape, read-only
+    assert stream_plan(256, 5, 16, 6, T1, octaves=6) is plan
+    with pytest.raises(TypeError):
+        plan["threads"] = 32
     # two blocks at octave 0, one octave (the one-octave entry), few items
     plan = stream_plan(700, 5, 16, 6, T1, octaves=2)
-    assert plan["block_len"] == [512, 512] and plan["blocks"] == [2, 1]
+    assert plan["block_len"] == (512, 512) and plan["blocks"] == (2, 1)
     one = stream_plan(5, 3, 16, 6, T1)
     assert one["scratch"] == 0 and one["threads"] == 32 * 2   # 2 x 29 items
-    assert stream_plan(256, 5, 16, 6, T1, threads=128)["threads"] == 128
+
+
+@pytest.mark.parametrize("L,threads", [(1, 32), (4, 64), (8, 96), (16, 192),
+                                       (600, STREAM_MAX_THREADS)])
+def test_stream_plan_threads_follow_the_largest_block(L, threads):
+    """Threads per CTA: the first octave's items (2 x (positions x 5
+    filters + kept)) rounded up to a warp, at most the kernels' bound;
+    the card tests run the cascades at each of these shapes."""
+    assert stream_plan(L, 5, 16, 6, T1, octaves=6)["threads"] == threads
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(F=33), "F = 33"), (dict(M=17), "M = 17"),
     (dict(M_lp=9), "M_lp = 9"), (dict(T1=32), "T1 = 32"),
     (dict(octaves=9), "octaves = 9"), (dict(T1=4), "delay line"),
-    (dict(threads=48), "multiple of 32"), (dict(threads=512), "multiple"),
+    (dict(F=0), "F = 0"), (dict(L=0), "L = 0"),
 ])
 def test_stream_plan_refuses_shapes_outside_the_kernels(kw, match):
     args = dict(L=256, F=5, M=16, M_lp=6, T1=T1)
-    extra = {k: kw.pop(k) for k in ("octaves", "threads") if k in kw}
+    extra = {k: kw.pop(k) for k in ("octaves",) if k in kw}
     args.update(kw)
     with pytest.raises(ValueError, match=match):
         stream_plan(args["L"], args["F"], args["M"], args["M_lp"],
@@ -269,6 +286,73 @@ def test_stage_table_fields_and_reversed_taps(progs):
             assert not lp.any()
     with pytest.raises(ValueError, match="no low-pass taps"):
         pack_stages(st[-1:], [st[0].in_spec], T1)
+
+
+def test_program_record_is_packed_once_per_program(progs):
+    """What the int cascade reads of a program, made on its first call and
+    cached on it: the stage table, filters per octave, tap lengths and
+    each octave's first accumulator column."""
+    _, prog = progs
+    st = prog.bank.octaves
+    rec = _program_table(prog, T1, "cpu")
+    table, Fs, M, M_lp, cols = rec
+    nxt = [st[o + 1].in_spec for o in range(len(st) - 1)] + [None]
+    np.testing.assert_array_equal(table.numpy(), pack_stages(st, nxt, T1))
+    assert Fs == tuple(s.bp_q.shape[0] for s in st)
+    assert (M, M_lp) == (st[0].bp_q.shape[1], st[0].lp_q.shape[1])
+    assert cols == tuple(int(c) for c in np.cumsum((0,) + Fs[:-1]))
+    assert _program_table(prog, T1, "cpu") is rec
+    assert _program_table(prog, T1 + 1, "cpu") is not rec
+
+
+@pytest.mark.parametrize("integer", [False, True])
+def test_cascade_inputs_and_outputs(ref_pipe, progs, integer):
+    """The cascades' host parts: the inputs as the kernels read them and
+    the plan they launch with, the fresh outputs, and shapes or dtypes the
+    kernels do not take refused before any pointer reaches them."""
+    c = ref_pipe.config
+    S, L = 4, 24
+    if integer:
+        _, prog = progs
+        st = prog.bank.octaves
+        O = len(st)
+        _, Fs, M, M_lp, _ = _program_table(prog, T1, "cpu")
+        port, _ = _both(_registers(5, S, L, O, sum(Fs), codes=(-100, 100)))
+        plan, ins = _cascade_q_inputs(*port, Fs, M, M_lp)
+        assert plan is stream_plan(L, max(Fs), M, M_lp, T1, octaves=O,
+                                   integer=True)
+        bad = (port[0].float(),) + port[1:]
+        with pytest.raises(ValueError, match="must be int32 codes"):
+            _cascade_q_inputs(*bad, Fs, M, M_lp)
+        short = port[:4] + (port[4][:, 1:],) + port[5:]
+        with pytest.raises(ValueError, match="acc must have shape"):
+            _cascade_q_inputs(*short, Fs, M, M_lp)
+    else:
+        O, F = c.num_octaves, c.filters_per_octave
+        port, _ = _both(_registers(5, S, L, O, O * F))
+        bp = [torch.from_numpy(np.array(h)) for h in ref_pipe.bp_taps]
+        lp = [torch.from_numpy(np.array(h)) for h in ref_pipe.lp_taps]
+        plan, ins = _cascade_inputs(*port, bp, lp[:O - 1])
+        assert plan is stream_plan(L, F, c.bp_taps, c.lp_taps, T1, octaves=O)
+        assert len(ins[6]) == O and len(ins[7]) == O - 1
+        bad = (port[0].double(),) + port[1:]
+        with pytest.raises(TypeError, match="chunk must be float32"):
+            _cascade_inputs(*bad, bp, lp[:O - 1])
+        with pytest.raises(ValueError, match="lp_taps\\[1\\] must have"):
+            _cascade_inputs(*port, bp, [lp[0], lp[1][1:]])
+    # contiguous, in the kernels' dtypes; the registers as given
+    for t in ins[:2] + ins[4:6] + tuple(ins[2]) + tuple(ins[3]):
+        assert t.is_contiguous()
+    assert ins[1].dtype == torch.int32 and ins[0] is port[0]
+    acc, amax = ins[4], ins[5]
+    d_out, c_out, acc_out, amax_out, scratch = _cascade_outputs(
+        plan, acc, amax, O, T1=T1)
+    assert d_out.shape == (O, S, T1) and d_out.dtype == acc.dtype
+    assert c_out.shape == (O, S) and c_out.dtype == torch.int32
+    assert acc_out.shape == acc.shape and amax_out.shape == amax.shape
+    assert scratch.shape == (S, (L + 1) // 2) == (S, plan["scratch"])
+    none = _cascade_outputs(plan, acc, amax, 1, T1=T1, update_amax=False)
+    assert none[3] is None and none[4] is None
 
 
 # ---------------------------------------------------------------------------
