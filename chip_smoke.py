@@ -9,9 +9,11 @@ nothing of the reference package). Phases, each failing loudly:
 1. device  — a CUDA card must be present; prints ``nvidia-smi``'s name and
              power limit.
 2. build   — compiles every CUDA source (one nvcc each, in parallel);
-             prints ptxas's registers and spills per kernel and the SASS
+             prints ptxas's registers and spills per kernel, the SASS
              census of the stream kernels' band-pass solve step (FP32 or
-             INT and all instructions per operand lane per iteration).
+             INT and all instructions per operand lane per iteration) and
+             of the one-shot bank kernel's bisection steps (one loop per
+             window width).
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: max abs diff, kernel ms (CUDA events,
              warmed up, many launches), plain ms, and the launches this
@@ -29,7 +31,17 @@ nothing of the reference package). Phases, each failing loudly:
              part by part (checks and conversions, output allocations, the
              octave table, the C launch call, the cached and uncached
              launch plan), and the one-octave entries' device time per
-             octave of the same wave (the octave profile).
+             octave of the same wave (the octave profile). The one-shot
+             bank: its one-stage entries (fir_mp_bank, fir_mp) at each
+             octave's shapes, with the device time per launch of one
+             apply's bank through them (the route before the cascade);
+             then the cascade (fir_mp_oneshot_cascade: the whole bank of
+             one apply in one launch) bit for bit against its plain
+             version on the clips and on odd lengths, in one launch and
+             staged (one launch per low-pass stage, then the band-pass
+             items), with its device time by the profiler, its bound
+             (each low-pass at its kept positions; at all of them
+             beside) and the staged form's device time per launch.
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
              slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
              16 kHz). The stream cascade kernel must launch once per wave
@@ -37,17 +49,22 @@ nothing of the reference package). Phases, each failing loudly:
              finite, within [-1, 1], and the final p within 1e-5 of the
              torch-op cascade (stream_impl="xla") served the same feeds on
              the card.
-5. one-shot — ``apply(x)`` through the bank kernels (use_pallas=True) on
-             8 x 16000 samples against the plain path (use_pallas=False,
-             solver="bisect"): phi within 1e-4 * (1 + max |phi|), p within
-             5e-3 (the two paths bisect with different sum orders).
+5. one-shot — ``apply(x)`` through the cascade kernel (use_pallas=True,
+             one launch, no one-stage launch) on 8 x 16000 samples against
+             the plain path (use_pallas=False, solver="bisect"): phi within
+             1e-4 * (1 + max |phi|), p within 5e-3 (the two paths bisect
+             with different sum orders); then where its time goes: the
+             filter bank against standardize + readout (CUDA events) and,
+             under the profiler, each one's and the whole apply's device
+             kernels, device busy us and busy share.
 6. int kernels — the fixed-point twin (numerics="fixed") at full width,
              its program calibrated on the seeded clips: the int stream
              kernel's one-octave entry on the 6 octaves of one wave (S =
              256, L = 256, mixed valid counts) and its cascade on the cases
              of phase 3 (the clips' ADC codes), and the int bank kernel on
              the 6 + 5 calls of one ``apply`` (B = 8, N = 16000), each
-             against its plain version. Gate: every output exactly equal,
+             against its plain version (its device time per apply by the
+             profiler beside). Gate: every output exactly equal,
              int32. The cascade's row as phase 3's; its bound counts the
              cheapest exact step (the kernel's) in the instructions the card
              issues (three-input adds); the reference algorithm's count is
@@ -95,7 +112,9 @@ nothing of the reference package). Phases, each failing loudly:
              step; the reference algorithm's count is printed beside.
 
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
-line ``{"ok": true, "device": {...}}``.
+line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
+one-stage bank entries, mp_waterfill) reports the launches of its own
+phase; ``main_path_launches`` beside says the main path made none.
 """
 
 from __future__ import annotations
@@ -303,7 +322,8 @@ def short_entry(name: str) -> str:
         wt = "bf16" if m.group(1) == "t" else "f32"
         res = "res" if m.group(4) == "1" else "global"
         return f"mp_linear<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
-    m = re.search(r"(fir_mp_stream(?:_q)?)_kernelILi(\d+)ELi(\d+)E", name)
+    m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot)_kernelILi(\d+)"
+                  r"ELi(\d+)E", name)
     if m:
         return f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
     return name.replace("_ZN12_GLOBAL__N_1", "")[:48]
@@ -322,6 +342,9 @@ def phase_build():
         for entry, census in sass_census(_build.lib_path(name),
                                          solve_census).items():
             log({"sass_solve_step": entry, **census})
+    for entry, census in sass_census(_build.lib_path("fir_mp_bank"),
+                                     bisect_census).items():
+        log({"sass_bisect_step": entry, **census})
     return secs
 
 
@@ -409,6 +432,24 @@ def solve_census(lines: list, lanes: int = 16) -> dict:
             "opcodes": {o: body.count(o) for o in sorted(set(body))}}
 
 
+def bisect_census(lines: list) -> dict:
+    """The bisection steps of the one-shot bank kernel's SASS: each
+    innermost loop that holds an FMNMX (one per window width: two FMNMX per
+    operand lane and branch, so lanes = FMNMX / 4), its instructions, FP32
+    ones (FADD, FMUL, FFMA, FMNMX) and both per lane, and its opcodes."""
+    steps = []
+    for body in inner_loops(lines):
+        if "FMNMX" not in body:
+            continue
+        lanes = body.count("FMNMX") / 4
+        fp = sum(o in ("FADD", "FMUL", "FFMA", "FMNMX") for o in body)
+        steps.append(dict(lanes=lanes, instructions=len(body), fp32=fp,
+                          per_lane=len(body) / lanes,
+                          opcodes={o: body.count(o)
+                                   for o in sorted(set(body))}))
+    return {"steps": steps}
+
+
 def is_stream_kernel(name: str, numerics: str) -> bool:
     """Whether a profiled kernel name is the float or the int stream
     kernel (every kernel built from csrc/fir_mp_stream*.cu)."""
@@ -417,9 +458,19 @@ def is_stream_kernel(name: str, numerics: str) -> bool:
     return "fir_mp_stream" in name and "fir_mp_stream_q" not in name
 
 
-def device_us(fn, numerics: str, reps: int = 10, tries: int = 3) -> dict:
-    """Device time of ``fn()`` under torch.profiler, per call: the stream
-    kernels' launches (``is_stream_kernel``) in order, their total, every
+def is_oneshot_kernel(name: str) -> bool:
+    """Whether a profiled kernel is the float one-shot bank kernel
+    (csrc/fir_mp_bank.cu: the cascade and the one-stage entries)."""
+    return "fir_mp_oneshot_kernel" in name
+
+
+def is_bank_q_kernel(name: str) -> bool:
+    return "fir_mp_bank_q" in name
+
+
+def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
+    """Device time of ``fn()`` under torch.profiler, per call: the launches
+    of the kernel that ``mine(name)`` picks, in order, their total, every
     kernel's total, and how many kernels each call launched. The launches
     a call makes are counted by the wrappers (``LAUNCHES``); a profile
     that lost a launch's record is taken again, up to ``tries`` times,
@@ -441,22 +492,50 @@ def device_us(fn, numerics: str, reps: int = 10, tries: int = 3) -> dict:
         evs = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        mine = [e for e in evs if is_stream_kernel(e.name, numerics)]
-        if per > 0 and len(mine) == per * reps:
+        picked = [e for e in evs if mine(e.name)]
+        if per > 0 and len(picked) == per * reps:
             break
     else:
-        if not (per == 1 and len(mine) >= reps // 2):
+        if not (per == 1 and len(picked) >= reps // 2):
             raise AssertionError(
-                f"profiled {len(mine)} stream kernel launches in {reps} "
-                f"calls of {per} launches each: "
+                f"profiled {len(picked)} kernel launches in {reps} calls "
+                f"of {per} launches each: "
                 f"{sorted({e.name[:60] for e in evs})}")
-    calls = len(mine) // per      # the calls whose records all came
+    calls = len(picked) // per      # the calls whose records all came
     us = [0.0] * per
-    for i, e in enumerate(mine):
+    for i, e in enumerate(picked):
         us[i % per] += e.time_range.elapsed_us() / calls
-    return dict(launch_us=us, stream_us=sum(us),
+    return dict(launch_us=us, kernel_us=sum(us),
                 all_us=sum(e.time_range.elapsed_us() for e in evs) / calls,
                 kernels_per_call=len(evs) / calls)
+
+
+def profiled(fn, reps: int = 10) -> dict:
+    """``fn()`` ``reps`` times under torch.profiler: per call the wall ms
+    (host clock, synchronized), the device's busy us (every kernel's and
+    copy's own time) and busy share, the device kernels, and the six
+    largest device-time names (us per call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    kern = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
+                   for e in dev), reverse=True)
+    busy_us = sum(t for t, _ in kern)
+    return dict(wall_ms=wall / reps * 1e3, busy_us=busy_us / reps,
+                busy_share=(busy_us * 1e-6 / wall) if busy_us else None,
+                kernels=sum(e.count for e in dev) / reps,
+                by_name_us={k: t / reps for t, k in kern},
+                top_us=[[k[:60], t / reps] for t, k in kern[:6]])
 
 
 def octave_chain(octave, chunk, n, delays, consumed, acc, amax, steps):
@@ -790,7 +869,7 @@ def phase_stream_kernel(fb, gen, clips):
                 f"fir_mp_stream_cascade ({name}, update_amax={upd})", False))
     launches_here = LAUNCHES["fir_mp_stream_cascade"]
     run = lambda: fir_mp_stream_cascade(*served, *taps, **kw)  # noqa: E731
-    prof = device_us(run, "float")
+    prof = device_us(run, lambda k: is_stream_kernel(k, "float"))
     counts = served_counts(served[1], served[3])
     ops, ops_ref = cascade_solve_ops(fb, served)
     nb = cascade_bytes(S, L, O, O * F, T1,
@@ -798,7 +877,8 @@ def phase_stream_kernel(fb, gen, clips):
     b_ms, b_by = bound_ms(ops, nb)
     k_ms = cuda_ms(run, 50)
     chain = device_us(lambda: octave_chain(fir_mp_stream_octave, *served,
-                                           float_steps(fb)), "float")
+                                           float_steps(fb)),
+                      lambda k: is_stream_kernel(k, "float"))
     plan_args = (L, F, c.bp_taps, c.lp_taps, T1)
     plan = stream_plan(*plan_args, octaves=O)
     # the wrapper's host work, part by part, on the served wave
@@ -822,7 +902,7 @@ def phase_stream_kernel(fb, gen, clips):
             M_lp=c.lp_taps, T1=T1, gamma=c.gamma_f, solver=c.solver,
             update_amax=True, cascade=True, plan=plan)})
     host.update(plan_us(plan_args, dict(octaves=O)))
-    device_ms = prof["stream_us"] * 1e-3
+    device_ms = prof["kernel_us"] * 1e-3
     row = dict(name="fir_mp_stream_cascade",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
                max_abs_err=err, ms=k_ms, device_ms=device_ms,
@@ -891,12 +971,115 @@ def phase_bank_kernels(fb, x):
         r["ops"] += B * N_o * (2 * ops_bisect(c.lp_taps) + 1)
         r["nbytes"] += 4 * (2 * B * N_o + c.lp_taps)
         x_o = want[:, ::2].contiguous()
+    launches_here = dict(LAUNCHES)
+    # device time per launch of the route before the cascade: per octave
+    # the band-pass sums, then the low-pass at every position
+    chain = device_us(lambda: one_stage_chain(fb, x), is_oneshot_kernel)
+    per_octave = {"fir_mp_bank": chain["launch_us"][0::2],
+                  "fir_mp": chain["launch_us"][1::2]}
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("ops"), r.pop("nbytes"))
         r["shapes"] = f"B={B} N={N}..{x_o.shape[1]}"
-        r["launches_here"] = LAUNCHES[r["name"]]
+        r["launches_here"] = launches_here[r["name"]]
+        r["device_ms"] = sum(per_octave[r["name"]]) * 1e-3
+        r["per_octave_device_us"] = per_octave[r["name"]]
         log({"kernel_vs_plain": r})
     return rows
+
+
+def one_stage_chain(fb, x):
+    """One float apply's bank through the one-stage entries, as the main
+    path ran it before the cascade kernel: per octave the band-pass sums
+    (x 2^o) and the low-pass at every position, its even ones kept."""
+    import torch
+    from repro_torch.kernels.fir_mp import fir_mp_bank_kernel, fir_mp_kernel
+    c = fb.config
+    parts, x_o = [], x
+    for o in range(c.num_octaves):
+        parts.append(fir_mp_bank_kernel(x_o, fb.bp_by_octave[o], c.gamma_f,
+                                        accumulate=True) * (2.0 ** o))
+        if o < c.num_octaves - 1:
+            x_o = fir_mp_kernel(x_o, fb.lp_filters[o], c.gamma_f)[:, ::2]
+    return torch.cat(parts, dim=-1)
+
+
+def oneshot_ops(c, B: int, N: int, kept_only: bool = True):
+    """(f32 ops, bytes) the one-shot cascade needs on x (B, N): every
+    band-pass (position, filter) of every octave and each low-pass at its
+    kept positions (at all of them unless ``kept_only``: the reference's
+    count), each solve two bisections (``ops_bisect``) and their
+    difference; x read once, the taps, s (B, P) written once."""
+    F, O = c.filters_per_octave, c.num_octaves
+    ops, N_o = 0, N
+    for o in range(O):
+        ops += B * N_o * F * (2 * ops_bisect(c.bp_taps) + 1)
+        if o < O - 1:
+            kept = (N_o + 1) // 2
+            ops += (B * (kept if kept_only else N_o)
+                    * (2 * ops_bisect(c.lp_taps) + 1))
+            N_o = kept
+    nbytes = 4 * (B * N + O * F * c.bp_taps + (O - 1) * c.lp_taps + B * O * F)
+    return ops, nbytes
+
+
+def phase_oneshot_cascade(fb, x):
+    """The one-shot cascade kernel (the whole multirate bank of one apply
+    in one launch) against its plain version, bit for bit: on the clips
+    (B = 8, N = 16000) and on odd lengths, in one launch and staged (one
+    launch per low-pass stage, then one for every band-pass item); its
+    times (CUDA events; device time per launch by torch.profiler), its
+    bound (low-pass at the kept positions; at every position beside), the
+    grid and the work items."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels._build import load
+    from repro_torch.kernels.fir_mp import (fir_mp_oneshot_cascade,
+                                            oneshot_plan)
+    c = fb.config
+    taps = (fb.bp_by_octave, fb.lp_filters, c.gamma_f)
+    g = torch.Generator().manual_seed(2)
+    cases = {"clips": x}
+    for shape in ((1, 5), (3, 301), (5, 1027)):
+        cases[f"random {shape}"] = torch.randn(*shape, generator=g).to(
+            x.device)
+    reset_launches()
+    for name, xc in cases.items():
+        want = ref.fir_mp_oneshot_cascade(xc, *taps)
+        for staged in (False, True):
+            got = fir_mp_oneshot_cascade(xc, *taps, staged=staged)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"fir_mp_oneshot_cascade ({name}, staged={staged}) is "
+                    f"not bit for bit its plain version: max |diff| "
+                    f"{float((got - want).abs().max())}")
+    launches_here = LAUNCHES["fir_mp_oneshot_cascade"]
+    B, N = x.shape
+    fused = lambda: fir_mp_oneshot_cascade(x, *taps)  # noqa: E731
+    staged = lambda: fir_mp_oneshot_cascade(x, *taps,  # noqa: E731
+                                            staged=True)
+    prof, prof_st = (device_us(fused, is_oneshot_kernel),
+                     device_us(staged, is_oneshot_kernel))
+    ops, nb = oneshot_ops(c, B, N)
+    b_ms, b_by = bound_ms(ops, nb)
+    device_ms = prof["kernel_us"] * 1e-3
+    plan = oneshot_plan(B, N, c.filters_per_octave, octaves=c.num_octaves)
+    row = dict(name="fir_mp_oneshot_cascade",
+               shapes=f"B={B} N={N}, {c.num_octaves} octaves",
+               max_abs_err=0.0, ms=cuda_ms(fused, 20), device_ms=device_ms,
+               plain_ms=cuda_ms(lambda: ref.fir_mp_oneshot_cascade(x, *taps),
+                                2),
+               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms_all_positions=bound_ms(
+                   oneshot_ops(c, B, N, kept_only=False)[0], nb)[0],
+               device_kernels_per_call=prof["kernels_per_call"],
+               staged_ms=cuda_ms(staged, 20),
+               staged_device_ms=prof_st["kernel_us"] * 1e-3,
+               staged_launch_device_us=prof_st["launch_us"],
+               grid=load("fir_mp_oneshot_ctas")(0), items=plan["items"],
+               launches_here=launches_here)
+    log({"kernel_vs_plain": row})
+    return row
 
 
 def serve(pipe, audio, rounds: int, packet: int):
@@ -941,33 +1124,17 @@ def step_breakdown(step, cascade, readout, numerics: str) -> dict:
     and the kernel machine readout, each timed alone with CUDA events; then
     the step under torch.profiler for the device's busy share and its top
     kernels (``numerics`` picks the stream kernel, ``is_stream_kernel``)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     out = dict(session_step_ms=cuda_ms(step, 20),
                cascade_ms=cuda_ms(cascade, 20),
                readout_ms=cuda_ms(readout, 20))
-    reps = 10
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    kern = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
-                   for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA), reverse=True)
-    busy_us = sum(t for t, _ in kern)
-    out["profiled_step_ms"] = wall / reps * 1e3
-    out["device_busy_share"] = (busy_us * 1e-6 / wall) if busy_us else None
-    out["device_kernels_per_step"] = (
-        sum(e.count for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA) / reps)
+    prof = profiled(step)
+    out["profiled_step_ms"] = prof["wall_ms"]
+    out["device_busy_share"] = prof["busy_share"]
+    out["device_kernels_per_step"] = prof["kernels"]
     out["stream_kernel_device_us_per_step"] = sum(
-        t for t, k in kern if is_stream_kernel(k, numerics)) / reps
-    out["top_device_us_per_step"] = [[k[:60], t / reps] for t, k in kern[:6]]
+        t for k, t in prof["by_name_us"].items()
+        if is_stream_kernel(k, numerics))
+    out["top_device_us_per_step"] = prof["top_us"]
     return out
 
 
@@ -1035,9 +1202,10 @@ def phase_oneshot(x):
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launches = dict(LAUNCHES)
-    if launches["fir_mp_bank"] != 6 or launches["fir_mp"] != 5:
-        raise AssertionError(f"one-shot launches {launches}: want 6 bank "
-                             "and 5 single-filter")
+    if (launches["fir_mp_oneshot_cascade"], launches["fir_mp_bank"],
+            launches["fir_mp"]) != (1, 0, 0):
+        raise AssertionError(f"one-shot launches {launches}: want one "
+                             "cascade and no one-stage bank launch")
     t0 = time.perf_counter()
     p2, phi2 = plain.apply(x, return_features=True)
     torch.cuda.synchronize()
@@ -1049,8 +1217,36 @@ def phase_oneshot(x):
         raise AssertionError(f"one-shot vs plain: phi {dphi} (tol {tol}), "
                              f"p {dp} (tol {ONESHOT_P_TOL})")
     log(dict(phase="oneshot", shape=list(x.shape), ms=ms, plain_ms=plain_ms,
-             max_abs_diff_phi=dphi, max_abs_diff_p=dp, launches=launches))
+             max_abs_diff_phi=dphi, max_abs_diff_p=dp, launches=launches,
+             **oneshot_breakdown(pipe, x)))
     return launches
+
+
+def oneshot_breakdown(pipe, x) -> dict:
+    """Where a float one-shot apply's time goes: the filter bank
+    (``multirate_accumulate``) against standardize + readout, each timed
+    alone by CUDA events; the bank's device time and device records per
+    call (``device_us``, which takes a profile again when a record was
+    lost); standardize + readout and the whole apply under torch.profiler
+    (device kernels, device busy us and share)."""
+    from repro_torch.core.filterbank import multirate_accumulate
+    bank = lambda: multirate_accumulate(  # noqa: E731
+        x, pipe.bp_taps, pipe.lp_taps, pipe.config)
+    s = bank()
+    rest = lambda: pipe.clf((s - pipe.mu) / pipe.sigma,  # noqa: E731
+                            exact=False)
+    dev = device_us(bank, is_oneshot_kernel)
+    out = dict(bank_ms=cuda_ms(bank, 10), readout_ms=cuda_ms(rest, 10),
+               bank_kernel_device_us=dev["kernel_us"],
+               bank_device_us=dev["all_us"],
+               bank_device_records=dev["kernels_per_call"])
+    for k, fn in (("apply", lambda: pipe.apply(x)), ("readout", rest)):
+        r = profiled(fn)
+        out[f"{k}_wall_ms"] = r["wall_ms"]
+        out[f"{k}_device_us"] = r["busy_us"]
+        out[f"{k}_device_kernels"] = r["kernels"]
+        out[f"{k}_device_busy_share"] = r["busy_share"]
+    return out
 
 
 # -- the fixed-point twin (numerics="fixed") -----------------------------------
@@ -1161,7 +1357,7 @@ def phase_int_stream_kernel(prog, gen, clips):
                       f"fir_mp_stream_cascade_q ({name})", True)
     launches_here = LAUNCHES["fir_mp_stream_cascade_q"]
     run = lambda: fir_mp_stream_cascade_q(prog, *served)  # noqa: E731
-    prof = device_us(run, "fixed")
+    prof = device_us(run, lambda k: is_stream_kernel(k, "fixed"))
     counts = served_counts(served[1], served[3])
     ops = ops_ref = 0
     for (nv, kp), st in zip(counts, stages):
@@ -1181,7 +1377,8 @@ def phase_int_stream_kernel(prog, gen, clips):
                                            else 0) for st in stages))
     b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
     chain = device_us(lambda: octave_chain(fir_mp_stream_octave_q, *served,
-                                           fixed_steps(prog)), "fixed")
+                                           fixed_steps(prog)),
+                      lambda k: is_stream_kernel(k, "fixed"))
     plan_args = (L, max(Fs), M, M_lp, T1)
     plan = stream_plan(*plan_args, octaves=O, integer=True)
     # the wrapper's host work, part by part, on the served wave
@@ -1203,7 +1400,7 @@ def phase_int_stream_kernel(prog, gen, clips):
             rows, L=L, P=P, ystride=plan["scratch"], F_max=max(Fs), M=M,
             M_lp=M_lp, T1=T1, update_amax=True, cascade=True, plan=plan)})
     host.update(plan_us(plan_args, dict(octaves=O, integer=True)))
-    device_ms = prof["stream_us"] * 1e-3
+    device_ms = prof["kernel_us"] * 1e-3
     k_ms = cuda_ms(run, 50)
     row = dict(name="fir_mp_stream_cascade_q",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
@@ -1269,9 +1466,14 @@ def phase_int_bank_kernel(prog, x):
             x_o = fx._clamp(fx.rescale(y_lp, st.lp_out_shift),
                             stages[o + 1].in_spec)[:, ::2].contiguous()
     b_ms, b_by = bound_ms(ops, nbytes, INT32_OPS_PER_S)
+    launches_here = LAUNCHES["fir_mp_bank_q"]
+    xq = fx.quantize_signal(prog, x)
+    prof = device_us(lambda: fx.infer_q(prog, xq, use_pallas=True),
+                     is_bank_q_kernel)
     row = dict(name="fir_mp_bank_q", shapes=f"B={B} N={N}..{N_o}",
-               max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-               bound_by=b_by, launches_here=LAUNCHES["fir_mp_bank_q"])
+               max_abs_err=0.0, ms=ms, device_ms=prof["kernel_us"] * 1e-3,
+               launch_device_us=prof["launch_us"], plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=b_by, launches_here=launches_here)
     log({"kernel_vs_plain": row})
     return row
 
@@ -1699,6 +1901,7 @@ def main() -> int:
     stream_row = phase_stream_kernel(fb, gen, clips)
     x1 = torch.from_numpy(np.ascontiguousarray(clips[:8])).cuda()
     bank_rows = phase_bank_kernels(fb, x1)
+    cascade_row = phase_oneshot_cascade(fb, x1)
 
     serve_launches = phase_serve(clips[:256, :50 * 160])
     oneshot_launches = phase_oneshot(x1)
@@ -1719,14 +1922,22 @@ def main() -> int:
         dict(stream_row, route="cuda", source=src + "fir_mp_stream.cu",
              replaces="src/repro/kernels/fir_mp.py:279",
              launches=serve_launches, library_ms=None),
+        dict(cascade_row, route="cuda", source=src + "fir_mp_bank.cu",
+             replaces="src/repro/kernels/fir_mp.py:112",
+             also_replaces="src/repro/kernels/fir_mp.py:382",
+             launches=oneshot_launches["fir_mp_oneshot_cascade"],
+             library_ms=None),
         dict(bank_rows["fir_mp_bank"], route="cuda",
              source=src + "fir_mp_bank.cu",
              replaces="src/repro/kernels/fir_mp.py:112",
-             launches=oneshot_launches["fir_mp_bank"], library_ms=None),
+             launches=bank_rows["fir_mp_bank"]["launches_here"],
+             main_path_launches=oneshot_launches["fir_mp_bank"],
+             library_ms=None),
         dict(bank_rows["fir_mp"], route="cuda",
              source=src + "fir_mp_bank.cu",
              replaces="src/repro/kernels/fir_mp.py:382",
-             launches=oneshot_launches["fir_mp"], library_ms=None),
+             launches=bank_rows["fir_mp"]["launches_here"],
+             main_path_launches=oneshot_launches["fir_mp"], library_ms=None),
         dict(int_bank_row, route="cuda", source=src + "fir_mp_bank_q.cu",
              replaces="src/repro/kernels/fir_mp.py:515",
              launches=fixed_oneshot_launches, library_ms=None),
@@ -1741,9 +1952,9 @@ def main() -> int:
              replaces="src/repro/kernels/mp_waterfill.py:46",
              launches=wf_row["launches_here"], library_ms=None),
     ]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")
+    keys = ("name", "route", "source", "replaces", "also_replaces",
+            "launches", "main_path_launches", "max_abs_err", "ms",
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
     log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})

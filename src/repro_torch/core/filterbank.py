@@ -227,9 +227,17 @@ def multirate_accumulate(x: torch.Tensor, bp_taps, lp_taps,
                          cfg: "FilterBankConfig",
                          amax=None) -> torch.Tensor:
     """Full-bank accumulator readout: x (B, N) -> s (B, P); octave o's sums
-    are renormalized by 2^o."""
+    are renormalized by 2^o. MP under ``use_pallas`` runs the whole
+    cascade in the one-shot cascade kernel (the same bits as the loop
+    through the one-stage kernels)."""
     _require_float_numerics(cfg, "multirate_accumulate")
     x = quant_signal(x, cfg, amax)
+    if cfg.mode == "mp" and cfg.use_pallas:
+        from repro_torch.kernels import fir_mp_oneshot_cascade
+        O = cfg.num_octaves
+        s = fir_mp_oneshot_cascade(x.reshape(-1, x.shape[-1]), bp_taps[:O],
+                                   lp_taps[:O - 1], cfg.gamma_f)
+        return s.reshape(*x.shape[:-1], s.shape[-1])
     parts = []
     x_o = x
     for o in range(cfg.num_octaves):

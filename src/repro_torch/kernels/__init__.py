@@ -19,8 +19,13 @@ Kernels:
                  amax per slot; LP + ÷2 at each octave's phase; the kept
                  signal carried from octave to octave on the card);
                  ``fir_mp_stream_octave`` runs it on one octave
-  fir_mp_bank  - one-shot MP FIR bank, optional fused HWR + accumulate
-  fir_mp       - the bank kernel with one filter
+  fir_mp_oneshot_cascade - the float one-shot bank's whole multirate
+                 cascade in one launch (kept-only low-pass stages feeding
+                 the next octave on the card, every octave's band-pass
+                 items pooled, HWR sums in a fixed order, x 2^o)
+  fir_mp_bank  - the same kernel on one stage: one-shot MP FIR bank,
+                 optional fused HWR + accumulate
+  fir_mp       - the one-stage bank with one filter
   fir_mp_stream_cascade_q, fir_mp_stream_octave_q / fir_mp_bank_q - the
                  integer twins of the two:
                  the fixed-point datapath (integer MP bisection, shift/add/
@@ -38,6 +43,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
     fir_mp_bank_accumulate,
     fir_mp_bank_q,
     fir_mp_bank_q_accumulate,
+    fir_mp_oneshot_cascade,
     fir_mp_stream,
     fir_mp_stream_q,
     mp_linear,

@@ -37,8 +37,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "fir_mp_stream": ("fir_mp_stream_launch",
                       [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P]),
-    "fir_mp_bank": ("fir_mp_bank_launch",
-                    [_P] * 4 + [_I] * 4 + [_F] + [_I] * 2 + [_P]),
+    "fir_mp_bank": ("fir_mp_oneshot_launch",
+                    [_P, _P] + [_P, _I] * 3 + [_I] * 5 + [_F, _I, _P]),
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
                         [_P] * 9 + [_I] * 13 + [_P]),
     "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
@@ -46,7 +46,8 @@ SIGNATURES = {
     "mp_waterfill": ("mp_waterfill_launch", [_P] * 2 + [_I] * 2 + [_F, _I, _P]),
 }
 # further entry points: symbol -> (source, argument types)
-EXTRA_SYMBOLS = {"mp_linear_plan": ("mp_linear", [_I] * 5 + [_P])}
+EXTRA_SYMBOLS = {"mp_linear_plan": ("mp_linear", [_I] * 5 + [_P]),
+                 "fir_mp_oneshot_ctas": ("fir_mp_bank", [_I])}
 
 _LIBS: dict = {}
 _LOGS: dict = {}

@@ -5,9 +5,13 @@
   reference's per-octave loop of Pallas ``fir_mp_stream_octave`` calls);
 * ``fir_mp_stream_octave`` — the same kernel on one octave (replaces the
   Pallas ``fir_mp_stream_octave``);
-* ``fir_mp_bank_kernel`` — ``csrc/fir_mp_bank.cu``, the one-shot bank
-  (replaces ``fir_mp_bank_pallas``);
-* ``fir_mp_kernel`` — the same source with one filter (replaces
+* ``fir_mp_oneshot_cascade`` — ``csrc/fir_mp_bank.cu``, the float
+  one-shot bank's whole multirate cascade in one launch (replaces the
+  reference's per-octave loop of Pallas ``fir_mp_bank_pallas`` and
+  ``fir_mp_pallas`` calls in ``multirate_accumulate``);
+* ``fir_mp_bank_kernel`` — the same kernel on one stage, the one-shot
+  bank (replaces ``fir_mp_bank_pallas``);
+* ``fir_mp_kernel`` — the same with one filter (replaces
   ``fir_mp_pallas``);
 * ``fir_mp_stream_cascade_q`` / ``fir_mp_stream_octave_q`` —
   ``csrc/fir_mp_stream_q.cu``, the integer session step, whole cascade or
@@ -27,7 +31,9 @@ The two stream kernels take a launch plan (:func:`stream_plan`: threads,
 shared bytes, scratch) and a table of per-octave rows packed here
 (:func:`stream_octave_rows`, :func:`stream_q_octave_rows`); the integer
 one also reads the compiled stage constants from a device table
-(:func:`pack_stages`), packed once per program.
+(:func:`pack_stages`), packed once per program. The one-shot bank kernel
+takes a work plan (:func:`oneshot_plan`: items, launches, scratch and
+counter layout) and a table of per-octave rows (:func:`oneshot_octave_rows`).
 
 Each launch is counted in ``kernels._wrap.LAUNCHES``.
 """
@@ -47,7 +53,9 @@ from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
                                        _on_cuda, _stream)
 
 __all__ = ["fir_mp_stream_cascade", "fir_mp_stream_octave",
-           "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_stream_cascade_q",
+           "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_oneshot_cascade",
+           "oneshot_plan", "oneshot_octave_rows", "oneshot_ctas",
+           "fir_mp_stream_cascade_q",
            "fir_mp_stream_octave_q", "fir_mp_bank_q_kernel", "stream_plan",
            "stream_octave_rows", "stream_q_octave_rows", "pack_stages"]
 
@@ -403,25 +411,270 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
     return acc_o, delay_o, amax_o, y_next
 
 
-def _bank_launch(x, H, gamma, accumulate, iters, key):
+# -- the one-shot bank kernel: plan, table, wrappers ----------------------------
+
+ONESHOT_MAX_OCTAVES = 8
+ONESHOT_MAX_M = 16         # taps of either filter
+# work item kinds, in the order of the C enum
+ONESHOT_KINDS = ("keep", "band", "out")
+# the int64 fields of one octave row, in the order of the C enum
+ONESHOT_OCTAVE_FIELDS = ("src", "bp", "fir", "dst", "partial", "ready_in",
+                         "ready_out", "done", "n", "tiles", "fir_F",
+                         "fir_tiles", "out_len", "stride", "ready_target",
+                         "col", "scale_exp")
+
+
+def _frozen(a) -> np.ndarray:
+    a = np.ascontiguousarray(a, dtype=np.int32)
+    a.flags.writeable = False
+    return a
+
+
+@functools.lru_cache(maxsize=64)
+def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
+                 output: bool = False, staged: bool = False, ctas: int = 0):
+    """The work plan of the one-shot bank kernel on x (B, N) with F
+    band-pass filters per octave over ``octaves`` octaves, or, under
+    ``output``, one octave's F outputs at every position (the one-stage
+    output mode). Cached per shape, read-only.
+
+    Per octave o: its signal's length ``lens[o]`` (N, then ceil(N_o / 2)),
+    its band tiles ceil(N_o / 256) and the keep tiles of its low-pass,
+    ceil(N_{o+1} / 256) per row. Work items hold 256 outputs: a (row,
+    kept tile) of a low-pass stage ("keep"), a (row, filter, tile) of an
+    octave's band-pass ("band") or of the output mode ("out").
+    ``segments`` (int32 rows: kind index in ``ONESHOT_KINDS``, octave,
+    first queue item, items, first item of that kind and octave) give the
+    queue order: keep stage o, then band-pass items to fill the CTAs that
+    the stage before it frees (``ctas``, the grid, for the first stage;
+    band items of octaves <= o, octave 0 first), then keep stage o + 1,
+    and so on; then every band item left. ``ctas`` is a scheduling hint
+    only (0: no band items before the second keep stage). ``launches``
+    (int32 rows: first item, items): one for the whole queue or, under
+    ``staged``, one per keep stage and one for every band item (no
+    filling then). Scratch
+    (f32 words): x_o (B, N_o) at ``sig_off[o]`` for o >= 1, then octave
+    o's partials (B, F, tiles) at ``part_off[o]``. Counters (uint32 words,
+    zeroed per call): one queue head per launch, then per octave o >= 1 a
+    ready counter per row at ``ready_off[o]``, then a done counter per
+    (row, filter) at ``done_off[o]``. Shapes outside the kernel raise
+    ValueError, as the kernel refuses them."""
+    for name, val, hi in (("B", B, None), ("N", N, None), ("F", F, None),
+                          ("octaves", octaves, ONESHOT_MAX_OCTAVES)):
+        if val < 1 or (hi is not None and val > hi):
+            raise ValueError(f"one-shot bank kernel: {name} = {val} outside "
+                             f"[1, {hi if hi is not None else 'inf'}]")
+    if output and octaves != 1:
+        raise ValueError("the one-shot bank kernel's output mode runs one "
+                         f"octave, not {octaves}")
+    T = ref.BANK_TILE
+    lens = [N]
+    for _ in range(octaves - 1):
+        lens.append((lens[-1] + 1) // 2)
+    tiles = tuple(-(-n // T) for n in lens)
+    keep = tuple(-(-n // T) for n in lens[1:])
+    segments = []
+    taken = {}                  # (kind, octave) -> items queued so far
+    band_left = [B * F * t for t in tiles]
+
+    def queue(kind, o, count):
+        k = ONESHOT_KINDS.index(kind)
+        if segments and segments[-1][:2] == [k, o]:   # extend the last one
+            segments[-1][3] += count
+        else:
+            start = segments[-1][2] + segments[-1][3] if segments else 0
+            segments.append([k, o, start, count, taken.get((k, o), 0)])
+        taken[(k, o)] = taken.get((k, o), 0) + count
+
+    def fill(count, last_octave):
+        for o in range(last_octave + 1):
+            n = min(count, band_left[o])
+            if n > 0:
+                queue("band", o, n)
+                band_left[o] -= n
+                count -= n
+
+    if output:
+        queue("out", 0, B * F * tiles[0])
+    else:
+        freed = ctas
+        for o, k in enumerate(keep):
+            queue("keep", o, B * k)
+            if not staged:
+                fill(freed - B * k, o)
+            freed = B * k
+        fill(sum(band_left), octaves - 1)
+    items = segments[-1][2] + segments[-1][3]
+    if items >= 2 ** 31:
+        raise ValueError(f"one-shot bank kernel: {items} work items exceed "
+                         "int32")
+    if staged and keep:
+        band0 = segments[len(keep)][2]
+        launches = [(s[2], s[3]) for s in segments[:len(keep)]]
+        launches.append((band0, items - band0))
+    else:
+        launches = [(0, items)]
+    sig_off, part_off, words = [0] * octaves, [0] * octaves, 0
+    for o in range(1, octaves):
+        sig_off[o], words = words, words + B * lens[o]
+    ready_off, done_off, ctr = [0] * octaves, [0] * octaves, len(launches)
+    for o in range(1, octaves):
+        ready_off[o], ctr = ctr, ctr + B
+    if not output:
+        for o in range(octaves):
+            part_off[o], words = words, words + B * F * tiles[o]
+            done_off[o], ctr = ctr, ctr + B * F
+    return types.MappingProxyType(dict(
+        F=F, output=output, lens=tuple(lens), tiles=tiles, keep_tiles=keep,
+        segments=_frozen(segments).reshape(-1, 5),
+        launches=_frozen(launches).reshape(-1, 2), items=items,
+        sig_off=tuple(sig_off), part_off=tuple(part_off), scratch=words,
+        ready_off=tuple(ready_off), done_off=tuple(done_off), counters=ctr))
+
+
+@functools.lru_cache(maxsize=None)
+def oneshot_ctas(device_index: int) -> int:
+    """CTAs of the one-shot kernel the card holds at once (occupancy x
+    SMs, for the configuration's 16 / 6 taps): the plan's scheduling
+    hint."""
     from repro_torch.kernels._build import load
+    with torch.cuda.device(device_index):
+        return int(load("fir_mp_oneshot_ctas")(0))
+
+
+def oneshot_octave_rows(plan, x, bp_taps, fir_taps, scratch, counters,
+                        y=None) -> np.ndarray:
+    """The one-shot kernel's table: one int64 row per octave of ``plan`` in
+    ``ONESHOT_OCTAVE_FIELDS`` order. A cascade's octave o reads x (o = 0)
+    or its signal in ``scratch``, runs its band items with
+    ``bp_taps[o]`` (F, M) and, but for the last octave, its keep items
+    with the low-pass ``fir_taps[o]`` (M_lp,); its sums go to columns
+    o F .. o F + F - 1 times 2^o. The output mode's one row runs out items
+    with ``fir_taps[0]`` (F, M) into ``y`` (B, F, N)."""
+    O, F = len(plan["lens"]), plan["F"]
+    lens, tiles, keep = plan["lens"], plan["tiles"], plan["keep_tiles"]
+    rows = np.zeros((O, len(ONESHOT_OCTAVE_FIELDS)), np.int64)
+    if plan["output"]:
+        rows[0] = (x.data_ptr(), 0, fir_taps[0].data_ptr(), y.data_ptr(), 0,
+                   0, 0, 0, lens[0], tiles[0], F, tiles[0], lens[0], 1, 0, 0,
+                   0)
+        return rows
+    sp, cp = scratch.data_ptr(), counters.data_ptr()
+    for o in range(O):
+        last = o == O - 1
+        rows[o] = (x.data_ptr() if o == 0 else sp + 4 * plan["sig_off"][o],
+                   bp_taps[o].data_ptr(),
+                   0 if last else fir_taps[o].data_ptr(),
+                   0 if last else sp + 4 * plan["sig_off"][o + 1],
+                   sp + 4 * plan["part_off"][o],
+                   0 if o == 0 else cp + 4 * plan["ready_off"][o],
+                   0 if last else cp + 4 * plan["ready_off"][o + 1],
+                   cp + 4 * plan["done_off"][o],
+                   lens[o], tiles[o], 1, 0 if last else keep[o],
+                   0 if last else lens[o + 1], 2,
+                   0 if o == 0 else keep[o - 1], o * F, o)
+    return rows
+
+
+def _oneshot_launch(plan, x, bps, firs, *, sums, y, M, M_fir, gamma, iters):
+    """Allocate the plan's scratch and zeroed counters, pack its table and
+    run its launches; the band sums land in ``sums`` (B, P), the output
+    mode's values in ``y``. Returns the C code."""
+    from repro_torch.kernels._build import load
+    dev = x.device
+    scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=dev)
+    counters = torch.zeros(plan["counters"], dtype=torch.int32, device=dev)
+    rows = oneshot_octave_rows(plan, x, bps, firs, scratch, counters, y)
+    segs, launches = plan["segments"], plan["launches"]
+    F = plan["F"]
+    return load("fir_mp_bank")(
+        None if sums is None else sums.data_ptr(), counters.data_ptr(),
+        rows.ctypes.data, rows.shape[0], segs.ctypes.data, segs.shape[0],
+        launches.ctypes.data, launches.shape[0], x.shape[0], F,
+        F if sums is None else sums.shape[1], M, M_fir, float(gamma),
+        int(iters), _stream())
+
+
+def _oneshot_shapes(x, bps, lps) -> tuple:
+    """(F, M, M_lp) of a cascade's taps; shapes the kernel does not take
+    raise, on either device."""
+    O = len(bps)
+    if not 1 <= O <= ONESHOT_MAX_OCTAVES:
+        raise ValueError(f"the one-shot cascade takes 1 to "
+                         f"{ONESHOT_MAX_OCTAVES} octaves, got {O}")
+    if len(lps) != O - 1:
+        raise ValueError(f"{O} octaves need {O - 1} low-pass tap sets, got "
+                         f"{len(lps)}")
+    if x.ndim != 2 or bps[0].ndim != 2:
+        raise ValueError(f"x must be (B, N) and bp_taps[0] (F, M), got "
+                         f"{tuple(x.shape)} and {tuple(bps[0].shape)}")
+    F, M = bps[0].shape
+    M_lp = lps[0].shape[0] if lps else 1
+    for o, h in enumerate(bps):
+        _expect(f"bp_taps[{o}]", h, (F, M))
+    for o, h in enumerate(lps):
+        _expect(f"lp_taps[{o}]", h, (M_lp,))
+    for name, m in (("M", M), ("M_lp", M_lp)):
+        if not 1 <= m <= ONESHOT_MAX_M:
+            raise ValueError(f"one-shot bank kernel: {name} = {m} outside "
+                             f"[1, {ONESHOT_MAX_M}]")
+    return F, M, M_lp
+
+
+def fir_mp_oneshot_cascade(x, bp_taps, lp_taps, gamma, *,
+                           iters: int = ref.DEFAULT_ITERS,
+                           staged: bool = False):
+    """The float one-shot bank's whole multirate cascade: one launch on
+    the card, the plain composition (``ref.fir_mp_oneshot_cascade``) on
+    the CPU.
+
+    x (B, N), already quantized if deployed so; ``bp_taps[o]`` (F, M) per
+    octave, ``lp_taps[o]`` (M_lp,) for every octave but the last. Returns
+    s (B, O F): octave o's HWR sums over its N_o positions times 2^o in
+    columns o F .. o F + F - 1, bit for bit the plain version. Octave o's
+    low-pass is solved at its kept positions only. Under ``staged`` the
+    same work items run as one launch per low-pass stage and one for
+    every band-pass item (a measurement of the other schedule; the same
+    bits)."""
+    O = len(bp_taps)
+    bps, lps = tuple(bp_taps), tuple(lp_taps[:max(O - 1, 0)])
+    F, M, M_lp = _oneshot_shapes(x, bps, lps)
+    if not _on_cuda(x, *bps, *lps):
+        return ref.fir_mp_oneshot_cascade(x, bps, lps, gamma, iters)
+    B, N = x.shape
+    plan = oneshot_plan(B, N, F, octaves=O, staged=staged,
+                        ctas=oneshot_ctas(x.device.index))
+    x = _f32(x, "x")
+    bps = [_f32(h, f"bp_taps[{o}]") for o, h in enumerate(bps)]
+    lps = [_f32(h, f"lp_taps[{o}]") for o, h in enumerate(lps)]
+    sums = torch.empty((B, O * F), dtype=x.dtype, device=x.device)
+    code = _oneshot_launch(plan, x, bps, lps, sums=sums, y=None, M=M,
+                           M_fir=M_lp, gamma=gamma, iters=iters)
+    if code:
+        _check(code, "fir_mp_oneshot_cascade", f"B={B} N={N} octaves={O} "
+                                               f"F={F} M={M} M_lp={M_lp}")
+    LAUNCHES["fir_mp_oneshot_cascade"] += len(plan["launches"])
+    return sums
+
+
+def _one_stage(x, H, gamma, accumulate, iters, key):
+    """The one-shot kernel on one stage: the band items of one octave
+    (HWR sums (B, F)) or the out items of every position ((B, F, N))."""
     x, H = _f32(x, "x"), _f32(H, "H")
     if x.ndim != 2 or H.ndim != 2:
         raise ValueError(f"x must be (B, N) and H (F, M), got "
                          f"{tuple(x.shape)} and {tuple(H.shape)}")
     B, N = x.shape
     Fn, M = H.shape
+    plan = oneshot_plan(B, N, Fn, output=not accumulate)
     if accumulate:
         out = torch.empty((B, Fn), dtype=x.dtype, device=x.device)
-        partial = torch.empty((B, Fn, -(-N // ref.BANK_TILE)),
-                              dtype=x.dtype, device=x.device)
+        code = _oneshot_launch(plan, x, [H], [], sums=out, y=None, M=M,
+                               M_fir=1, gamma=gamma, iters=iters)
     else:
         out = torch.empty((B, Fn, N), dtype=x.dtype, device=x.device)
-        partial = None
-    code = load("fir_mp_bank")(
-        x.data_ptr(), H.data_ptr(), out.data_ptr(),
-        partial.data_ptr() if accumulate else None,
-        B, N, Fn, M, float(gamma), int(iters), int(accumulate), _stream())
+        code = _oneshot_launch(plan, x, [], [H], sums=None, y=out, M=M,
+                               M_fir=M, gamma=gamma, iters=iters)
     _check(code, key, f"B={B} N={N} F={Fn} M={M}")
     LAUNCHES[key] += 1
     return out
@@ -429,23 +682,23 @@ def _bank_launch(x, H, gamma, accumulate, iters, key):
 
 def fir_mp_bank_kernel(x, H, gamma, *, accumulate: bool = False,
                        iters: int = ref.DEFAULT_ITERS):
-    """One-shot bank: x (B, N), H (F, M) -> y (B, F, N), or the HWR sums
-    (B, F) under ``accumulate``."""
+    """One-shot bank, one stage: x (B, N), H (F, M) -> y (B, F, N), or the
+    HWR sums (B, F) under ``accumulate`` (the cascade kernel on one
+    octave)."""
     if not _on_cuda(x, H):
         fn = ref.fir_mp_bank_accumulate if accumulate else ref.fir_mp_bank
         return fn(x, H, gamma, iters)
-    return _bank_launch(x, H, gamma, accumulate, iters, "fir_mp_bank")
+    return _one_stage(x, H, gamma, accumulate, iters, "fir_mp_bank")
 
 
 def fir_mp_kernel(x, h, gamma, *, accumulate: bool = False,
                   iters: int = ref.DEFAULT_ITERS):
     """Single filter: x (B, N), h (M,) -> y (B, N), or (B,) under
-    ``accumulate`` — the bank kernel launched with ``H = h[None]``."""
+    ``accumulate`` — the one-stage bank with ``H = h[None]``."""
     if not _on_cuda(x, h):
         fn = ref.fir_mp_accumulate if accumulate else ref.fir_mp
         return fn(x, h, gamma, iters)
-    out = _bank_launch(x, h[None], gamma, accumulate, iters, "fir_mp")
-    return out[:, 0]
+    return _one_stage(x, h[None], gamma, accumulate, iters, "fir_mp")[:, 0]
 
 
 def _stream_q_launch(x, n, acc, amax, acc_out, amax_out, y, stages, rows,

@@ -24,6 +24,7 @@ from repro_torch.core.filterbank import accumulate_block_len
 
 __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_bank_accumulate", "fir_mp", "fir_mp_accumulate",
+           "fir_mp_oneshot_cascade",
            "fir_mp_stream_octave", "fir_mp_stream", "tile_sum",
            "fir_mp_bank_q", "fir_mp_bank_q_accumulate",
            "fir_mp_stream_octave_q", "fir_mp_stream_q", "mp_waterfill",
@@ -104,6 +105,22 @@ def fir_mp_accumulate(x: torch.Tensor, h: torch.Tensor, gamma,
                       iters: int = DEFAULT_ITERS) -> torch.Tensor:
     """x (B, N), h (M,) -> s (B,)."""
     return fir_mp_bank_accumulate(x, h[None], gamma, iters)[:, 0]
+
+
+def fir_mp_oneshot_cascade(x: torch.Tensor, bp_taps, lp_taps, gamma,
+                           iters: int = DEFAULT_ITERS) -> torch.Tensor:
+    """The float one-shot bank's multirate cascade, the plain version of the
+    cascade kernel: x (B, N), ``bp_taps[o]`` (F, M) per octave,
+    ``lp_taps[o]`` (M_lp,) for every octave but the last -> s (B, O F).
+    Octave o adds its HWR sums times 2^o (:func:`fir_mp_bank_accumulate`)
+    and hands the even positions of its low-pass (:func:`fir_mp`) on."""
+    parts = []
+    x_o = x
+    for o, H in enumerate(bp_taps):
+        parts.append(fir_mp_bank_accumulate(x_o, H, gamma, iters) * (2.0 ** o))
+        if o < len(bp_taps) - 1:
+            x_o = fir_mp(x_o, lp_taps[o], gamma, iters)[..., ::2]
+    return torch.cat(parts, dim=-1)
 
 
 def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,

@@ -18,8 +18,10 @@ from repro_torch.core.pipeline import InFilterPipeline
 from repro_torch.kernels import LAUNCHES, ref, reset_launches
 from repro_torch.core import fixed as fx
 from repro_torch.data.acoustic import make_esc10_like
+from repro_torch.core.filterbank import FilterBankConfig
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_bank_q_kernel, fir_mp_kernel,
+                                        fir_mp_oneshot_cascade,
                                         fir_mp_stream_cascade,
                                         fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
@@ -187,6 +189,63 @@ def test_bank_kernels_match_plain(dev, bank, B, N):
     _close(fir_mp_kernel(x, h, 4.0, accumulate=True),
            ref.fir_mp_accumulate(x, h, 4.0))
     assert (LAUNCHES["fir_mp_bank"], LAUNCHES["fir_mp"]) == (2, 2)
+
+
+@pytest.mark.parametrize("staged", [False, True])
+@pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000), (8, 16000)])
+def test_oneshot_cascade_kernel_matches_plain(dev, bank, B, N, staged):
+    """The whole one-shot cascade in one launch (or, staged, one per
+    low-pass stage and one for the band-pass items) equals the plain
+    per-octave composition bit for bit, with the full esc10-mp taps."""
+    x = torch.from_numpy(np.random.default_rng(N).standard_normal(
+        (B, N)).astype(np.float32)).to(dev)
+    reset_launches()
+    got = fir_mp_oneshot_cascade(x, bank.bp_by_octave, bank.lp_filters, 4.0,
+                                 staged=staged)
+    assert LAUNCHES["fir_mp_oneshot_cascade"] == (6 if staged else 1)
+    assert LAUNCHES["fir_mp_bank"] == LAUNCHES["fir_mp"] == 0
+    want = ref.fir_mp_oneshot_cascade(x, bank.bp_by_octave, bank.lp_filters,
+                                      4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M,M_lp,octaves", [(12, 5, 4), (16, 16, 2),
+                                            (3, 6, 1)])
+def test_oneshot_cascade_generic_taps_match_plain(dev, M, M_lp, octaves):
+    """Tap counts other than the configuration's 16 / 6 run the generic
+    body: the same bits."""
+    cfg = FilterBankConfig(num_octaves=octaves, filters_per_octave=4,
+                           bp_taps=M, lp_taps=M_lp)
+    fb = FilterBank(cfg, device=dev)
+    x = torch.from_numpy(np.random.default_rng(M).standard_normal(
+        (5, 777)).astype(np.float32)).to(dev)
+    got = fir_mp_oneshot_cascade(x, fb.bp_by_octave, fb.lp_filters, 4.0)
+    want = ref.fir_mp_oneshot_cascade(x, fb.bp_by_octave, fb.lp_filters, 4.0)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_oneshot_apply_runs_one_cascade_launch(dev):
+    """One float ``apply`` launches the cascade once and no one-stage
+    kernel, and equals the same ``apply`` through the one-stage entries
+    (the route before the cascade) bit for bit."""
+    pipe = make_pipeline()
+    x = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (8, 4000)).astype(np.float32)).to(dev)
+    reset_launches()
+    p, phi = pipe.apply(x, return_features=True)
+    assert (LAUNCHES["fir_mp_oneshot_cascade"], LAUNCHES["fir_mp_bank"],
+            LAUNCHES["fir_mp"]) == (1, 0, 0)
+    parts, x_o = [], x
+    for o, H in enumerate(pipe.bp_taps):
+        parts.append(fir_mp_bank_kernel(x_o, H, 4.0, accumulate=True)
+                     * (2.0 ** o))
+        if o < len(pipe.lp_taps):
+            x_o = fir_mp_kernel(x_o, pipe.lp_taps[o], 4.0)[..., ::2]
+    phi_stages = (torch.cat(parts, -1) - pipe.mu) / pipe.sigma
+    assert torch.equal(phi, phi_stages)
+    assert torch.equal(p, pipe.clf(phi_stages, exact=False))
 
 
 @pytest.mark.parametrize("quant_bits,solver", [(None, "newton"),

@@ -71,12 +71,23 @@ def test_golden_float_entries(name):
     assert torch.equal(got["acc_stream_xla"], got["acc_stream_pallas"])
 
 
-def test_oneshot_kernel_path_matches_reference_pallas():
+def test_oneshot_kernel_path_matches_reference_pallas(monkeypatch):
+    from repro_torch.kernels import ref as plain
+    cascade, calls = plain.fir_mp_oneshot_cascade, []
+
+    def spy(*args, **kw):
+        calls.append(args[0].shape)
+        return cascade(*args, **kw)
+
+    # the kernel route runs the whole bank as one cascade call (its plain
+    # version on CPU tensors)
+    monkeypatch.setattr(plain, "fir_mp_oneshot_cascade", spy)
     case = dict(CASES["esc_mp_bisect"])
     case["cfg"] = dict(case["cfg"], use_pallas=True)
     ref = _reference(case)
     x = make_audio(case)[:, :200]
     p, phi = _port(ref).apply(x, return_features=True)
+    assert calls == [(x.shape[0], 200)]
     p_r, phi_r = ref.apply(jnp.asarray(x), return_features=True)
     np.testing.assert_allclose(phi.numpy(), np.asarray(phi_r), atol=2e-5,
                                rtol=1e-6)
