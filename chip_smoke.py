@@ -37,11 +37,9 @@ nothing of the reference package). Phases, each failing loudly:
              apply's bank through them (the route before the cascade);
              then the cascade (fir_mp_oneshot_cascade: the whole bank of
              one apply in one launch) bit for bit against its plain
-             version on the clips and on odd lengths, in one launch and
-             staged (one launch per low-pass stage, then the band-pass
-             items), with its device time by the profiler, its bound
-             (each low-pass at its kept positions; at all of them
-             beside) and the staged form's device time per launch.
+             version on the clips and on odd lengths, with its device
+             time by the profiler and its bound (each low-pass at its
+             kept positions; at all of them beside).
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
              slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
              16 kHz). The stream cascade kernel must launch once per wave
@@ -65,9 +63,10 @@ nothing of the reference package). Phases, each failing loudly:
              the 6 + 5 calls of one ``apply`` (B = 8, N = 16000), each
              against its plain version (its device time per apply by the
              profiler beside). Gate: every output exactly equal,
-             int32. The cascade's row as phase 3's; its bound counts the
-             cheapest exact step (the kernel's) in the instructions the card
-             issues (three-input adds); the reference algorithm's count is
+             int32. The cascade's row as phase 3's. Both rows' bounds
+             count the cheapest exact step (the stream kernel's) in the
+             instructions the card issues (three-input adds); the
+             reference algorithm's count (the bank kernel's form) is
              printed beside.
 7. fixed serve — the serve phase's 256 sessions x 50 packets through a
              fixed pipeline: one int stream cascade launch per wave and no
@@ -1025,10 +1024,8 @@ def oneshot_ops(c, B: int, N: int, kept_only: bool = True):
 def phase_oneshot_cascade(fb, x):
     """The one-shot cascade kernel (the whole multirate bank of one apply
     in one launch) against its plain version, bit for bit: on the clips
-    (B = 8, N = 16000) and on odd lengths, in one launch and staged (one
-    launch per low-pass stage, then one for every band-pass item); its
-    times (CUDA events; device time per launch by torch.profiler), its
-    bound (low-pass at the kept positions; at every position beside), the
+    (B = 8, N = 16000) and on odd lengths; its times (CUDA events; device
+    time by torch.profiler), its bound (low-pass at the kept positions; at every position beside), the
     grid and the work items."""
     import torch
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
@@ -1045,37 +1042,30 @@ def phase_oneshot_cascade(fb, x):
     reset_launches()
     for name, xc in cases.items():
         want = ref.fir_mp_oneshot_cascade(xc, *taps)
-        for staged in (False, True):
-            got = fir_mp_oneshot_cascade(xc, *taps, staged=staged)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"fir_mp_oneshot_cascade ({name}, staged={staged}) is "
-                    f"not bit for bit its plain version: max |diff| "
-                    f"{float((got - want).abs().max())}")
+        got = fir_mp_oneshot_cascade(xc, *taps)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"fir_mp_oneshot_cascade ({name}) is not bit for bit its "
+                f"plain version: max |diff| "
+                f"{float((got - want).abs().max())}")
     launches_here = LAUNCHES["fir_mp_oneshot_cascade"]
     B, N = x.shape
-    fused = lambda: fir_mp_oneshot_cascade(x, *taps)  # noqa: E731
-    staged = lambda: fir_mp_oneshot_cascade(x, *taps,  # noqa: E731
-                                            staged=True)
-    prof, prof_st = (device_us(fused, is_oneshot_kernel),
-                     device_us(staged, is_oneshot_kernel))
+    run = lambda: fir_mp_oneshot_cascade(x, *taps)  # noqa: E731
+    prof = device_us(run, is_oneshot_kernel)
     ops, nb = oneshot_ops(c, B, N)
     b_ms, b_by = bound_ms(ops, nb)
     device_ms = prof["kernel_us"] * 1e-3
     plan = oneshot_plan(B, N, c.filters_per_octave, octaves=c.num_octaves)
     row = dict(name="fir_mp_oneshot_cascade",
                shapes=f"B={B} N={N}, {c.num_octaves} octaves",
-               max_abs_err=0.0, ms=cuda_ms(fused, 20), device_ms=device_ms,
+               max_abs_err=0.0, ms=cuda_ms(run, 20), device_ms=device_ms,
                plain_ms=cuda_ms(lambda: ref.fir_mp_oneshot_cascade(x, *taps),
                                 2),
                bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
                bound_ms_all_positions=bound_ms(
                    oneshot_ops(c, B, N, kept_only=False)[0], nb)[0],
                device_kernels_per_call=prof["kernels_per_call"],
-               staged_ms=cuda_ms(staged, 20),
-               staged_device_ms=prof_st["kernel_us"] * 1e-3,
-               staged_launch_device_us=prof_st["launch_us"],
                grid=load("fir_mp_oneshot_ctas")(0), items=plan["items"],
                launches_here=launches_here)
     log({"kernel_vs_plain": row})
@@ -1424,14 +1414,16 @@ def phase_int_bank_kernel(prog, x):
     """fir_mp_bank_q vs plain on the 6 + 5 calls of one fixed ``apply`` on
     x (B, N): per octave the band-pass in accumulate mode and the low-pass
     in output mode (both modes are checked for each), on the real cascade
-    of codes."""
+    of codes. Its bound counts the cheapest exact step in the instructions
+    the card issues (``ops_int_dot_min``); the reference algorithm's count
+    (``ops_int_dot``, the form this kernel runs) is printed beside."""
     import torch
     from repro_torch.core import fixed as fx
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
     from repro_torch.kernels.fir_mp import fir_mp_bank_q_kernel
     reset_launches()
     B, N = x.shape
-    ms, plain_ms, ops, nbytes = 0.0, 0.0, 0.0, 0.0
+    ms, plain_ms, ops, ops_ref, nbytes = 0.0, 0.0, 0.0, 0.0, 0.0
     x_o = fx.quantize_signal(prog, x)
     stages = prog.bank.octaves
     for o, st in enumerate(stages):
@@ -1456,7 +1448,9 @@ def phase_int_bank_kernel(prog, x):
                 xs, H, accumulate=main_acc, **kw), 20)
             plain_ms += cuda_ms(lambda: fn(xs, H, **kw), 2)
             Fn, M = H.shape
-            ops += B * N_o * Fn * (ops_int_dot(M, it) + (2 if main_acc else 0))
+            acc_ops = 2 if main_acc else 0
+            ops += B * N_o * Fn * (ops_int_dot_min(M, it) + acc_ops)
+            ops_ref += B * N_o * Fn * (ops_int_dot(M, it) + acc_ops)
             nbytes += 4 * (B * N_o + Fn * M
                            + (B * Fn if main_acc else B * Fn * N_o))
         if st.lp_q is not None:
@@ -1470,10 +1464,14 @@ def phase_int_bank_kernel(prog, x):
     xq = fx.quantize_signal(prog, x)
     prof = device_us(lambda: fx.infer_q(prog, xq, use_pallas=True),
                      is_bank_q_kernel)
+    device_ms = prof["kernel_us"] * 1e-3
     row = dict(name="fir_mp_bank_q", shapes=f"B={B} N={N}..{N_o}",
-               max_abs_err=0.0, ms=ms, device_ms=prof["kernel_us"] * 1e-3,
+               max_abs_err=0.0, ms=ms, device_ms=device_ms,
                launch_device_us=prof["launch_us"], plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, launches_here=launches_here)
+               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms_reference_algorithm=bound_ms(ops_ref, nbytes,
+                                                     INT32_OPS_PER_S)[0],
+               launches_here=launches_here)
     log({"kernel_vs_plain": row})
     return row
 

@@ -38,7 +38,7 @@ SIGNATURES = {
     "fir_mp_stream": ("fir_mp_stream_launch",
                       [_P] * 9 + [_I] * 8 + [_F] + [_I] * 5 + [_P]),
     "fir_mp_bank": ("fir_mp_oneshot_launch",
-                    [_P, _P] + [_P, _I] * 3 + [_I] * 5 + [_F, _I, _P]),
+                    [_P, _P] + [_P, _I] * 2 + [_I] * 5 + [_F, _I, _P]),
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
                         [_P] * 9 + [_I] * 13 + [_P]),
     "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),

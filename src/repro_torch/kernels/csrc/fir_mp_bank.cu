@@ -42,8 +42,7 @@
 //     needed. The plan puts each low-pass stage where the CTAs that ran
 //     the stage before it take their next items, band-pass items between,
 //     so the low-pass chain runs beside the band-pass work without CTAs
-//     waiting on it. The staged form runs the keep stages as launches of
-//     their own, then every band item, where no item waits;
+//     waiting on it;
 //   * u and v are formed once per window, not once per bisection step;
 //     the configuration's windows (16 band-pass taps, 6 low-pass) unroll
 //     at their exact width with no dead lane (a generic body takes
@@ -56,6 +55,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stddef.h>
 #include <stdint.h>
 
 namespace {
@@ -65,7 +65,6 @@ constexpr int kP = 16;              // operand lanes of the generic body
 constexpr int kPad = kP;            // shared words in front of a window
 constexpr int kMaxOctaves = 8;
 constexpr int kMaxSegments = 32;
-constexpr int kMaxLaunches = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
 enum { kKeep, kBand, kOut };        // item kinds (fir_mp.ONESHOT_KINDS)
@@ -97,13 +96,21 @@ struct Table {
   int num_segments;
 };
 
+// `reserved` is never read. It keeps every field at the offset the kernel
+// is tested and timed with: each int pair 8-byte aligned, no tail
+// padding. Without it nvcc built a generic instantiation that faulted
+// (illegal address on every call) and a slower 16 / 6 one (PERF.md §6).
 struct Args {
   float* out;              // (B, P) band sums
-  unsigned* head;          // this launch's queue counter
-  int first, items;        // this launch's queue items
+  unsigned* head;          // the queue counter
+  int reserved;
+  int items;               // queue items
   int F, P, M, M_fir, iters;
   float gamma;
 };
+static_assert(offsetof(Args, F) % 8 == 0 &&
+                  sizeof(Args) == offsetof(Args, gamma) + sizeof(float),
+              "Args: keep the tested layout (see above)");
 
 __device__ __forceinline__ unsigned ld_acquire(const unsigned* p) {
   unsigned v;
@@ -266,12 +273,11 @@ fir_mp_oneshot_kernel(const __grid_constant__ Table tab, const Args a) {
   __shared__ float xt[kPad + 2 * kTile + kP];
   __shared__ float wsum[kTile / 32];
   __shared__ int item, last;
-  const int end = a.first + a.items;
   for (;;) {
-    if (threadIdx.x == 0) item = a.first + (int)atomicAdd(a.head, 1u);
+    if (threadIdx.x == 0) item = (int)atomicAdd(a.head, 1u);
     __syncthreads();
     const int q = item;
-    if (q >= end) return;
+    if (q >= a.items) return;
     int s = 0;
     while (s + 1 < tab.num_segments && tab.seg[s + 1].start <= q) ++s;
     const Segment& sg = tab.seg[s];
@@ -309,48 +315,36 @@ int resident_ctas() {
 }
 
 template <int MW, int MB>
-int run(const Table& t, Args a, const int32_t* launches, int num_launches,
-        unsigned* heads, cudaStream_t stream) {
+int run(const Table& t, const Args& a, cudaStream_t stream) {
   const int ctas = resident_ctas<MW, MB>();
   if (ctas < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-  for (int l = 0; l < num_launches; ++l) {
-    a.first = launches[2 * l];
-    a.items = launches[2 * l + 1];
-    a.head = heads + l;
-    const int grid = a.items < ctas ? a.items : ctas;
-    fir_mp_oneshot_kernel<MW, MB><<<grid, kTile, 0, stream>>>(t, a);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  return 0;
+  const int grid = a.items < ctas ? a.items : ctas;
+  fir_mp_oneshot_kernel<MW, MB><<<grid, kTile, 0, stream>>>(t, a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int ceil_div(int a, int b) { return (a + b - 1) / b; }
 
 }  // namespace
 
-// Runs a plan's queue. `octs` (num_octaves x kOctFields int64), `segs`
-// (num_segments x 5 int32: kind, octave, start, count, offset, in queue
-// order; each kind of each octave covered once, in order) and
-// `launches` (num_launches x 2 int32: first item, items) are host memory,
-// copied into the launches' parameters. out (B, P) f32 takes the band
-// sums; `counters` (uint32, zeroed) holds one queue head per launch first,
-// then the table's ready and done counters. Returns 0, a cudaError_t
-// code, or -1 for a table this kernel does not take (1 <= M, M_fir <= 16;
-// items sized as the plan sizes them; segments and launches covering the
+// Runs a plan's queue in one launch. `octs` (num_octaves x kOctFields
+// int64) and `segs` (num_segments x 5 int32: kind, octave, start, count,
+// offset, in queue order; each kind of each octave covered once, in
+// order) are host memory, copied into the launch's parameters. out (B, P)
+// f32 takes the band sums; `counters` (uint32, zeroed) holds the queue
+// head first, then the table's ready and done counters. Returns 0, a
+// cudaError_t code, or -1 for a table this kernel does not take (1 <= M,
+// M_fir <= 16; items sized as the plan sizes them; segments covering the
 // queue in order; every item after the keep items it waits for, so that
-// no launch can hang).
+// the launch cannot hang).
 extern "C" int fir_mp_oneshot_launch(void* out, void* counters,
                                      const int64_t* octs, int num_octaves,
                                      const int32_t* segs, int num_segments,
-                                     const int32_t* launches,
-                                     int num_launches, int B, int F, int P,
-                                     int M, int M_fir, float gamma,
-                                     int iters, void* stream) {
+                                     int B, int F, int P, int M, int M_fir,
+                                     float gamma, int iters, void* stream) {
   if (B < 1 || F < 1 || M < 1 || M > kP || M_fir < 1 || M_fir > kP ||
       iters < 0 || num_octaves < 1 || num_octaves > kMaxOctaves ||
-      num_segments < 1 || num_segments > kMaxSegments || num_launches < 1 ||
-      num_launches > kMaxLaunches || !counters)
+      num_segments < 1 || num_segments > kMaxSegments || !counters)
     return -1;
   Table t = {};
   t.num_segments = num_segments;
@@ -426,25 +420,20 @@ extern "C" int fir_mp_oneshot_launch(void* out, void* counters,
   for (int k = 0; k < 3; ++k)
     for (int o = 0; o < num_octaves; ++o)
       if (covered[k][o] != total[k][o]) return -1;
-  int launched = 0;
-  for (int l = 0; l < num_launches; ++l) {
-    if (launches[2 * l] != launched || launches[2 * l + 1] < 1) return -1;
-    launched += launches[2 * l + 1];
-  }
-  if (launched != next) return -1;
   Args a = {};
   a.out = static_cast<float*>(out);
+  a.head = static_cast<unsigned*>(counters);
+  a.items = next;
   a.F = F;
   a.P = P;
   a.M = M;
   a.M_fir = M_fir;
   a.iters = iters;
   a.gamma = gamma;
-  unsigned* heads = static_cast<unsigned*>(counters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if ((!has_band || M == 16) && (!has_fir || M_fir == 6))
-    return run<6, 16>(t, a, launches, num_launches, heads, st);
-  return run<0, 0>(t, a, launches, num_launches, heads, st);
+    return run<6, 16>(t, a, st);
+  return run<0, 0>(t, a, st);
 }
 
 // CTAs the card holds at once for the configuration's instantiation (16

@@ -32,8 +32,8 @@ shared bytes, scratch) and a table of per-octave rows packed here
 (:func:`stream_octave_rows`, :func:`stream_q_octave_rows`); the integer
 one also reads the compiled stage constants from a device table
 (:func:`pack_stages`), packed once per program. The one-shot bank kernel
-takes a work plan (:func:`oneshot_plan`: items, launches, scratch and
-counter layout) and a table of per-octave rows (:func:`oneshot_octave_rows`).
+takes a work plan (:func:`oneshot_plan`: items, scratch and counter
+layout) and a table of per-octave rows (:func:`oneshot_octave_rows`).
 
 Each launch is counted in ``kernels._wrap.LAUNCHES``.
 """
@@ -432,7 +432,7 @@ def _frozen(a) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
-                 output: bool = False, staged: bool = False, ctas: int = 0):
+                 output: bool = False, ctas: int = 0):
     """The work plan of the one-shot bank kernel on x (B, N) with F
     band-pass filters per octave over ``octaves`` octaves, or, under
     ``output``, one octave's F outputs at every position (the one-stage
@@ -448,16 +448,14 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
     queue order: keep stage o, then band-pass items to fill the CTAs that
     the stage before it frees (``ctas``, the grid, for the first stage;
     band items of octaves <= o, octave 0 first), then keep stage o + 1,
-    and so on; then every band item left. ``ctas`` is a scheduling hint
-    only (0: no band items before the second keep stage). ``launches``
-    (int32 rows: first item, items): one for the whole queue or, under
-    ``staged``, one per keep stage and one for every band item (no
-    filling then). Scratch
-    (f32 words): x_o (B, N_o) at ``sig_off[o]`` for o >= 1, then octave
-    o's partials (B, F, tiles) at ``part_off[o]``. Counters (uint32 words,
-    zeroed per call): one queue head per launch, then per octave o >= 1 a
-    ready counter per row at ``ready_off[o]``, then a done counter per
-    (row, filter) at ``done_off[o]``. Shapes outside the kernel raise
+    and so on; then every band item left. One launch runs the whole
+    queue. ``ctas`` is a scheduling hint only (0: no band items before
+    the second keep stage). Scratch (f32 words): x_o (B, N_o) at
+    ``sig_off[o]`` for o >= 1, then octave o's partials (B, F, tiles) at
+    ``part_off[o]``. Counters (uint32 words, zeroed per call): the queue
+    head, then per octave o >= 1 a ready counter per row at
+    ``ready_off[o]``, then a done counter per (row, filter) at
+    ``done_off[o]``. Shapes outside the kernel raise
     ValueError, as the kernel refuses them."""
     for name, val, hi in (("B", B, None), ("N", N, None), ("F", F, None),
                           ("octaves", octaves, ONESHOT_MAX_OCTAVES)):
@@ -500,24 +498,17 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
         freed = ctas
         for o, k in enumerate(keep):
             queue("keep", o, B * k)
-            if not staged:
-                fill(freed - B * k, o)
+            fill(freed - B * k, o)
             freed = B * k
         fill(sum(band_left), octaves - 1)
     items = segments[-1][2] + segments[-1][3]
     if items >= 2 ** 31:
         raise ValueError(f"one-shot bank kernel: {items} work items exceed "
                          "int32")
-    if staged and keep:
-        band0 = segments[len(keep)][2]
-        launches = [(s[2], s[3]) for s in segments[:len(keep)]]
-        launches.append((band0, items - band0))
-    else:
-        launches = [(0, items)]
     sig_off, part_off, words = [0] * octaves, [0] * octaves, 0
     for o in range(1, octaves):
         sig_off[o], words = words, words + B * lens[o]
-    ready_off, done_off, ctr = [0] * octaves, [0] * octaves, len(launches)
+    ready_off, done_off, ctr = [0] * octaves, [0] * octaves, 1
     for o in range(1, octaves):
         ready_off[o], ctr = ctr, ctr + B
     if not output:
@@ -526,8 +517,7 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
             done_off[o], ctr = ctr, ctr + B * F
     return types.MappingProxyType(dict(
         F=F, output=output, lens=tuple(lens), tiles=tiles, keep_tiles=keep,
-        segments=_frozen(segments).reshape(-1, 5),
-        launches=_frozen(launches).reshape(-1, 2), items=items,
+        segments=_frozen(segments).reshape(-1, 5), items=items,
         sig_off=tuple(sig_off), part_off=tuple(part_off), scratch=words,
         ready_off=tuple(ready_off), done_off=tuple(done_off), counters=ctr))
 
@@ -578,19 +568,18 @@ def oneshot_octave_rows(plan, x, bp_taps, fir_taps, scratch, counters,
 
 def _oneshot_launch(plan, x, bps, firs, *, sums, y, M, M_fir, gamma, iters):
     """Allocate the plan's scratch and zeroed counters, pack its table and
-    run its launches; the band sums land in ``sums`` (B, P), the output
+    launch its queue; the band sums land in ``sums`` (B, P), the output
     mode's values in ``y``. Returns the C code."""
     from repro_torch.kernels._build import load
     dev = x.device
     scratch = torch.empty(plan["scratch"], dtype=torch.float32, device=dev)
     counters = torch.zeros(plan["counters"], dtype=torch.int32, device=dev)
     rows = oneshot_octave_rows(plan, x, bps, firs, scratch, counters, y)
-    segs, launches = plan["segments"], plan["launches"]
-    F = plan["F"]
+    segs, F = plan["segments"], plan["F"]
     return load("fir_mp_bank")(
         None if sums is None else sums.data_ptr(), counters.data_ptr(),
         rows.ctypes.data, rows.shape[0], segs.ctypes.data, segs.shape[0],
-        launches.ctypes.data, launches.shape[0], x.shape[0], F,
+        x.shape[0], F,
         F if sums is None else sums.shape[1], M, M_fir, float(gamma),
         int(iters), _stream())
 
@@ -622,8 +611,7 @@ def _oneshot_shapes(x, bps, lps) -> tuple:
 
 
 def fir_mp_oneshot_cascade(x, bp_taps, lp_taps, gamma, *,
-                           iters: int = ref.DEFAULT_ITERS,
-                           staged: bool = False):
+                           iters: int = ref.DEFAULT_ITERS):
     """The float one-shot bank's whole multirate cascade: one launch on
     the card, the plain composition (``ref.fir_mp_oneshot_cascade``) on
     the CPU.
@@ -632,17 +620,14 @@ def fir_mp_oneshot_cascade(x, bp_taps, lp_taps, gamma, *,
     octave, ``lp_taps[o]`` (M_lp,) for every octave but the last. Returns
     s (B, O F): octave o's HWR sums over its N_o positions times 2^o in
     columns o F .. o F + F - 1, bit for bit the plain version. Octave o's
-    low-pass is solved at its kept positions only. Under ``staged`` the
-    same work items run as one launch per low-pass stage and one for
-    every band-pass item (a measurement of the other schedule; the same
-    bits)."""
+    low-pass is solved at its kept positions only."""
     O = len(bp_taps)
     bps, lps = tuple(bp_taps), tuple(lp_taps[:max(O - 1, 0)])
     F, M, M_lp = _oneshot_shapes(x, bps, lps)
     if not _on_cuda(x, *bps, *lps):
         return ref.fir_mp_oneshot_cascade(x, bps, lps, gamma, iters)
     B, N = x.shape
-    plan = oneshot_plan(B, N, F, octaves=O, staged=staged,
+    plan = oneshot_plan(B, N, F, octaves=O,
                         ctas=oneshot_ctas(x.device.index))
     x = _f32(x, "x")
     bps = [_f32(h, f"bp_taps[{o}]") for o, h in enumerate(bps)]
@@ -653,7 +638,7 @@ def fir_mp_oneshot_cascade(x, bp_taps, lp_taps, gamma, *,
     if code:
         _check(code, "fir_mp_oneshot_cascade", f"B={B} N={N} octaves={O} "
                                                f"F={F} M={M} M_lp={M_lp}")
-    LAUNCHES["fir_mp_oneshot_cascade"] += len(plan["launches"])
+    LAUNCHES["fir_mp_oneshot_cascade"] += 1
     return sums
 
 

@@ -191,18 +191,15 @@ def test_bank_kernels_match_plain(dev, bank, B, N):
     assert (LAUNCHES["fir_mp_bank"], LAUNCHES["fir_mp"]) == (2, 2)
 
 
-@pytest.mark.parametrize("staged", [False, True])
 @pytest.mark.parametrize("B,N", [(1, 5), (3, 300), (8, 4000), (8, 16000)])
-def test_oneshot_cascade_kernel_matches_plain(dev, bank, B, N, staged):
-    """The whole one-shot cascade in one launch (or, staged, one per
-    low-pass stage and one for the band-pass items) equals the plain
+def test_oneshot_cascade_kernel_matches_plain(dev, bank, B, N):
+    """The whole one-shot cascade in one launch equals the plain
     per-octave composition bit for bit, with the full esc10-mp taps."""
     x = torch.from_numpy(np.random.default_rng(N).standard_normal(
         (B, N)).astype(np.float32)).to(dev)
     reset_launches()
-    got = fir_mp_oneshot_cascade(x, bank.bp_by_octave, bank.lp_filters, 4.0,
-                                 staged=staged)
-    assert LAUNCHES["fir_mp_oneshot_cascade"] == (6 if staged else 1)
+    got = fir_mp_oneshot_cascade(x, bank.bp_by_octave, bank.lp_filters, 4.0)
+    assert LAUNCHES["fir_mp_oneshot_cascade"] == 1
     assert LAUNCHES["fir_mp_bank"] == LAUNCHES["fir_mp"] == 0
     want = ref.fir_mp_oneshot_cascade(x, bank.bp_by_octave, bank.lp_filters,
                                       4.0)

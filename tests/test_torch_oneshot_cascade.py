@@ -143,7 +143,8 @@ def test_oneshot_plan_sizes_the_clips():
     """B = 8 clips of 16000 samples, 5 filters, 6 octaves on a grid of 528
     CTAs: 496 kept low-pass items and 5000 band-pass items in one launch;
     each low-pass stage sits where the CTAs of the stage before it take
-    their next items, band-pass items of octave 0 between."""
+    their next items, band-pass items of octave 0 between. One launch runs
+    the whole queue."""
     plan = oneshot_plan(8, 16000, 5, octaves=6, ctas=528)
     assert plan["lens"] == (16000, 8000, 4000, 2000, 1000, 500)
     assert plan["tiles"] == (63, 32, 16, 8, 4, 2)
@@ -161,7 +162,6 @@ def test_oneshot_plan_sizes_the_clips():
     starts = np.cumsum([0] + [s[3] for s in segs])
     assert [s[2] for s in segs] == starts[:-1].tolist()
     assert plan["items"] == 5496
-    assert plan["launches"].tolist() == [[0, 5496]]
     # scratch: x_1..x_5 (8 rows each), then the partials
     assert plan["sig_off"] == (0, 0, 64000, 96000, 112000, 120000)
     assert plan["part_off"][0] == 124000
@@ -203,15 +203,7 @@ def test_oneshot_plan_queue_covers_every_item_after_its_input(B, N, F,
     assert plan["items"] == sum(want.values()) == segs[-1][2] + segs[-1][3]
 
 
-def test_oneshot_plan_staged_and_one_stage_forms():
-    staged = oneshot_plan(8, 16000, 5, octaves=6, staged=True, ctas=528)
-    # one launch per low-pass stage, then every band-pass item in octave
-    # order (no filling between the stages)
-    assert staged["launches"].tolist() == [[0, 256], [256, 128], [384, 64],
-                                           [448, 32], [480, 16], [496, 5000]]
-    assert [s[:2] for s in staged["segments"].tolist()] == (
-        [[KEEP, o] for o in range(5)] + [[BAND, o] for o in range(6)])
-    assert staged["counters"] == 6 + 5 * 8 + 6 * 40
+def test_oneshot_plan_one_stage_forms():
     # one octave: the one-stage accumulate mode, band items only
     band = oneshot_plan(3, 300, 5)
     assert band["segments"].tolist() == [[BAND, 0, 0, 3 * 5 * 2, 0]]
