@@ -11,9 +11,12 @@ nothing of the reference package). Phases, each failing loudly:
 2. build   — compiles every CUDA source (one nvcc each, in parallel);
              prints ptxas's registers and spills per kernel, the SASS
              census of the stream kernels' band-pass solve step (FP32 or
-             INT and all instructions per operand lane per iteration) and
-             of the one-shot bank kernel's bisection steps (one loop per
-             window width).
+             INT and all instructions per operand lane per iteration), of
+             the one-shot bank kernel's bisection steps (one loop per
+             window width) and of the int one-shot cascade's steps (one
+             loop per window width, both branches of a dot in it: its
+             instructions per branch step against the count of
+             ``ops_int_dot_min``, 31 at 16 lanes and 16 at 6).
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: max abs diff, kernel ms (CUDA events,
              warmed up, many launches), plain ms, and the launches this
@@ -59,24 +62,35 @@ nothing of the reference package). Phases, each failing loudly:
              its program calibrated on the seeded clips: the int stream
              kernel's one-octave entry on the 6 octaves of one wave (S =
              256, L = 256, mixed valid counts) and its cascade on the cases
-             of phase 3 (the clips' ADC codes), and the int bank kernel on
-             the 6 + 5 calls of one ``apply`` (B = 8, N = 16000), each
-             against its plain version (its device time per apply by the
-             profiler beside). Gate: every output exactly equal,
-             int32. The cascade's row as phase 3's. Both rows' bounds
-             count the cheapest exact step (the stream kernel's) in the
-             instructions the card issues (three-input adds); the
-             reference algorithm's count (the bank kernel's form) is
-             printed beside.
+             of phase 3 (the clips' ADC codes); the int one-shot kernel's
+             one-stage entry (fir_mp_bank_q) in both modes at the 6 + 5
+             stage shapes of one ``apply`` (B = 8, N = 16000), with the
+             device time per launch of one apply's bank through it (the
+             route before the cascade); then the int one-shot cascade
+             (fir_mp_oneshot_cascade_q: the whole bank of one fixed apply
+             in one launch) on the clips' ADC codes and on odd lengths
+             (B = 1 and N < 256 among them), with its device time by the
+             profiler, grid and items. Gate: every output exactly equal
+             (int32, torch.equal). The stream cascade's row as phase 3's.
+             The bounds count the cheapest exact step (the stream
+             kernel's) in the instructions the card issues (three-input
+             adds), the one-shot cascade's low-pass at its kept positions;
+             the count at every position and the reference algorithm's
+             are printed beside.
 7. fixed serve — the serve phase's 256 sessions x 50 packets through a
              fixed pipeline: one int stream cascade launch per wave and no
              one-octave launch; the final codes
              and accumulators exactly those of the torch-op integer cascade
              (stream_impl="xla") on the same feeds, and of one-shot
-             ``infer_q`` on the 8000 samples each stream was fed.
-8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int bank kernel
-             (11 launches) against the torch-op path: p and phi codes
-             exactly equal.
+             ``infer_q`` on the 8000 samples each stream was fed (one int
+             one-shot cascade launch).
+8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int one-shot
+             cascade (one launch, no one-stage launch) against the torch-op
+             path: p and phi codes exactly equal; then where its time goes,
+             as phase 5's: the bank (quantize + cascade) against the
+             readout (standardize_q + classifier_q) by CUDA events, the
+             bank's device time and records, and under the profiler the
+             apply's and the readout's device kernels, busy us and share.
 9. MP kernels — ``mp_linear`` against its plain version at every distinct
              projection shape of qwen3-8b decode at B = 2, on the dtypes
              ``decode_step`` gives it (bf16 layer weights read as they
@@ -89,7 +103,8 @@ nothing of the reference package). Phases, each failing loudly:
              (each held to the same gate, its time and waves printed), and
              ``mp_waterfill`` through ``ops.mp_waterfill`` at the bank's
              per-position MP solves of one served wave (256 x 30 x 160
-             rows of 32) and at 8 x 257. Gate: every output within
+             rows of 32) and at 8 x 257, with the layout it takes there
+             (lanes per row, elements per lane). Gate: every output within
              1e-5 * (1 + max |plain|). Kernel ms per decode step (CUDA
              events), plain ms, bound.
 10. decode — qwen3-8b at full width and depth (36 layers, d_model 4096,
@@ -112,8 +127,9 @@ nothing of the reference package). Phases, each failing loudly:
 
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
-one-stage bank entries, mp_waterfill) reports the launches of its own
-phase; ``main_path_launches`` beside says the main path made none.
+one-stage bank entries, float and int, and mp_waterfill) reports the
+launches of its own phase; ``main_path_launches`` beside says the main
+path made none.
 """
 
 from __future__ import annotations
@@ -314,15 +330,16 @@ def ptxas_report(text: str) -> dict:
 
 def short_entry(name: str) -> str:
     """A readable name for a kernel instantiation's mangled symbol, e.g.
-    mp_linear<bf16,BB=2,TO=8,res> or fir_mp_stream<16,6>; others are
+    mp_linear<bf16,BB=2,TO=8,res>, fir_mp_stream<16,6> or
+    mp_waterfill_rows<32,1> (elements per lane, lanes per row); others are
     shortened."""
     m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)E", name)
     if m:
         wt = "bf16" if m.group(1) == "t" else "f32"
         res = "res" if m.group(4) == "1" else "global"
         return f"mp_linear<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
-    m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot)_kernelILi(\d+)"
-                  r"ELi(\d+)E", name)
+    m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot(?:_q)?|"
+                  r"mp_waterfill_rows)_kernelILi(\d+)ELi(\d+)E", name)
     if m:
         return f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
     return name.replace("_ZN12_GLOBAL__N_1", "")[:48]
@@ -344,6 +361,9 @@ def phase_build():
     for entry, census in sass_census(_build.lib_path("fir_mp_bank"),
                                      bisect_census).items():
         log({"sass_bisect_step": entry, **census})
+    for entry, census in sass_census(_build.lib_path("fir_mp_bank_q"),
+                                     int_dot_census).items():
+        log({"sass_int_dot_step": entry, **census})
     return secs
 
 
@@ -449,6 +469,26 @@ def bisect_census(lines: list) -> dict:
     return {"steps": steps}
 
 
+def int_dot_census(lines: list) -> dict:
+    """The bisection steps of the int one-shot kernel's SASS: each
+    innermost loop that holds a VIMNMX (one per window width; both
+    branches of a dot step in it, one max per operand lane and branch, so
+    lanes = VIMNMX / 2), its instructions, their half (one branch's step)
+    and the step that ``ops_int_dot_min`` counts at those lanes (M +
+    ceil(M / 2) + 7), and its opcodes."""
+    steps = []
+    for body in inner_loops(lines):
+        if "VIMNMX" not in body:
+            continue
+        lanes = body.count("VIMNMX") // 2
+        steps.append(dict(lanes=lanes, instructions=len(body),
+                          per_branch_step=len(body) / 2,
+                          counted_step=lanes + -(-lanes // 2) + 7,
+                          opcodes={o: body.count(o)
+                                   for o in sorted(set(body))}))
+    return {"steps": steps}
+
+
 def is_stream_kernel(name: str, numerics: str) -> bool:
     """Whether a profiled kernel name is the float or the int stream
     kernel (every kernel built from csrc/fir_mp_stream*.cu)."""
@@ -464,7 +504,9 @@ def is_oneshot_kernel(name: str) -> bool:
 
 
 def is_bank_q_kernel(name: str) -> bool:
-    return "fir_mp_bank_q" in name
+    """Whether a profiled kernel is the int one-shot kernel (the cascade
+    and its one-stage entry; before the cascade, fir_mp_bank_q_kernel)."""
+    return "fir_mp_oneshot_q" in name or "fir_mp_bank_q" in name
 
 
 def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
@@ -1373,13 +1415,14 @@ def phase_int_stream_kernel(prog, gen, clips):
     plan = stream_plan(*plan_args, octaves=O, integer=True)
     # the wrapper's host work, part by part, on the served wave
     chunk, n, delays, consumed, acc, amax = served
-    table, Fs_t, _, _, cols = fm._program_table(prog, T1, chunk.device)
+    table, Fs_t, _, _, cols = fm._program_table(prog.bank, T1, chunk.device)
     _, ins = fm._cascade_q_inputs(chunk, n, delays, consumed, acc, amax,
                                   Fs_t, M, M_lp)
     outs = fm._cascade_outputs(plan, acc, amax, O, T1=T1)
     rows = fm.stream_q_octave_rows(ins[2], outs[0], ins[3], outs[1], cols)
     host = host_split(run, {
-        "program_table": lambda: fm._program_table(prog, T1, chunk.device),
+        "program_table": lambda: fm._program_table(prog.bank, T1,
+                                                   chunk.device),
         "inputs": lambda: fm._cascade_q_inputs(chunk, n, delays, consumed,
                                                acc, amax, Fs_t, M, M_lp),
         "outputs": lambda: fm._cascade_outputs(plan, acc, amax, O, T1=T1),
@@ -1411,12 +1454,14 @@ def phase_int_stream_kernel(prog, gen, clips):
 
 
 def phase_int_bank_kernel(prog, x):
-    """fir_mp_bank_q vs plain on the 6 + 5 calls of one fixed ``apply`` on
-    x (B, N): per octave the band-pass in accumulate mode and the low-pass
-    in output mode (both modes are checked for each), on the real cascade
-    of codes. Its bound counts the cheapest exact step in the instructions
-    the card issues (``ops_int_dot_min``); the reference algorithm's count
-    (``ops_int_dot``, the form this kernel runs) is printed beside."""
+    """The int one-shot kernel's one-stage entry (fir_mp_bank_q) vs plain
+    at the 6 + 5 stage shapes of one fixed ``apply`` on x (B, N): per
+    octave the band-pass and the low-pass, each in both modes, on the real
+    cascade of codes; its times over the calls the route before the
+    cascade made (band-pass in accumulate mode, low-pass in output mode)
+    and that route's device time per launch. Its bound counts the cheapest
+    exact step in the instructions the card issues (``ops_int_dot_min``),
+    the reference algorithm's count (``ops_int_dot``) beside."""
     import torch
     from repro_torch.core import fixed as fx
     from repro_torch.kernels import LAUNCHES, ref, reset_launches
@@ -1462,15 +1507,126 @@ def phase_int_bank_kernel(prog, x):
     b_ms, b_by = bound_ms(ops, nbytes, INT32_OPS_PER_S)
     launches_here = LAUNCHES["fir_mp_bank_q"]
     xq = fx.quantize_signal(prog, x)
-    prof = device_us(lambda: fx.infer_q(prog, xq, use_pallas=True),
-                     is_bank_q_kernel)
-    device_ms = prof["kernel_us"] * 1e-3
+    chain = device_us(lambda: int_one_stage_chain(prog.bank, xq),
+                      is_bank_q_kernel)
+    device_ms = chain["kernel_us"] * 1e-3
     row = dict(name="fir_mp_bank_q", shapes=f"B={B} N={N}..{N_o}",
                max_abs_err=0.0, ms=ms, device_ms=device_ms,
-               launch_device_us=prof["launch_us"], plain_ms=plain_ms,
+               launch_device_us=chain["launch_us"], plain_ms=plain_ms,
                bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
                bound_ms_reference_algorithm=bound_ms(ops_ref, nbytes,
                                                      INT32_OPS_PER_S)[0],
+               launches_here=launches_here)
+    log({"kernel_vs_plain": row})
+    return row
+
+
+def int_one_stage_chain(bank, xq):
+    """One fixed apply's bank through the one-stage entry, as the main
+    path ran it before the cascade kernel: per octave the band-pass sums
+    (<< acc_shift) and the low-pass at every position, requantized, its
+    even positions kept."""
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels.fir_mp import fir_mp_bank_q_kernel
+    parts, x_o = [], xq
+    for o, st in enumerate(bank.octaves):
+        s = fir_mp_bank_q_kernel(
+            fx.rescale(x_o, st.sig_shift).contiguous(), st.bp_q,
+            gamma_q=st.gamma_bp, iters=st.iters_bp, qmin=st.band_spec.qmin,
+            qmax=st.band_spec.qmax, accumulate=True)
+        parts.append(fx.shift_left(s, st.acc_shift))
+        if st.lp_q is not None:
+            y = fir_mp_bank_q_kernel(
+                fx.rescale(x_o, st.lp_sig_shift).contiguous(), st.lp_q,
+                gamma_q=st.gamma_lp, iters=st.iters_lp,
+                qmin=st.lp_spec.qmin, qmax=st.lp_spec.qmax)[:, 0]
+            x_o = fx._clamp(fx.rescale(y, st.lp_out_shift),
+                            bank.octaves[o + 1].in_spec)[:, ::2].contiguous()
+    return torch.cat(parts, dim=-1)
+
+
+def oneshot_q_ops(bank, B: int, N: int, *, kept_only: bool = True,
+                  step=None):
+    """(int32 instructions, bytes) the int one-shot cascade needs on x (B,
+    N): every band-pass (position, filter) of every octave, a solve
+    (``step``, ``ops_int_dot_min`` by default) and its HWR add (2), and
+    each low-pass at its kept positions (at all of them unless
+    ``kept_only``: the reference's count); x read once, the tap codes,
+    the sums (B, P) written once."""
+    step = step or ops_int_dot_min
+    ops, N_o, taps = 0, N, 0
+    for st in bank.octaves:
+        Fn, M = st.bp_q.shape
+        ops += B * N_o * Fn * (step(M, st.iters_bp) + 2)
+        taps += Fn * M
+        if st.lp_q is not None:
+            kept = (N_o + 1) // 2
+            M_lp = st.lp_q.shape[-1]
+            ops += (B * (kept if kept_only else N_o)
+                    * step(M_lp, st.iters_lp))
+            taps += M_lp
+            N_o = kept
+    P = sum(st.bp_q.shape[0] for st in bank.octaves)
+    return ops, 4 * (B * N + taps + B * P)
+
+
+def phase_oneshot_cascade_q(prog, x):
+    """The int one-shot cascade kernel (the whole bank of one fixed apply
+    in one launch) against its plain version, exactly (torch.equal): on
+    the clips' ADC codes (B = 8, N = 16000) and on odd lengths (one row
+    shorter than a tile among them); its times (CUDA events; device time
+    and records by torch.profiler), its bound (low-pass at the kept
+    positions; at every position and in the reference's step form
+    beside), the grid and the work items."""
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels._build import load
+    from repro_torch.kernels.fir_mp import (fir_mp_oneshot_cascade_q,
+                                            oneshot_plan)
+    bank = prog.bank
+    sig = bank.signal
+    g = torch.Generator().manual_seed(3)
+    cases = {"clips": fx.quantize_signal(prog, x)}
+    for shape in ((1, 5), (1, 201), (3, 301), (5, 1027)):
+        cases[f"random {shape}"] = torch.randint(
+            sig.qmin, sig.qmax + 1, shape, generator=g,
+            dtype=torch.int32).to(x.device)
+    reset_launches()
+    for name, xc in cases.items():
+        exact(fir_mp_oneshot_cascade_q(bank, xc),
+              ref.fir_mp_oneshot_cascade_q(bank, xc),
+              f"fir_mp_oneshot_cascade_q ({name}) vs its plain version")
+    launches_here = LAUNCHES["fir_mp_oneshot_cascade_q"]
+    if launches_here != len(cases) or LAUNCHES["fir_mp_bank_q"] != 0:
+        raise AssertionError(f"int cascade launches {dict(LAUNCHES)}: want "
+                             f"{len(cases)} cascades, no one-stage launch")
+    xq = cases["clips"]
+    B, N = xq.shape
+    run = lambda: fir_mp_oneshot_cascade_q(bank, xq)  # noqa: E731
+    prof = device_us(run, is_bank_q_kernel)
+    ops, nb = oneshot_q_ops(bank, B, N)
+    b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
+    device_ms = prof["kernel_us"] * 1e-3
+    O = len(bank.octaves)
+    F = bank.octaves[0].bp_q.shape[0]
+    plan = oneshot_plan(B, N, F, octaves=O, integer=True)
+    row = dict(name="fir_mp_oneshot_cascade_q",
+               shapes=f"B={B} N={N}, {O} octaves",
+               max_abs_err=0.0, ms=cuda_ms(run, 20), device_ms=device_ms,
+               device_records_per_call=prof["kernels_per_call"],
+               plain_ms=cuda_ms(
+                   lambda: ref.fir_mp_oneshot_cascade_q(bank, xq), 2),
+               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms_all_positions=bound_ms(
+                   oneshot_q_ops(bank, B, N, kept_only=False)[0], nb,
+                   INT32_OPS_PER_S)[0],
+               bound_ms_reference_algorithm=bound_ms(
+                   oneshot_q_ops(bank, B, N, kept_only=False,
+                                 step=ops_int_dot)[0], nb,
+                   INT32_OPS_PER_S)[0],
+               grid=load("fir_mp_oneshot_q_ctas")(0), items=plan["items"],
                launches_here=launches_here)
     log({"kernel_vs_plain": row})
     return row
@@ -1510,8 +1666,13 @@ def phase_fixed_serve(audio, cal):
           "served accumulators vs the torch-op integer cascade")
     S = audio.shape[0]
     x = torch.from_numpy(audio[:, :50 * 160].copy()).cuda()
+    reset_launches()
     p_one, _, s_one = fx.infer_q(prog, fx.quantize_signal(prog, x),
                                  use_pallas=True)
+    if (LAUNCHES["fir_mp_oneshot_cascade_q"], LAUNCHES["fir_mp_bank_q"]) \
+            != (1, 0):
+        raise AssertionError(f"infer_q(use_pallas=True) launches "
+                             f"{dict(LAUNCHES)}: want one int cascade")
     exact(p_q, p_one, "served p codes vs one-shot infer_q")
     exact(state.acc, s_one, "served accumulators vs one-shot infer_q")
     chunk, valid = wave(pipe, S)
@@ -1549,10 +1710,11 @@ def phase_fixed_oneshot(x, cal):
     p, phi = pipe.apply(x, return_features=True)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
-    launches = LAUNCHES["fir_mp_bank_q"]
-    if launches != 11:
-        raise AssertionError(f"fixed one-shot launched the int bank kernel "
-                             f"{launches} times (want 6 + 5)")
+    launches = dict(LAUNCHES)
+    if (launches["fir_mp_oneshot_cascade_q"], launches["fir_mp_bank_q"]) \
+            != (1, 0):
+        raise AssertionError(f"fixed one-shot launches {launches}: want one "
+                             "int cascade and no one-stage launch")
     t0 = time.perf_counter()
     p2, phi2 = fx.predict(prog, x, use_pallas=False)
     torch.cuda.synchronize()
@@ -1563,9 +1725,37 @@ def phase_fixed_oneshot(x, cal):
     exact(codes(phi, prog.phi), codes(phi2, prog.phi),
           "fixed one-shot phi codes vs the torch-op path")
     log(dict(phase="fixed_oneshot", shape=list(x.shape), ms=ms,
-             plain_ms=plain_ms, codes_equal_plain=True,
-             launches=dict(LAUNCHES)))
+             plain_ms=plain_ms, codes_equal_plain=True, launches=launches,
+             **fixed_oneshot_breakdown(pipe, prog, x)))
     return launches
+
+
+def fixed_oneshot_breakdown(pipe, prog, x) -> dict:
+    """Where a fixed one-shot apply's time goes, as ``oneshot_breakdown``
+    for the float one: the bank (ADC quantize + ``bank_accumulate_q``, the
+    int cascade) against the readout (``standardize_q`` +
+    ``classifier_q``), each timed alone by CUDA events; the bank's device
+    time and device records per call (memset and cascade); the readout
+    and the whole apply under torch.profiler (device kernels, device busy
+    us and share)."""
+    from repro_torch.core import fixed as fx
+    bank = lambda: fx.bank_accumulate_q(  # noqa: E731
+        prog.bank, fx.quantize_signal(prog, x), use_pallas=True)
+    s = bank()
+    rest = lambda: fx.classifier_q(  # noqa: E731
+        prog.clf, fx.standardize_q(prog, s))
+    dev = device_us(bank, is_bank_q_kernel)
+    out = dict(bank_ms=cuda_ms(bank, 10), readout_ms=cuda_ms(rest, 10),
+               bank_kernel_device_us=dev["kernel_us"],
+               bank_device_us=dev["all_us"],
+               bank_device_records=dev["kernels_per_call"])
+    for k, fn in (("apply", lambda: pipe.apply(x)), ("readout", rest)):
+        r = profiled(fn)
+        out[f"{k}_wall_ms"] = r["wall_ms"]
+        out[f"{k}_device_us"] = r["busy_us"]
+        out[f"{k}_device_kernels"] = r["kernels"]
+        out[f"{k}_device_busy_share"] = r["busy_share"]
+    return out
 
 
 # -- the transformer decode slice: qwen3-8b in MP mode -------------------------
@@ -1604,7 +1794,8 @@ def phase_mp_kernels(cfg):
     from repro_torch.kernels import LAUNCHES, _build, ref, reset_launches
     from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
                                                 mp_linear_plan,
-                                                mp_waterfill_kernel)
+                                                mp_waterfill_kernel,
+                                                mp_waterfill_plan)
     from repro_torch.kernels.ops import mp_waterfill
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(9)
@@ -1702,6 +1893,8 @@ def phase_mp_kernels(cfg):
     wf["plain_ms"] = cuda_ms(lambda: ref.mp_waterfill(L2, WATERFILL_GAMMA), 2)
     wf["bound_ms"], wf["bound_by"] = bound_ms(ops_waterfill(R, m),
                                               4 * (R * m + R))
+    wf["x_bound"] = wf["ms"] / wf["bound_ms"]
+    wf["layout"] = {str(mm): dict(mp_waterfill_plan(mm)) for mm in (m, 257)}
     wf["shapes"] = f"R={R} m={m}; 8 x 257"
     wf["launches_here"] = launches
     log({"kernel_vs_plain": wf})
@@ -1908,6 +2101,7 @@ def main() -> int:
     _, prog = fixed_pipeline(cal)
     int_stream_row = phase_int_stream_kernel(prog, gen, clips)
     int_bank_row = phase_int_bank_kernel(prog, x1)
+    int_cascade_row = phase_oneshot_cascade_q(prog, x1)
     fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
 
@@ -1936,9 +2130,15 @@ def main() -> int:
              replaces="src/repro/kernels/fir_mp.py:382",
              launches=bank_rows["fir_mp"]["launches_here"],
              main_path_launches=oneshot_launches["fir_mp"], library_ms=None),
+        dict(int_cascade_row, route="cuda", source=src + "fir_mp_bank_q.cu",
+             replaces="src/repro/kernels/fir_mp.py:515",
+             launches=fixed_oneshot_launches["fir_mp_oneshot_cascade_q"],
+             library_ms=None),
         dict(int_bank_row, route="cuda", source=src + "fir_mp_bank_q.cu",
              replaces="src/repro/kernels/fir_mp.py:515",
-             launches=fixed_oneshot_launches, library_ms=None),
+             launches=int_bank_row["launches_here"],
+             main_path_launches=fixed_oneshot_launches["fir_mp_bank_q"],
+             library_ms=None),
         dict(int_stream_row, route="cuda", source=src + "fir_mp_stream_q.cu",
              replaces="src/repro/kernels/fir_mp.py:682",
              launches=fixed_serve_launches, library_ms=None),

@@ -31,9 +31,9 @@ Program constants (taps, ROMs, shift tables, specs, gammas, iteration
 counts) are host-side: numpy arrays and Python ints, built by
 :func:`compile_bank` / :func:`compile_pipeline` from the float pipeline and
 a calibrated ADC full scale. Under ``use_pallas`` the one-shot bank routes
-to the integer CUDA bank kernel (``kernels.fir_mp_bank_q*``); the session
-step's kernel route is ``kernels.fir_mp_stream_q``, chosen by
-``InFilterPipeline``.
+to the integer CUDA one-shot kernel, one launch for the whole cascade
+(``kernels.fir_mp_oneshot_cascade_q``); the session step's kernel route
+is ``kernels.fir_mp_stream_q``, chosen by ``InFilterPipeline``.
 """
 
 from __future__ import annotations
@@ -604,25 +604,22 @@ def bank_accumulate_q(bank: FixedBankProgram, xq: torch.Tensor, *,
     """Quantized signal (B, N) -> 32-bit accumulators (B, P) at
     ``bank.acc`` (the renormalization by 2**octave is in ``acc_shift``).
 
-    ``use_pallas`` routes the MP band solves + HWR accumulation and the
-    low-pass solves through the integer CUDA bank kernel
-    (``kernels.fir_mp_bank_q*``; its plain version for CPU tensors); MAC
+    ``use_pallas`` (MP mode) runs the whole cascade in one launch of the
+    integer CUDA one-shot kernel (``kernels.fir_mp_oneshot_cascade_q``;
+    its plain version, this loop's composition, for CPU tensors); MAC
     mode always runs the shift-add FIR."""
     mp = bank.mode == "mp"
     if use_pallas and mp:
-        from repro_torch.kernels import fir_mp_bank_q, fir_mp_bank_q_accumulate
+        from repro_torch.kernels import fir_mp_oneshot_cascade_q
+        s = fir_mp_oneshot_cascade_q(bank, xq.reshape(-1, xq.shape[-1]))
+        return s.reshape(*xq.shape[:-1], s.shape[-1])
     x_o = xq
     parts = []
     for o, st in enumerate(bank.octaves):
         if mp:
-            x_op = rescale(x_o, st.sig_shift)
-            if use_pallas:
-                s = fir_mp_bank_q_accumulate(
-                    x_op, st.bp_q, gamma_q=st.gamma_bp, iters=st.iters_bp,
-                    qmin=st.band_spec.qmin, qmax=st.band_spec.qmax)
-            else:
-                s = fxp_hwr_accumulate(fxp_fir_bank(
-                    x_op, st.bp_q, st.gamma_bp, st.iters_bp, st.band_spec))
+            s = fxp_hwr_accumulate(fxp_fir_bank(
+                rescale(x_o, st.sig_shift), st.bp_q, st.gamma_bp,
+                st.iters_bp, st.band_spec))
         else:
             bands = [rescale(fxp_fir_shift_add(x_o, st.bp_rom[f]),
                              st.bp_prod_shift)
@@ -632,15 +629,9 @@ def bank_accumulate_q(bank: FixedBankProgram, xq: torch.Tensor, *,
         parts.append(shift_left(s, st.acc_shift))
         if st.lp_q is not None:
             if mp:
-                x_lp = rescale(x_o, st.lp_sig_shift)
-                if use_pallas:
-                    y_lp = fir_mp_bank_q(
-                        x_lp, st.lp_q, gamma_q=st.gamma_lp,
-                        iters=st.iters_lp, qmin=st.lp_spec.qmin,
-                        qmax=st.lp_spec.qmax)[..., 0, :]
-                else:
-                    y_lp = fxp_fir_bank(x_lp, st.lp_q, st.gamma_lp,
-                                        st.iters_lp, st.lp_spec)[..., 0, :]
+                y_lp = fxp_fir_bank(rescale(x_o, st.lp_sig_shift), st.lp_q,
+                                    st.gamma_lp, st.iters_lp,
+                                    st.lp_spec)[..., 0, :]
             else:
                 y_lp = _clamp(rescale(fxp_fir_shift_add(x_o, st.lp_rom[0]),
                                       st.lp_prod_shift), st.lp_spec)

@@ -26,10 +26,11 @@ Kernels:
   fir_mp_bank  - the same kernel on one stage: one-shot MP FIR bank,
                  optional fused HWR + accumulate
   fir_mp       - the one-stage bank with one filter
-  fir_mp_stream_cascade_q, fir_mp_stream_octave_q / fir_mp_bank_q - the
-                 integer twins of the two:
-                 the fixed-point datapath (integer MP bisection, shift/add/
-                 compare only), bit for bit ``core.fixed``'s torch ops
+  fir_mp_stream_cascade_q, fir_mp_stream_octave_q /
+  fir_mp_oneshot_cascade_q, fir_mp_bank_q - the integer twins of the
+                 stream and one-shot kernels: the fixed-point datapath
+                 (integer MP bisection, shift/add/compare only), bit for
+                 bit ``core.fixed``'s torch ops
   mp_linear    - the fused multiplierless matrix product of eq. 9, every
                  MP-mode projection of the transformer (``models.layers``)
   mp_waterfill - row-wise reverse water-filling z = MP(L, gamma)
@@ -44,6 +45,7 @@ from repro_torch.kernels.ops import (  # noqa: F401
     fir_mp_bank_q,
     fir_mp_bank_q_accumulate,
     fir_mp_oneshot_cascade,
+    fir_mp_oneshot_cascade_q,
     fir_mp_stream,
     fir_mp_stream_q,
     mp_linear,

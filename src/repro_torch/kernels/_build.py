@@ -41,13 +41,16 @@ SIGNATURES = {
                     [_P, _P] + [_P, _I] * 2 + [_I] * 5 + [_F, _I, _P]),
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
                         [_P] * 9 + [_I] * 13 + [_P]),
-    "fir_mp_bank_q": ("fir_mp_bank_q_launch", [_P] * 3 + [_I] * 9 + [_P]),
+    "fir_mp_bank_q": ("fir_mp_oneshot_q_launch",
+                      [_P] * 3 + [_P, _I] * 2 + [_I] * 5 + [_P]),
     "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
-    "mp_waterfill": ("mp_waterfill_launch", [_P] * 2 + [_I] * 2 + [_F, _I, _P]),
+    "mp_waterfill": ("mp_waterfill_launch",
+                     [_P] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
 }
 # further entry points: symbol -> (source, argument types)
 EXTRA_SYMBOLS = {"mp_linear_plan": ("mp_linear", [_I] * 5 + [_P]),
-                 "fir_mp_oneshot_ctas": ("fir_mp_bank", [_I])}
+                 "fir_mp_oneshot_ctas": ("fir_mp_bank", [_I]),
+                 "fir_mp_oneshot_q_ctas": ("fir_mp_bank_q", [_I])}
 
 _LIBS: dict = {}
 _LOGS: dict = {}

@@ -96,14 +96,6 @@ __host__ inline long smem_words(int L, int F, int M, int T1) {
   return (long)T1 + LB + kHead + (long)F * M + kLP + (long)F * LB + F + 1;
 }
 
-__device__ __forceinline__ int wadd(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
-}
-
-__device__ __forceinline__ int wsub(int a, int b) {
-  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
-}
-
 // One branch of fxp_mp_dot over the window xs (codes, rescaled by `shift`)
 // and the reversed taps ws: mpabs(clamp(w + x)) (br 0) or mpabs(clamp(w -
 // x)) (br 1), operands clamped onto [qmin, qmax] and solved from their
@@ -119,7 +111,8 @@ __device__ __forceinline__ int mpabs_branch(const int* xs, const int* ws,
   for (int k = 0; k < P; ++k) {
     const int x = k < m ? fxp::rescale(xs[k], shift) : 0;
     const int w = k < m ? ws[k] : 0;
-    a[k] = abs(fxp::clamp(br ? wsub(w, x) : wadd(w, x), qmin, qmax));
+    a[k] = abs(fxp::clamp(br ? fxp::wsub(w, x) : fxp::wadd(w, x), qmin,
+                          qmax));
   }
   return fxp::mpabs_q_mag<P, MC>(a, M, gamma, iters);
 }
@@ -258,13 +251,13 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
 
     for (int f = tid; f < F; f += nthreads) {
       const size_t c = (size_t)s * a.P + oc.col + f;
-      a.acc_out[c] = wadd(a.acc[c], fxp::shl(static_cast<int>(part[f]),
-                                             hd[hAccShift]));
+      a.acc_out[c] = fxp::wadd(
+          a.acc[c], fxp::shl(static_cast<int>(part[f]), hd[hAccShift]));
     }
     for (int i = tid; i < T1; i += nthreads)
       oc.delay_out[(size_t)s * T1 + i] = buf[i];
     if (oc.consumed_out && tid == 0)
-      oc.consumed_out[s] = wadd(oc.phase_in[s], nv);
+      oc.consumed_out[s] = fxp::wadd(oc.phase_in[s], nv);
     // the next octave: the kept codes, read back after the barrier
     src = yrow;
     nv = n_next;

@@ -1,7 +1,8 @@
 // The integer datapath shared by the two fixed-point kernels
 // (fir_mp_bank_q.cu, fir_mp_stream_q.cu): shifts with the reference's
-// semantics for any count, saturating clamps, and the integer MP solve
-// (both branches of a dot interleaved, or one branch alone).
+// semantics for any count, saturating clamps, wrapping adds, and the
+// integer MP solve in its cheapest exact form (one branch alone, or both
+// branches of a dot interleaved).
 //
 // The reference (src/repro/core/fixed.py) shifts int32 with XLA's rules:
 // a left shift by 32 or more gives 0, an arithmetic right shift by 32 or
@@ -33,43 +34,24 @@ __device__ __forceinline__ int clamp(int q, int lo, int hi) {
   return min(max(q, lo), hi);
 }
 
-// mpabs(u) - mpabs(v) by integer bisection over the first M of P lanes:
-// for each of u and v, hi = max |lane|, lo = hi - gamma, then `iters`
-// steps of mid = (lo + hi) >> 1, too_low = sum relu(t - mid) +
-// relu(-t - mid) > gamma; the answer is hi (core/fixed.py fxp_mpabs). The
-// two chains are independent and run interleaved. Operands are clamped
-// codes of the 10-bit internal path, so no sum here comes near 2**31.
-template <int P>
-__device__ __forceinline__ int mp_dot_q(const int (&u)[P], const int (&v)[P],
-                                        int M, int gamma, int iters) {
-  int hu = 0, hv = 0;
-#pragma unroll
-  for (int k = 0; k < P; ++k) {
-    if (k < M) {
-      hu = max(hu, abs(u[k]));
-      hv = max(hv, abs(v[k]));
-    }
-  }
-  int lu = hu - gamma, lv = hv - gamma;
-#pragma unroll 1  // keep code size down; lanes unroll
-  for (int it = 0; it < iters; ++it) {
-    const int mu = (lu + hu) >> 1;
-    const int mv = (lv + hv) >> 1;
-    int su = 0, sv = 0;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      if (k < M) {
-        su += max(u[k] - mu, 0) + max(-u[k] - mu, 0);
-        sv += max(v[k] - mv, 0) + max(-v[k] - mv, 0);
-      }
-    }
-    const bool tu = su > gamma, tv = sv > gamma;
-    lu = tu ? mu : lu;
-    hu = tu ? hu : mu;
-    lv = tv ? mv : lv;
-    hv = tv ? hv : mv;
-  }
-  return hu - hv;
+// |clamp(t, qmin, qmax)| for qmin > INT_MIN and qmax >= 0, written without
+// an abs: with t' = max(t, qmin), max(min(t', qmax), min(-t', -qmin)).
+// Given abs(clamp(...)), ptxas keeps the clamped value in a register and
+// recomputes the abs in every bisection step that reads the magnitude (an
+// IABS per lane per step, PERF.md §6); this form it keeps as it is.
+__device__ __forceinline__ int clamp_mag(int t, int qmin, int qmax) {
+  const int lo = max(t, qmin);
+  return max(min(lo, qmax), min(-lo, -qmin));
+}
+
+// a + b and a - b wrapping like the reference's int32 (signed overflow
+// would be undefined in C++)
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
 }
 
 // mpabs(t) alone, over the first m of P lanes (MC: m at compile time, 0
@@ -105,6 +87,45 @@ __device__ __forceinline__ int mpabs_q_mag(const int (&a)[P], int M,
     hi = too_low ? hi : mid;
   }
   return hi;
+}
+
+// mpabs(u) - mpabs(v) from the magnitudes au = |u|, av = |v| over the
+// first m of P lanes (MC as in mpabs_q_mag): the two bisections of
+// mpabs_q_mag's form, interleaved in one loop (both take `iters` steps).
+template <int P, int MC>
+__device__ __forceinline__ int mp_dot_q_mag(const int (&au)[P],
+                                            const int (&av)[P], int M,
+                                            int gamma, int iters) {
+  const int m = MC ? MC : M;
+  int hu = 0, hv = 0;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (k < m) {
+      hu = max(hu, au[k]);
+      hv = max(hv, av[k]);
+    }
+  }
+  int lu = hu - gamma, lv = hv - gamma;
+#pragma unroll 1  // keep code size down; lanes unroll
+  for (int it = 0; it < iters; ++it) {
+    const int mu = (lu + hu) >> 1;
+    const int mv = (lv + hv) >> 1;
+    const int amu = abs(mu), amv = abs(mv);
+    int su = -m * mu, sv = -m * mv;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      if (k < m) {
+        su += max(au[k], amu);
+        sv += max(av[k], amv);
+      }
+    }
+    const bool tu = su > gamma, tv = sv > gamma;
+    lu = tu ? mu : lu;
+    hu = tu ? hu : mu;
+    lv = tv ? mv : lv;
+    hv = tv ? hv : mv;
+  }
+  return hu - hv;
 }
 
 }  // namespace fxp

@@ -16,7 +16,11 @@
 * ``fir_mp_stream_cascade_q`` / ``fir_mp_stream_octave_q`` —
   ``csrc/fir_mp_stream_q.cu``, the integer session step, whole cascade or
   one octave (replaces ``fir_mp_stream_octave_q``);
-* ``fir_mp_bank_q_kernel`` — ``csrc/fir_mp_bank_q.cu``, the one-shot
+* ``fir_mp_oneshot_cascade_q`` — ``csrc/fir_mp_bank_q.cu``, the integer
+  one-shot bank's whole multirate cascade in one launch (replaces the
+  reference's per-octave loop of Pallas ``fir_mp_bank_q_pallas`` calls in
+  ``core.fixed.bank_accumulate_q``);
+* ``fir_mp_bank_q_kernel`` — the same kernel on one stage, the one-shot
   integer bank, both modes (replaces ``fir_mp_bank_q_pallas``).
 
 A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``; a CPU
@@ -31,9 +35,11 @@ The two stream kernels take a launch plan (:func:`stream_plan`: threads,
 shared bytes, scratch) and a table of per-octave rows packed here
 (:func:`stream_octave_rows`, :func:`stream_q_octave_rows`); the integer
 one also reads the compiled stage constants from a device table
-(:func:`pack_stages`), packed once per program. The one-shot bank kernel
-takes a work plan (:func:`oneshot_plan`: items, scratch and counter
-layout) and a table of per-octave rows (:func:`oneshot_octave_rows`).
+(:func:`pack_stages`), packed once per program. The one-shot bank kernels
+take a work plan (:func:`oneshot_plan`: items, scratch and counter
+layout) and a table of per-octave rows (:func:`oneshot_octave_rows`,
+:func:`oneshot_q_octave_rows`); the integer one reads its stage constants
+from the same stage table as the int stream kernel.
 
 Each launch is counted in ``kernels._wrap.LAUNCHES``.
 """
@@ -55,8 +61,9 @@ from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
 __all__ = ["fir_mp_stream_cascade", "fir_mp_stream_octave",
            "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_oneshot_cascade",
            "oneshot_plan", "oneshot_octave_rows", "oneshot_ctas",
-           "fir_mp_stream_cascade_q",
-           "fir_mp_stream_octave_q", "fir_mp_bank_q_kernel", "stream_plan",
+           "fir_mp_stream_cascade_q", "fir_mp_stream_octave_q",
+           "fir_mp_oneshot_cascade_q", "oneshot_q_octave_rows",
+           "fir_mp_bank_q_kernel", "stream_plan",
            "stream_octave_rows", "stream_q_octave_rows", "pack_stages"]
 
 _SOLVERS = {"newton": 0, "bisect": 1}
@@ -432,11 +439,12 @@ def _frozen(a) -> np.ndarray:
 
 @functools.lru_cache(maxsize=64)
 def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
-                 output: bool = False, ctas: int = 0):
-    """The work plan of the one-shot bank kernel on x (B, N) with F
-    band-pass filters per octave over ``octaves`` octaves, or, under
-    ``output``, one octave's F outputs at every position (the one-stage
-    output mode). Cached per shape, read-only.
+                 output: bool = False, ctas: int = 0, integer: bool = False):
+    """The work plan of the one-shot bank kernel (the float one, or the int
+    one under ``integer``) on x (B, N) with F band-pass filters per octave
+    over ``octaves`` octaves, or, under ``output``, one octave's F outputs
+    at every position (the one-stage output mode). Cached per shape,
+    read-only.
 
     Per octave o: its signal's length ``lens[o]`` (N, then ceil(N_o / 2)),
     its band tiles ceil(N_o / 256) and the keep tiles of its low-pass,
@@ -455,8 +463,11 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
     ``part_off[o]``. Counters (uint32 words, zeroed per call): the queue
     head, then per octave o >= 1 a ready counter per row at
     ``ready_off[o]``, then a done counter per (row, filter) at
-    ``done_off[o]``. Shapes outside the kernel raise
-    ValueError, as the kernel refuses them."""
+    ``done_off[o]``. Under ``integer`` the band sums are integers, which
+    add in any order: there are no partials and no done counters, the
+    scratch holds the int32 signals x_o only and the counters the head and
+    the ready counters. Shapes outside the kernel raise ValueError, as the
+    kernel refuses them."""
     for name, val, hi in (("B", B, None), ("N", N, None), ("F", F, None),
                           ("octaves", octaves, ONESHOT_MAX_OCTAVES)):
         if val < 1 or (hi is not None and val > hi):
@@ -511,25 +522,27 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
     ready_off, done_off, ctr = [0] * octaves, [0] * octaves, 1
     for o in range(1, octaves):
         ready_off[o], ctr = ctr, ctr + B
-    if not output:
+    if not (output or integer):
         for o in range(octaves):
             part_off[o], words = words, words + B * F * tiles[o]
             done_off[o], ctr = ctr, ctr + B * F
     return types.MappingProxyType(dict(
-        F=F, output=output, lens=tuple(lens), tiles=tiles, keep_tiles=keep,
+        F=F, output=output, integer=integer, lens=tuple(lens), tiles=tiles,
+        keep_tiles=keep,
         segments=_frozen(segments).reshape(-1, 5), items=items,
         sig_off=tuple(sig_off), part_off=tuple(part_off), scratch=words,
         ready_off=tuple(ready_off), done_off=tuple(done_off), counters=ctr))
 
 
 @functools.lru_cache(maxsize=None)
-def oneshot_ctas(device_index: int) -> int:
-    """CTAs of the one-shot kernel the card holds at once (occupancy x
-    SMs, for the configuration's 16 / 6 taps): the plan's scheduling
-    hint."""
+def oneshot_ctas(device_index: int, integer: bool = False) -> int:
+    """CTAs of the one-shot kernel (the int one under ``integer``) the card
+    holds at once (occupancy x SMs, for the configuration's 16 / 6 taps):
+    the plan's scheduling hint."""
     from repro_torch.kernels._build import load
     with torch.cuda.device(device_index):
-        return int(load("fir_mp_oneshot_ctas")(0))
+        return int(load("fir_mp_oneshot_q_ctas" if integer
+                        else "fir_mp_oneshot_ctas")(0))
 
 
 def oneshot_octave_rows(plan, x, bp_taps, fir_taps, scratch, counters,
@@ -729,7 +742,7 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
                                    amax)
     key = "fir_mp_stream_cascade_q"
     T1 = delays[0].shape[1]
-    table, Fs, M, M_lp, cols = _program_table(prog, T1, chunk_q.device)
+    table, Fs, M, M_lp, cols = _program_table(bank, T1, chunk_q.device)
     plan, ins = _cascade_q_inputs(chunk_q, n, delays, consumed, acc, amax,
                                   Fs, M, M_lp)
     chunk_q, n, delays, consumed, acc, amax = ins
@@ -751,20 +764,21 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
             acc_out, amax_out)
 
 
-def _program_table(prog, T1: int, device):
-    """What the int cascade needs of a program, made once per (program,
-    T1, device) and cached on it: the stage table on ``device``
-    (:func:`pack_stages`), the filters per octave, the band-pass and
-    low-pass lengths and each octave's first accumulator column."""
-    cache = vars(prog).setdefault("_cuda_stream_tables", {})
+def _program_table(bank, T1: int, device):
+    """What the int cascades need of a compiled program's bank
+    (``core.fixed.FixedBankProgram``), made once per (bank, T1, device) and
+    cached on it: the stage table on ``device`` (:func:`pack_stages`), the
+    filters per octave, the band-pass and low-pass lengths and each
+    octave's first accumulator column."""
+    cache = vars(bank).setdefault("_cuda_stream_tables", {})
     key = ("cascade", T1, str(device))
     if key not in cache:
-        stages = prog.bank.octaves
+        stages = bank.octaves
         Fs = tuple(st.bp_q.shape[0] for st in stages)
         Ms = {st.bp_q.shape[1] for st in stages}
         M_lps = {st.lp_q.shape[-1] for st in stages if st.lp_q is not None}
         if len(Ms) != 1 or len(M_lps) > 1:
-            raise ValueError(f"the stream kernel takes one band-pass and one "
+            raise ValueError(f"the int kernels take one band-pass and one "
                              f"low-pass length, got {sorted(Ms)} and "
                              f"{sorted(M_lps)}")
         nxt = [stages[o + 1].in_spec if st.lp_q is not None else None
@@ -851,15 +865,165 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
     return acc_o, delay_o, amax_o, y_next
 
 
+# -- the one-shot integer bank kernel -----------------------------------------
+
+# the int64 fields of one octave row of the int one-shot kernel, in the
+# order of its C enum
+ONESHOT_Q_OCTAVE_FIELDS = ("src", "dst", "ready_in", "ready_out", "n",
+                           "tiles", "fir_F", "fir_tiles", "out_len", "stride",
+                           "ready_target", "col")
+
+
+def oneshot_q_octave_rows(plan, x, scratch, counters, y=None) -> np.ndarray:
+    """The int one-shot kernel's table: one int64 row per octave of an
+    ``integer`` ``plan`` in ``ONESHOT_Q_OCTAVE_FIELDS`` order. A cascade's
+    octave o reads x (o = 0) or its signal in ``scratch`` and, but for the
+    last octave, writes x_{o+1} there; its sums go to columns o F .. o F +
+    F - 1. The output mode's one row runs out items into ``y`` (B, F, N).
+    The stage constants are the stage table's (:func:`pack_stages`)."""
+    O, F = len(plan["lens"]), plan["F"]
+    lens, tiles, keep = plan["lens"], plan["tiles"], plan["keep_tiles"]
+    rows = np.zeros((O, len(ONESHOT_Q_OCTAVE_FIELDS)), np.int64)
+    if plan["output"]:
+        rows[0] = (x.data_ptr(), y.data_ptr(), 0, 0, lens[0], tiles[0], F,
+                   tiles[0], lens[0], 1, 0, 0)
+        return rows
+    sp, cp = scratch.data_ptr(), counters.data_ptr()
+    for o in range(O):
+        last = o == O - 1
+        rows[o] = (x.data_ptr() if o == 0 else sp + 4 * plan["sig_off"][o],
+                   0 if last else sp + 4 * plan["sig_off"][o + 1],
+                   0 if o == 0 else cp + 4 * plan["ready_off"][o],
+                   0 if last else cp + 4 * plan["ready_off"][o + 1],
+                   lens[o], tiles[o], 1, 0 if last else keep[o],
+                   0 if last else lens[o + 1], 2,
+                   0 if o == 0 else keep[o - 1], o * F)
+    return rows
+
+
+def _oneshot_q_launch(plan, x, table, *, P, M, M_lp, y=None):
+    """Zero one buffer for the band sums (B, P) and the plan's counters,
+    allocate its scratch, pack its table and launch its queue. Returns
+    (the sums, or None in the output mode, the C code)."""
+    from repro_torch.kernels._build import load
+    dev, B = x.device, x.shape[0]
+    nsum = 0 if plan["output"] else B * P
+    buf = torch.zeros(nsum + plan["counters"], dtype=torch.int32, device=dev)
+    sums = None if plan["output"] else buf[:nsum].view(B, P)
+    counters = buf[nsum:]
+    scratch = torch.empty(plan["scratch"], dtype=torch.int32, device=dev)
+    rows = oneshot_q_octave_rows(plan, x, scratch, counters, y)
+    segs = plan["segments"]
+    code = load("fir_mp_bank_q")(
+        None if sums is None else sums.data_ptr(), counters.data_ptr(),
+        table.data_ptr(), rows.ctypes.data, rows.shape[0], segs.ctypes.data,
+        segs.shape[0], B, plan["F"], P, M, M_lp, _stream())
+    return sums, code
+
+
+def _oneshot_q_shapes(bank) -> tuple:
+    """(F, M, M_lp) of an MP bank's octaves; banks the cascade does not
+    take raise, on either device: MAC mode, unequal filter counts or tap
+    lengths, and a low-pass missing before the last octave."""
+    if bank.mode != "mp":
+        raise ValueError(
+            f"fir_mp_oneshot_cascade_q runs the MP bank; it has no "
+            f"{bank.mode!r}-mode variant (use fixed.bank_accumulate_q)")
+    st = bank.octaves
+    Fs = {s.bp_q.shape[0] for s in st}
+    Ms = {s.bp_q.shape[1] for s in st}
+    M_lps = {s.lp_q.shape[-1] for s in st[:-1] if s.lp_q is not None}
+    if len(Fs) != 1 or len(Ms) != 1 or len(M_lps) > 1:
+        raise ValueError(f"the one-shot int cascade takes one filter count "
+                         f"and one band-pass and one low-pass length, got "
+                         f"F {sorted(Fs)}, M {sorted(Ms)}, M_lp "
+                         f"{sorted(M_lps)}")
+    if any(s.lp_q is None for s in st[:-1]) or st[-1].lp_q is not None:
+        raise ValueError("every octave but the last needs its low-pass, "
+                         "and the last has none")
+    for s in st:
+        for spec in (s.band_spec, s.lp_spec):
+            if spec is not None:
+                _operand_bounds(spec.qmin, spec.qmax)
+    return Fs.pop(), Ms.pop(), M_lps.pop() if M_lps else 1
+
+
+def _operand_bounds(qmin: int, qmax: int) -> None:
+    """The int one-shot kernel clamps operands onto [qmin, qmax] with
+    qmin > -2**31 and qmax >= 0 (``fxp::clamp_mag``); other bounds raise."""
+    if not -2 ** 31 < qmin <= qmax or qmax < 0:
+        raise ValueError(f"operand bounds [{qmin}, {qmax}]: the int one-shot "
+                         f"kernel takes -2**31 < qmin <= qmax, qmax >= 0")
+
+
+def _oneshot_q_inputs(xq, M: int, M_lp: int, key: str) -> torch.Tensor:
+    """The int one-shot cascade's checks on a card's tensor: xq as the
+    kernel reads it (contiguous int32 codes; float-carried codes and tap
+    lengths beyond the stage table raise)."""
+    if not (M <= ONESHOT_MAX_M and M_lp <= _LP_LANES):
+        raise ValueError(f"{key}: M = {M} and M_lp = {M_lp} must be at most "
+                         f"{ONESHOT_MAX_M} and {_LP_LANES}")
+    return _codes(xq, "xq", key)
+
+
+def fir_mp_oneshot_cascade_q(bank, xq):
+    """The integer one-shot bank's whole multirate cascade: one launch on
+    the card, the plain composition (``ref.fir_mp_oneshot_cascade_q``) on
+    the CPU; the kernel route of ``core.fixed.bank_accumulate_q`` (MP,
+    ``use_pallas``).
+
+    ``bank`` the compiled ``core.fixed.FixedBankProgram`` (MP mode); xq
+    (B, N) ADC codes. Returns the accumulators (B, O F), octave o's
+    ``shift_left(sum max(y, 0), acc_shift)`` in columns o F .. o F + F - 1,
+    bit for bit the plain version. Octave o's low-pass is solved at its
+    kept positions only. The stage constants travel in the int stream
+    kernel's device stage table (:func:`pack_stages`), packed once per
+    bank and cached on it."""
+    if xq.ndim != 2:
+        raise ValueError(f"xq must be (B, N), got {tuple(xq.shape)}")
+    F, M, M_lp = _oneshot_q_shapes(bank)
+    if not _on_cuda(xq):
+        return ref.fir_mp_oneshot_cascade_q(bank, xq)
+    key = "fir_mp_oneshot_cascade_q"
+    xq = _oneshot_q_inputs(xq, M, M_lp, key)
+    B, N = xq.shape
+    O = len(bank.octaves)
+    # the delay length a session of this bank keeps: the serving path's
+    # table, shared (the one-shot kernel does not read T1)
+    table = _program_table(bank, max(M, M_lp) - 1, xq.device)[0]
+    plan = oneshot_plan(B, N, F, octaves=O, integer=True,
+                        ctas=oneshot_ctas(xq.device.index, integer=True))
+    sums, code = _oneshot_q_launch(plan, xq, table, P=O * F, M=M, M_lp=M_lp)
+    if code:
+        _check(code, key, f"B={B} N={N} octaves={O} F={F} M={M} "
+                          f"M_lp={M_lp}")
+    LAUNCHES[key] += 1
+    return sums
+
+
+def _one_stage_table(H: np.ndarray, gamma_q: int, iters: int, qmin: int,
+                     qmax: int, device) -> torch.Tensor:
+    """One stage-table record (:func:`pack_stages`) for the one-stage
+    entry: H the band-pass codes, no rescale, no shift, no low-pass."""
+    _operand_bounds(int(qmin), int(qmax))
+    bounds = ref._Bounds(int(qmin), int(qmax))
+    stage = types.SimpleNamespace(
+        bp_q=H, band_spec=bounds, sig_shift=0, acc_shift=0,
+        gamma_bp=int(gamma_q), iters_bp=int(iters), lp_q=None, lp_spec=None,
+        lp_sig_shift=0, lp_out_shift=0, gamma_lp=0, iters_lp=0)
+    return torch.from_numpy(pack_stages([stage], [None], 0)).to(device)
+
+
 def fir_mp_bank_q_kernel(xq, H_q, *, gamma_q: int, iters: int, qmin: int,
                          qmax: int, accumulate: bool = False):
-    """One-shot integer bank: xq (B, N) codes on the stage grid, H_q (F, M)
-    tap codes (host array or tensor) -> (B, F, N) band codes, or the
-    integer HWR sums (B, F) under ``accumulate``."""
+    """One-shot integer bank, one stage: xq (B, N) codes on the stage grid,
+    H_q (F, M) tap codes (host array or tensor) -> (B, F, N) band codes,
+    or the integer HWR sums (B, F) under ``accumulate`` (the cascade
+    kernel on one octave: its band items, or out items at every
+    position)."""
     if not _on_cuda(xq):
         fn = ref.fir_mp_bank_q_accumulate if accumulate else ref.fir_mp_bank_q
         return fn(xq, H_q, gamma_q, iters, qmin, qmax)
-    from repro_torch.kernels._build import load
     key = "fir_mp_bank_q"
     xq = _codes(xq, "xq", key)
     H = _host_codes(H_q)
@@ -868,12 +1032,11 @@ def fir_mp_bank_q_kernel(xq, H_q, *, gamma_q: int, iters: int, qmin: int,
                          f"{tuple(xq.shape)} and {H.shape}")
     B, N = xq.shape
     Fn, M = H.shape
-    shape = (B, Fn) if accumulate else (B, Fn, N)
-    out = torch.empty(shape, dtype=torch.int32, device=xq.device)
-    code = load("fir_mp_bank_q")(
-        xq.data_ptr(), H.ctypes.data, out.data_ptr(), B, N, Fn, M,
-        int(gamma_q), int(iters), int(qmin), int(qmax), int(accumulate),
-        _stream())
+    table = _one_stage_table(H, gamma_q, iters, qmin, qmax, xq.device)
+    plan = oneshot_plan(B, N, Fn, output=not accumulate, integer=True)
+    y = (None if accumulate else
+         torch.empty((B, Fn, N), dtype=torch.int32, device=xq.device))
+    sums, code = _oneshot_q_launch(plan, xq, table, P=Fn, M=M, M_lp=1, y=y)
     _check(code, key, f"B={B} N={N} F={Fn} M={M}")
     LAUNCHES[key] += 1
-    return out
+    return sums if accumulate else y

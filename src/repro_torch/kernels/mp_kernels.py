@@ -14,7 +14,9 @@ nothing falls back from one to the other.
 
 from __future__ import annotations
 
+import functools
 import math
+import types
 
 import torch
 
@@ -23,7 +25,7 @@ from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
                                        _on_cuda, _stream)
 
 __all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_plan",
-           "mp_waterfill_kernel"]
+           "mp_waterfill_kernel", "mp_waterfill_plan"]
 
 # the weight dtypes the mp_linear kernel reads as they are
 LINEAR_W_DTYPES = (torch.float32, torch.bfloat16)
@@ -97,6 +99,30 @@ def mp_linear_plan(B: int, d: int, O: int,
     return plan
 
 
+WATERFILL_LANE_ELEMENTS = 32   # most elements a lane holds in registers
+
+
+@functools.lru_cache(maxsize=None)
+def mp_waterfill_plan(m: int):
+    """The waterfill kernel's layout for rows of m elements: ``group``
+    lanes per row (G, a power of two) and ``per_lane`` elements in each
+    lane's registers (K), so a CTA of 256 threads holds 256 / G rows.
+    G = 1 and K = m rounded up to a power of two for m <= 32 (a row per
+    thread, no shuffle in a step); K = 32 and G = m / 32 rounded up to a
+    power of two for m <= 1024; above, G = 32 and K = 0: one warp per
+    row, re-read from global memory each step. Cached, read-only."""
+    if m < 1:
+        raise ValueError(f"mp_waterfill: m = {m} must be at least 1")
+    K = WATERFILL_LANE_ELEMENTS
+    if m > 32 * K:
+        plan = dict(group=32, per_lane=0)
+    elif m > K:
+        plan = dict(group=1 << (-(-m // K) - 1).bit_length(), per_lane=K)
+    else:
+        plan = dict(group=1, per_lane=1 << (m - 1).bit_length())
+    return types.MappingProxyType(plan)
+
+
 def mp_waterfill_kernel(L: torch.Tensor, gamma,
                         iters: int = ref.DEFAULT_ITERS) -> torch.Tensor:
     """L (R, m) -> z (R,) = MP(L, gamma) per row. The kernel bisects in
@@ -110,8 +136,10 @@ def mp_waterfill_kernel(L: torch.Tensor, gamma,
     R, m = L.shape
     Lf = L.float().contiguous()
     z = torch.empty((R,), dtype=torch.float32, device=L.device)
+    plan = mp_waterfill_plan(m)
     code = load("mp_waterfill")(Lf.data_ptr(), z.data_ptr(), R, m,
-                                float(gamma), int(iters), _stream())
+                                float(gamma), int(iters), plan["group"],
+                                plan["per_lane"], _stream())
     _check(code, "mp_waterfill", f"R={R} m={m}")
     LAUNCHES["mp_waterfill"] += 1
     return z.to(L.dtype)

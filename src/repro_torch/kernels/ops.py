@@ -4,9 +4,10 @@ and the octave cascade of the session step.
 Every function here reaches a kernel wrapper in ``kernels.fir_mp`` or
 ``kernels.mp_kernels``, which launches the CUDA kernel for CUDA tensors
 and runs the plain PyTorch version for CPU tensors. The cascade wrappers
-are exported as they are: ``fir_mp_oneshot_cascade`` (the float one-shot
-bank, the route of ``core.filterbank.multirate_accumulate`` under
-``use_pallas``) and the session step's ``fir_mp_stream(_q)``.
+are exported as they are: ``fir_mp_oneshot_cascade(_q)`` (the one-shot
+banks, the routes of ``core.filterbank.multirate_accumulate`` and
+``core.fixed.bank_accumulate_q`` under ``use_pallas``) and the session
+step's ``fir_mp_stream(_q)``.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import torch
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_bank_q_kernel, fir_mp_kernel,
                                          fir_mp_oneshot_cascade,
+                                         fir_mp_oneshot_cascade_q,
                                          fir_mp_stream_cascade,
                                          fir_mp_stream_cascade_q)
 from repro_torch.kernels.mp_kernels import (LINEAR_W_DTYPES,
@@ -26,7 +28,8 @@ from repro_torch.kernels.ref import DEFAULT_ITERS
 __all__ = ["mp_waterfill", "mp_linear", "fir_mp", "fir_mp_accumulate",
            "fir_mp_bank", "fir_mp_bank_accumulate",
            "fir_mp_oneshot_cascade", "fir_mp_stream",
-           "fir_mp_bank_q", "fir_mp_bank_q_accumulate", "fir_mp_stream_q"]
+           "fir_mp_bank_q", "fir_mp_bank_q_accumulate",
+           "fir_mp_oneshot_cascade_q", "fir_mp_stream_q"]
 
 
 def mp_waterfill(L: torch.Tensor, gamma, *,

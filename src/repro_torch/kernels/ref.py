@@ -27,6 +27,7 @@ __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_oneshot_cascade",
            "fir_mp_stream_octave", "fir_mp_stream", "tile_sum",
            "fir_mp_bank_q", "fir_mp_bank_q_accumulate",
+           "fir_mp_oneshot_cascade_q",
            "fir_mp_stream_octave_q", "fir_mp_stream_q", "mp_waterfill",
            "mp_linear"]
 
@@ -248,6 +249,33 @@ def fir_mp_bank_q_accumulate(xq: torch.Tensor, H_q, gamma_q: int,
     :func:`fir_mp_bank_q` codes, in the carrier's dtype."""
     return fx.fxp_hwr_accumulate(
         fir_mp_bank_q(xq, H_q, gamma_q, iters, qmin, qmax))
+
+
+def fir_mp_oneshot_cascade_q(bank, xq: torch.Tensor) -> torch.Tensor:
+    """The integer one-shot bank's multirate cascade, the plain version of
+    the int cascade kernel (and of ``core.fixed.bank_accumulate_q`` in MP
+    mode): ``bank`` a compiled ``core.fixed.FixedBankProgram``, xq (B, N)
+    ADC codes -> the accumulators (B, O F). Octave o adds
+    ``shift_left(sums, acc_shift)`` of its band-pass on ``rescale(x_o,
+    sig_shift)`` (:func:`fir_mp_bank_q_accumulate`) and hands on the even
+    positions of ``clamp(rescale(y_lp, lp_out_shift), next in_spec)``, its
+    low-pass (:func:`fir_mp_bank_q`) solved on ``rescale(x_o,
+    lp_sig_shift)`` at every position."""
+    octaves = bank.octaves
+    parts = []
+    x_o = xq
+    for o, st in enumerate(octaves):
+        s = fir_mp_bank_q_accumulate(
+            fx.rescale(x_o, st.sig_shift), st.bp_q, st.gamma_bp, st.iters_bp,
+            st.band_spec.qmin, st.band_spec.qmax)
+        parts.append(fx.shift_left(s, st.acc_shift))
+        if st.lp_q is not None:
+            y_lp = fir_mp_bank_q(fx.rescale(x_o, st.lp_sig_shift), st.lp_q,
+                                 st.gamma_lp, st.iters_lp, st.lp_spec.qmin,
+                                 st.lp_spec.qmax)[:, 0]
+            x_o = fx._clamp(fx.rescale(y_lp, st.lp_out_shift),
+                            octaves[o + 1].in_spec)[:, ::2]
+    return torch.cat(parts, dim=-1)
 
 
 def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,

@@ -22,6 +22,7 @@ from repro_torch.core.filterbank import FilterBankConfig
 from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_bank_q_kernel, fir_mp_kernel,
                                         fir_mp_oneshot_cascade,
+                                        fir_mp_oneshot_cascade_q,
                                         fir_mp_stream_cascade,
                                         fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
@@ -378,9 +379,68 @@ def test_bank_q_kernel_matches_plain(dev, prog, B, N):
     assert LAUNCHES["fir_mp_bank_q"] == calls == 12
 
 
+@pytest.mark.parametrize("B,N", [(1, 5), (1, 255), (3, 301), (8, 4000),
+                                 (8, 16000)])
+def test_oneshot_cascade_q_kernel_matches_plain(dev, prog, B, N):
+    """The whole int one-shot cascade in one launch equals the plain
+    per-octave composition bit for bit, with the full esc10-mp program:
+    ADC codes over their whole 8-bit range, odd and short lengths."""
+    g = torch.Generator().manual_seed(N)
+    s = prog.bank.signal
+    xq = torch.randint(s.qmin, s.qmax + 1, (B, N), generator=g,
+                       dtype=torch.int32).to(dev)
+    reset_launches()
+    got = fir_mp_oneshot_cascade_q(prog.bank, xq)
+    assert LAUNCHES["fir_mp_oneshot_cascade_q"] == 1
+    assert LAUNCHES["fir_mp_bank_q"] == 0
+    _exact(got, ref.fir_mp_oneshot_cascade_q(prog.bank, xq))
+
+
+@pytest.mark.parametrize("M,M_lp,octaves", [(12, 5, 4), (16, 8, 2),
+                                            (3, 6, 1)])
+def test_oneshot_cascade_q_generic_taps_match_plain(dev, clips, M, M_lp,
+                                                    octaves):
+    """Tap counts other than the configuration's 16 / 6 run the generic
+    body: the same bits."""
+    cfg = FILTERBANK._replace(num_octaves=octaves, filters_per_octave=4,
+                              bp_taps=M, lp_taps=M_lp, numerics="fixed")
+    fb = FilterBank(cfg, device=dev)
+    bank = fx.compile_bank(cfg, fb.bp_by_octave, fb.lp_filters, amax=1.0)
+    xq = fx.quantize_signal(bank, torch.from_numpy(clips[:5, :777]).to(dev))
+    got = fir_mp_oneshot_cascade_q(bank, xq)
+    _exact(got, ref.fir_mp_oneshot_cascade_q(bank, xq))
+    # the one-stage entry on the same generic widths, both modes
+    st = bank.octaves[0]
+    kw = dict(gamma_q=st.gamma_bp, iters=st.iters_bp,
+              qmin=st.band_spec.qmin, qmax=st.band_spec.qmax)
+    x0 = fx.rescale(xq, st.sig_shift)
+    _exact(fir_mp_bank_q_kernel(x0, st.bp_q, **kw),
+           ref.fir_mp_bank_q(x0, st.bp_q, **kw))
+    _exact(fir_mp_bank_q_kernel(x0, st.bp_q, accumulate=True, **kw),
+           ref.fir_mp_bank_q_accumulate(x0, st.bp_q, **kw))
+
+
+def test_fixed_oneshot_apply_runs_one_cascade_launch(dev, clips):
+    """One fixed ``apply`` launches the int cascade once and no one-stage
+    kernel; its p and phi codes equal the torch-op path's exactly."""
+    pipe = make_pipeline(numerics="fixed")
+    prog = pipe.calibrate_fixed(clips)
+    x = torch.from_numpy(clips).to(dev)
+    reset_launches()
+    p, phi = pipe.apply(x, return_features=True)
+    assert (LAUNCHES["fir_mp_oneshot_cascade_q"],
+            LAUNCHES["fir_mp_bank_q"]) == (1, 0)
+    p2, phi2 = fx.predict(prog, x, use_pallas=False)
+    torch.cuda.synchronize()
+    assert torch.equal(p, p2) and torch.equal(phi, phi2)
+
+
 def test_int_kernels_refuse_float_carried_codes(dev, prog):
     st = prog.bank.octaves[0]
     x = torch.zeros(2, 16, device=dev)
+    with pytest.raises(ValueError, match="f32-carried codes through the "
+                                         "CUDA int kernels"):
+        fir_mp_oneshot_cascade_q(prog.bank, x)
     with pytest.raises(ValueError, match="f32-carried codes through the "
                                          "CUDA int kernels"):
         fir_mp_bank_q_kernel(x, st.bp_q, gamma_q=st.gamma_bp,
@@ -514,11 +574,13 @@ def test_mp_linear_op_on_the_card(dev):
 
 
 @pytest.mark.parametrize("R,m", [(1, 8), (7, 100), (33, 257), (5, 2000),
-                                 (4096, 32)])
+                                 (4096, 32), (300, 31), (300, 33), (77, 64),
+                                 (77, 65)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_mp_waterfill_kernel_matches_plain(dev, R, m, dtype):
-    """Rows in one, several and sixteen registers per lane, a row longer
-    than the register path (m > 1024), and the bank's m = 32."""
+    """Rows of one lane (m <= 32) and of groups of 2, 4 and 16 lanes, the
+    boundaries between group widths (31 / 33, 64 / 65), a row longer than
+    the register path (m > 1024), and the bank's m = 32."""
     L = torch.from_numpy(np.random.default_rng(R + m).standard_normal(
         (R, m)).astype(np.float32) * 3).to(dev).to(dtype)
     reset_launches()

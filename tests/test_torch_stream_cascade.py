@@ -289,20 +289,20 @@ def test_stage_table_fields_and_reversed_taps(progs):
 
 
 def test_program_record_is_packed_once_per_program(progs):
-    """What the int cascade reads of a program, made on its first call and
-    cached on it: the stage table, filters per octave, tap lengths and
-    each octave's first accumulator column."""
+    """What the int cascades read of a program, made on the first call and
+    cached on its bank: the stage table, filters per octave, tap lengths
+    and each octave's first accumulator column."""
     _, prog = progs
     st = prog.bank.octaves
-    rec = _program_table(prog, T1, "cpu")
+    rec = _program_table(prog.bank, T1, "cpu")
     table, Fs, M, M_lp, cols = rec
     nxt = [st[o + 1].in_spec for o in range(len(st) - 1)] + [None]
     np.testing.assert_array_equal(table.numpy(), pack_stages(st, nxt, T1))
     assert Fs == tuple(s.bp_q.shape[0] for s in st)
     assert (M, M_lp) == (st[0].bp_q.shape[1], st[0].lp_q.shape[1])
     assert cols == tuple(int(c) for c in np.cumsum((0,) + Fs[:-1]))
-    assert _program_table(prog, T1, "cpu") is rec
-    assert _program_table(prog, T1 + 1, "cpu") is not rec
+    assert _program_table(prog.bank, T1, "cpu") is rec
+    assert _program_table(prog.bank, T1 + 1, "cpu") is not rec
 
 
 @pytest.mark.parametrize("integer", [False, True])
@@ -316,7 +316,7 @@ def test_cascade_inputs_and_outputs(ref_pipe, progs, integer):
         _, prog = progs
         st = prog.bank.octaves
         O = len(st)
-        _, Fs, M, M_lp, _ = _program_table(prog, T1, "cpu")
+        _, Fs, M, M_lp, _ = _program_table(prog.bank, T1, "cpu")
         port, _ = _both(_registers(5, S, L, O, sum(Fs), codes=(-100, 100)))
         plan, ins = _cascade_q_inputs(*port, Fs, M, M_lp)
         assert plan is stream_plan(L, max(Fs), M, M_lp, T1, octaves=O,
