@@ -44,12 +44,34 @@ nothing of the reference package). Phases, each failing loudly:
              time by the profiler and its bound (each low-pass at its
              kept positions; at all of them beside).
 4. serve   — the full esc10-mp bank (30 bands) behind a StreamServer of 256
-             slots: 256 sessions, 50 rounds of 160-sample packets (10 ms at
-             16 kHz). The stream cascade kernel must launch once per wave
-             and the one-octave kernel never; the decisions must be
-             finite, within [-1, 1], and the final p within 1e-5 of the
-             torch-op cascade (stream_impl="xla") served the same feeds on
-             the card.
+             slots, 50 waves of 160-sample packets (10 ms at 16 kHz):
+             255 regular sessions, stream 0 sending 300 samples in wave 10
+             and 20 in wave 11 (a bucket change, 256 -> 512 -> 256), and
+             the last slot churned between replays (one visitor opened
+             before wave 5 and closed before wave 20, another opened
+             before wave 30 on cleared registers). The served step runs
+             as one CUDA graph per bucket: the server must count one
+             replay per wave and one capture per bucket, and the stream
+             cascade's launches must be the replays plus one warm-up run
+             per capture (the one-octave kernel none). Every decision and
+             every register must equal, bit for bit, an eager run of
+             ``pipe._session_step`` on the same waves; the decisions must
+             be finite, within [-1, 1], and the final p within 1e-5 of the
+             torch-op cascade (stream_impl="xla") served the same waves.
+             Printed, not gated: feed() and the step, captured against
+             eager, in alternating pairs (host ms; device ms by CUDA
+             events), the captured step's device time part by part (each
+             part captured alone and replayed: masking, the cascade,
+             standardize, the readout, the copies around them, and the
+             whole step), and the eager step's breakdown under the
+             profiler.
+   serving tier — on the card at 256 slots: submit / poll / drain with a
+             coalescing watermark against feed(), eviction of 32 sessions
+             to a temporary checkpoint_dir and reopening them, and a
+             2-shard StreamRouter against one server, each bit for bit
+             (decisions and every register); the poisoned-server contract
+             with a step forced to raise and with a graph replay forced
+             to fail.
 5. one-shot — ``apply(x)`` through the cascade kernel (use_pallas=True,
              one launch, no one-stage launch) on 8 x 16000 samples against
              the plain path (use_pallas=False, solver="bisect"): phi within
@@ -77,13 +99,14 @@ nothing of the reference package). Phases, each failing loudly:
              adds), the one-shot cascade's low-pass at its kept positions;
              the count at every position and the reference algorithm's
              are printed beside.
-7. fixed serve — the serve phase's 256 sessions x 50 packets through a
-             fixed pipeline: one int stream cascade launch per wave and no
-             one-octave launch; the final codes
-             and accumulators exactly those of the torch-op integer cascade
-             (stream_impl="xla") on the same feeds, and of one-shot
-             ``infer_q`` on the 8000 samples each stream was fed (one int
-             one-shot cascade launch).
+7. fixed serve — phase 4's waves through a fixed pipeline, with phase 4's
+             gates (one replay per wave, one capture per bucket, the int
+             cascade's launches, captured bit for bit the eager step); the
+             final codes and accumulators exactly those of the torch-op
+             integer cascade (stream_impl="xla") on the same waves, and,
+             for the 255 regular streams, of one-shot ``infer_q`` on the
+             8000 samples each was fed (one int one-shot cascade launch);
+             phase 4's timings.
 8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int one-shot
              cascade (one launch, no one-stage launch) against the torch-op
              path: p and phi codes exactly equal; then where its time goes,
@@ -1114,29 +1137,297 @@ def phase_oneshot_cascade(fb, x):
     return row
 
 
-def serve(pipe, audio, rounds: int, packet: int):
-    """Open one session per audio row, feed ``rounds`` packets each;
-    returns (server, final p, per-round seconds)."""
+SERVE_MAX_CHUNK = 512      # the ladder's top bucket: a 300-sample packet
+CHURN = {5: [("open", "v1")], 20: [("close", "v1")], 30: [("open", "v2")]}
+
+
+def serve_schedule(audio, rounds: int, packet: int) -> list:
+    """The waves phases 4 and 7 serve, one per round: ``[(lifecycle ops
+    before the wave, requests), ...]``. Rows 0..S-2 are the regular
+    sessions s000.., one packet each per round; row 0 gets 300 samples in
+    round 10 and 20 in round 11 (a bucket change, 256 -> 512 -> 256, and
+    still every regular stream's first rounds x packet samples in order).
+    The last slot churns between replays: visitor v1 (row S-1 from its
+    first sample) opens before round 5 and closes before round 20; v2 (row
+    S-1 from its first sample again, on cleared registers) opens before
+    round 30."""
+    S = audio.shape[0]
+    pos = [0] * S
+    sched = []
+    for r in range(rounds):
+        ops = CHURN.get(r, [])
+        if ("open", "v2") in ops:
+            pos[S - 1] = 0
+        reqs = []
+        for i in range(S - 1):
+            n = {(0, 10): 300, (0, 11): 20}.get((i, r), packet)
+            reqs.append((f"s{i:03d}", audio[i, pos[i]:pos[i] + n]))
+            pos[i] += n
+        vis = "v1" if 5 <= r < 20 else "v2" if r >= 30 else None
+        if vis:
+            reqs.append((vis, audio[S - 1, pos[S - 1]:pos[S - 1] + packet]))
+            pos[S - 1] += packet
+        sched.append((ops, reqs))
+    return sched
+
+
+def slot_of(sid: str, S: int) -> int:
+    """The slot ``serve`` gives a session of ``serve_schedule``."""
+    return S - 1 if sid.startswith("v") else int(sid[1:])
+
+
+def serve(pipe, sched, S: int):
+    """Serve ``sched`` through a fresh StreamServer of S slots (on the card:
+    one captured graph per bucket, one replay per wave). Returns (server,
+    per-round results, per-round feed() seconds)."""
+    import torch
+    from repro_torch.serving import StreamServer
+    server = StreamServer(pipe, capacity=S, max_chunk=SERVE_MAX_CHUNK)
+    for i in range(S - 1):
+        server.open(f"s{i:03d}")
+    secs, results = [], []
+    for ops, reqs in sched:
+        for op, sid in ops:
+            getattr(server, op)(sid)
+            if op == "open" and server.session(sid).slot != slot_of(sid, S):
+                raise AssertionError(f"{sid} opened in slot "
+                                     f"{server.session(sid).slot}")
+        t0 = time.perf_counter()
+        res = server.feed(reqs)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        results.append(res)
+    for fr in (fr for res in results for fr in res):
+        if not (math.isfinite(fr.confidence) and -1 <= fr.confidence <= 1):
+            raise AssertionError(f"bad decision {fr}")
+    return server, results, secs
+
+
+def serve_eager(pipe, sched, S: int):
+    """The same waves through ``pipe._session_step`` run eagerly, op by op,
+    on one state of S slots (the lifecycle ops as the server makes them):
+    returns (final state, per-round p on the host)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import pipeline as pl
+    from repro_torch.serving import bucket_length
+    state = pipe.init_session(S, active=np.zeros(S, bool))
+    pl.set_active(state, list(range(S - 1)), True)
+    ps = []
+    for ops, reqs in sched:
+        for op, _ in ops:
+            if op == "open":
+                pl.clear_slots(state, [S - 1])
+            pl.set_active(state, [S - 1], op == "open")
+        L = bucket_length(max(len(c) for _, c in reqs), 16, SERVE_MAX_CHUNK)
+        chunk = np.zeros((S, L), np.float32)
+        valid = np.zeros(S, np.int32)
+        for sid, c in reqs:
+            chunk[slot_of(sid, S), :len(c)] = c
+            valid[slot_of(sid, S)] = len(c)
+        state, p, _ = pipe._session_step(state,
+                                         torch.from_numpy(chunk).cuda(),
+                                         torch.from_numpy(valid).cuda())
+        ps.append(p.cpu())
+    return state, ps
+
+
+def check_captured_vs_eager(server, results, state, ps, what: str) -> None:
+    """Gate: every served decision is the eager step's on its wave (label
+    and confidence, bit for bit), and every register of the server's state
+    equals the eager state's bit for bit."""
+    import torch
+    S = server.capacity
+    for r, (res, p) in enumerate(zip(results, ps)):
+        for fr in res:
+            row = p[slot_of(fr.session_id, S)]
+            label = int(torch.argmax(row))
+            if (fr.label, fr.confidence) != (label, float(row[label])):
+                raise AssertionError(
+                    f"{what}: round {r} {fr.session_id}: captured "
+                    f"{(fr.label, fr.confidence)} != eager "
+                    f"{(label, float(row[label]))}")
+    torch.cuda.synchronize()
+    for k, (a, b) in enumerate(zip(server.state.tensors(), state.tensors())):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: register {k} of the captured "
+                                 "server differs from the eager step's")
+
+
+def check_step_counts(server, sched, launches: int, key: str) -> dict:
+    """Gate: one graph replay per wave and one capture per bucket (counted
+    by the server's step), and the stream kernel's ``LAUNCHES`` are the
+    replays plus one warm-up run per capture."""
+    from repro_torch.serving import bucket_length
+    counts = server.step_counts()
+    buckets = sorted({bucket_length(max(len(c) for _, c in reqs), 16,
+                                    SERVE_MAX_CHUNK) for _, reqs in sched})
+    waves = server.steps_run
+    if not (waves == len(sched) and counts["replays"] == waves
+            and counts["captures"] == len(buckets)
+            and counts["graphs"] == buckets and counts["eager_runs"] == 0
+            and launches == waves + counts["captures"]):
+        raise AssertionError(
+            f"{waves} waves, buckets {buckets}: step counts {counts}, "
+            f"{key} launches {launches} (want one replay per wave, one "
+            "capture per bucket, launches = replays + warm-ups)")
+    return dict(counts, buckets=buckets)
+
+
+def serve_timing(pipe, audio, rounds: int = 24, packet: int = 160) -> dict:
+    """feed() and the session step, captured against eager, in alternating
+    pairs in one run (the order flips every pair; host clock, synchronized,
+    ms). Captured: a StreamServer of S slots. Eager: the synchronous feed
+    the port served with before (stage on the host, copy to the card,
+    ``_session_step`` op by op, read the decisions back). The step alone:
+    one call of the server's step on its static inputs (a graph replay)
+    against one eager ``_session_step`` on the same wave, host ms and
+    device ms by CUDA events."""
+    import numpy as np
     import torch
     from repro_torch.serving import StreamServer
     S = audio.shape[0]
-    server = StreamServer(pipe, capacity=S, max_chunk=256)
-    ids = [f"s{i:03d}" for i in range(S)]
+    dev = pipe.device
+    server = StreamServer(pipe, capacity=S, max_chunk=SERVE_MAX_CHUNK)
+    ids = [f"t{i:03d}" for i in range(S)]
     for sid in ids:
         server.open(sid)
-    secs, results = [], []
-    for r in range(rounds):
-        t0 = time.perf_counter()
-        res = server.feed([(sid, audio[i, r * packet:(r + 1) * packet])
-                           for i, sid in enumerate(ids)])
-        torch.cuda.synchronize()
-        secs.append(time.perf_counter() - t0)
-        results.extend(res)
-    for fr in results:
-        if not (math.isfinite(fr.confidence) and -1 <= fr.confidence <= 1):
-            raise AssertionError(f"bad decision {fr}")
-    p, _ = pipe.apply(torch.zeros(S, 0), server.state)   # pure readout
-    return server, p, secs
+    state = pipe.init_session(S)
+
+    def eager_feed(r):
+        nonlocal state
+        batch = np.zeros((S, 256), np.float32)
+        batch[:, :packet] = audio[:, r * packet:(r + 1) * packet]
+        valid = np.full(S, packet, np.int32)
+        state, p, _ = pipe._session_step(
+            state, torch.from_numpy(batch).to(dev),
+            torch.from_numpy(valid).to(dev))
+        p = p.cpu().numpy()
+        return p.argmax(1)
+
+    def captured_feed(r):
+        return server.feed([(sid, audio[i, r * packet:(r + 1) * packet])
+                            for i, sid in enumerate(ids)])
+
+    def pairs(fns: dict, n: int) -> dict:
+        out = {k: [] for k in fns}
+        for i in range(n):
+            order = list(fns) if i % 2 == 0 else list(fns)[::-1]
+            for k in order:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                fns[k](i)
+                torch.cuda.synchronize()
+                out[k].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    captured_feed(0)                    # capture the bucket's graph
+    eager_feed(0)
+    feeds = pairs({"captured": lambda i: captured_feed(1 + i),
+                   "eager": lambda i: eager_feed(1 + i)}, rounds)
+    step = server._step
+    chunk, valid = step.inputs(server.state, 256)
+    steps = pairs({"captured": lambda i: step(pipe, server.state, chunk,
+                                              valid),
+                   "eager": lambda i: pipe._session_step(state, chunk,
+                                                         valid)}, 20)
+    med = lambda v: sorted(v)[len(v) // 2]   # noqa: E731
+    return dict(
+        card=card_line(),
+        feed_ms_median=dict(captured=med(feeds["captured"]),
+                            eager=med(feeds["eager"])),
+        feed_ms_pairs=[[c, e] for c, e in zip(feeds["captured"],
+                                              feeds["eager"])],
+        step_host_ms_median=dict(captured=med(steps["captured"]),
+                                 eager=med(steps["eager"])),
+        step_device_ms=dict(
+            captured=cuda_ms(lambda: step(pipe, server.state, chunk, valid),
+                             20),
+            eager=cuda_ms(lambda: pipe._session_step(state, chunk, valid),
+                          20)))
+
+
+def captured_parts_ms(parts: dict, reps: int = 50) -> dict:
+    """Each part of the step captured as a CUDA graph of its own (after a
+    warm-up run on a side stream) and replayed ``reps`` times between CUDA
+    events: device ms per replay, part by part."""
+    import torch
+    from repro_torch.kernels._wrap import take_captured
+    out = {}
+    for name, fn in parts.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            fn()
+        out[name] = cuda_ms(graph.replay, reps)
+    take_captured()
+    out["sum_of_parts"] = sum(v for k, v in out.items() if k != "step")
+    return out
+
+
+def step_parts(pipe, numerics: str) -> dict:
+    """The parts of the captured float or fixed step on one (256, 256) wave
+    of 160-sample packets: masking (and, fixed, the ADC quantize), the
+    octave cascade (one stream kernel launch), standardize, the readout,
+    and the copies a served wave makes around them (the staged chunk and
+    counts to the card, the new registers into the state, the decisions
+    back), beside the whole step (session step + register copies)."""
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.kernels.ops import fir_mp_stream_q
+    S = 256
+    st = pipe.init_session(S)
+    chunk, valid = wave(pipe, S)
+    pos0 = torch.arange(256, device=chunk.device)[None, :]
+    n = torch.where(st.active, valid, 0)
+    host_chunk = chunk.cpu().pin_memory()
+    host_valid = valid.cpu().pin_memory()
+    new, p, _ = pipe._session_step(st, chunk, valid)
+    p_host = torch.empty(p.shape, pin_memory=True)
+
+    def copies():
+        chunk.copy_(host_chunk, non_blocking=True)
+        valid.copy_(host_valid, non_blocking=True)
+        for d, s in zip(st.tensors(), new.tensors()):
+            if d is not s:
+                d.copy_(s)
+        p_host.copy_(p, non_blocking=True)
+
+    def whole():
+        out, _, _ = pipe._session_step(st, chunk, valid)
+        for d, s in zip(st.tensors(), out.tensors()):
+            if d is not s:
+                d.copy_(s)
+
+    if numerics == "fixed":
+        prog = pipe.fixed_program()
+        xq = torch.where(pos0 < n[:, None], fx.quantize_signal(prog, chunk),
+                         0)
+        phi_q = fx.standardize_q(prog, st.acc)
+        parts = dict(
+            mask_quantize=lambda: torch.where(
+                pos0 < torch.where(st.active, valid, 0)[:, None],
+                fx.quantize_signal(prog, chunk), 0),
+            cascade=lambda: fir_mp_stream_q(prog, xq, n, st.delays,
+                                            st.consumed, st.acc, st.amax),
+            standardize=lambda: fx.standardize_q(prog, st.acc),
+            readout=lambda: prog.out_spec.dequantize(
+                fx.classifier_q(prog.clf, phi_q)))
+    else:
+        xm = torch.where(pos0 < n[:, None], chunk, 0.0)
+        phi = (st.acc - pipe.mu) / pipe.sigma
+        parts = dict(
+            mask=lambda: torch.where(
+                pos0 < torch.where(st.active, valid, 0)[:, None], chunk,
+                0.0),
+            cascade=lambda: pipe._cascade_pallas(st, xm, n),
+            standardize=lambda: (st.acc - pipe.mu) / pipe.sigma,
+            readout=lambda: pipe.clf(phi, exact=False))
+    return captured_parts_ms(dict(parts, copies=copies, step=whole))
 
 
 def wave(pipe, S: int):
@@ -1178,42 +1469,49 @@ def phase_serve(audio):
     if pipe.config.num_filters != 30 or pipe.device.type != "cuda":
         raise AssertionError("make_pipeline() must give the 30-band bank "
                              "on cuda")
-    serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
+    S = audio.shape[0]
+    sched = serve_schedule(audio, 50, 160)
+    serve(pipe, serve_schedule(audio[:, :1600], 10, 160)[:2], S)  # warm-up
     reset_launches()
-    server, p, secs = serve(pipe, audio, 50, 160)
+    server, results, secs = serve(pipe, sched, S)
     launches = LAUNCHES["fir_mp_stream_cascade"]
-    waves = server.steps_run
-    if not (waves > 0 and launches == waves
-            and LAUNCHES["fir_mp_stream_octave"] == 0):
-        raise AssertionError(
-            f"stream cascade kernel launched {launches} times for {waves} "
-            f"waves (want 1 per wave), the one-octave kernel "
-            f"{LAUNCHES['fir_mp_stream_octave']} times (want 0)")
+    if LAUNCHES["fir_mp_stream_octave"]:
+        raise AssertionError("the one-octave stream kernel launched "
+                             f"{LAUNCHES['fir_mp_stream_octave']} times")
+    counts = check_step_counts(server, sched, launches,
+                               "fir_mp_stream_cascade")
+    state, ps = serve_eager(pipe, sched, S)
+    check_captured_vs_eager(server, results, state, ps, "float serve")
+    p, _ = pipe.apply(torch.zeros(S, 0), server.state)   # pure readout
     if not (torch.isfinite(p).all() and p.abs().max() <= 1):
         raise AssertionError("final decisions not finite / outside [-1, 1]")
     plain = make_pipeline(stream_impl="xla", use_pallas=False)
-    _, p_plain, secs_plain = serve(plain, audio, 50, 160)
+    plain_server, _, secs_plain = serve(plain, sched, S)
+    p_plain, _ = plain.apply(torch.zeros(S, 0), plain_server.state)
     d = float((p - p_plain).abs().max())
     if not d <= SERVE_TOL:
         raise AssertionError(f"served p vs torch-op cascade: {d} > "
                              f"{SERVE_TOL}")
-    S = audio.shape[0]
     step_ms = sorted(secs)[len(secs) // 2] * 1e3
-    state = server.state
     chunk, valid = wave(pipe, S)
     phi = (state.acc - pipe.mu) / pipe.sigma
     breakdown = step_breakdown(
         lambda: pipe._session_step(state, chunk, valid),
         lambda: pipe._cascade_pallas(state, chunk, valid),
         lambda: pipe.clf(phi, exact=False), "float")
-    out = dict(phase="serve", streams=S, waves=waves,
-               stream_kernel_launches=launches, step_ms_median=step_ms,
+    out = dict(phase="serve", streams=S, waves=server.steps_run,
+               stream_kernel_launches=launches, step_counts=counts,
+               captured_equals_eager=True, step_ms_median=step_ms,
                step_ms_mean=sum(secs) / len(secs) * 1e3,
                streams_per_s=S * len(secs) / sum(secs),
                plain_step_ms_median=sorted(secs_plain)[len(secs) // 2] * 1e3,
-               max_abs_diff_vs_plain=d, **breakdown)
+               max_abs_diff_vs_plain=d,
+               timing_pairs=serve_timing(pipe, audio),
+               captured_parts_device_ms=step_parts(pipe, "float"),
+               eager=breakdown)
     log(out)
     return launches
+
 
 
 def phase_oneshot(x):
@@ -1643,29 +1941,33 @@ def phase_fixed_serve(audio, cal):
             [o.in_spec for o in prog_plain.bank.octaves]:
         raise AssertionError("the two fixed pipelines calibrated different "
                              "octave gains on the same audio")
-    serve(pipe, audio[:, :2 * 160], 2, 160)  # warm-up on a throwaway server
+    S = audio.shape[0]
+    sched = serve_schedule(audio, 50, 160)
+    serve(pipe, serve_schedule(audio[:, :1600], 10, 160)[:2], S)  # warm-up
     reset_launches()
-    server, p, secs = serve(pipe, audio, 50, 160)
+    server, results, secs = serve(pipe, sched, S)
     launches = LAUNCHES["fir_mp_stream_cascade_q"]
-    waves = server.steps_run
-    if not (waves > 0 and launches == waves
-            and LAUNCHES["fir_mp_stream_octave_q"] == 0):
-        raise AssertionError(
-            f"int stream cascade kernel launched {launches} times for "
-            f"{waves} waves (want 1 per wave), the one-octave kernel "
-            f"{LAUNCHES['fir_mp_stream_octave_q']} times (want 0)")
+    if LAUNCHES["fir_mp_stream_octave_q"]:
+        raise AssertionError("the one-octave int stream kernel launched "
+                             f"{LAUNCHES['fir_mp_stream_octave_q']} times")
+    counts = check_step_counts(server, sched, launches,
+                               "fir_mp_stream_cascade_q")
+    state_e, ps = serve_eager(pipe, sched, S)
+    check_captured_vs_eager(server, results, state_e, ps, "fixed serve")
     state = server.state
     if state.acc.dtype != torch.int32 or state.delays[0].dtype != torch.int32:
         raise AssertionError("fixed registers must stay int32")
     scale = prog.out_spec.scale
+    p, _ = pipe.apply(torch.zeros(S, 0), state)           # pure readout
     p_q = torch.round(p / scale).to(torch.int32)
-    plain_server, p_plain, secs_plain = serve(plain, audio, 50, 160)
+    plain_server, _, secs_plain = serve(plain, sched, S)
+    p_plain, _ = plain.apply(torch.zeros(S, 0), plain_server.state)
     exact(p_q, torch.round(p_plain / scale).to(torch.int32),
           "served p codes vs the torch-op integer cascade")
     exact(state.acc, plain_server.state.acc,
           "served accumulators vs the torch-op integer cascade")
-    S = audio.shape[0]
-    x = torch.from_numpy(audio[:, :50 * 160].copy()).cuda()
+    # the regular streams were each fed their row's first 50 x 160 samples
+    x = torch.from_numpy(audio[:S - 1, :50 * 160].copy()).cuda()
     reset_launches()
     p_one, _, s_one = fx.infer_q(prog, fx.quantize_signal(prog, x),
                                  use_pallas=True)
@@ -1673,29 +1975,177 @@ def phase_fixed_serve(audio, cal):
             != (1, 0):
         raise AssertionError(f"infer_q(use_pallas=True) launches "
                              f"{dict(LAUNCHES)}: want one int cascade")
-    exact(p_q, p_one, "served p codes vs one-shot infer_q")
-    exact(state.acc, s_one, "served accumulators vs one-shot infer_q")
+    exact(p_q[:S - 1], p_one, "served p codes vs one-shot infer_q")
+    exact(state.acc[:S - 1], s_one, "served accumulators vs one-shot "
+                                    "infer_q")
     chunk, valid = wave(pipe, S)
     xq = fx.quantize_signal(prog, chunk)
     breakdown = step_breakdown(
-        lambda: pipe._session_step(state, chunk, valid),
-        lambda: fir_mp_stream_q(prog, xq, valid, state.delays,
-                                state.consumed, state.acc, state.amax),
-        lambda: fx.readout_q(prog, state.acc), "fixed")
+        lambda: pipe._session_step(state_e, chunk, valid),
+        lambda: fir_mp_stream_q(prog, xq, valid, state_e.delays,
+                                state_e.consumed, state_e.acc,
+                                state_e.amax),
+        lambda: fx.readout_q(prog, state_e.acc), "fixed")
     step_ms = sorted(secs)[len(secs) // 2] * 1e3
     octaves = prog.bank.octaves
-    log(dict(phase="fixed_serve", streams=S, waves=waves,
+    log(dict(phase="fixed_serve", streams=S, waves=server.steps_run,
              signal_exp=prog.signal.exp,
              octave_gains=[prog.signal.exp - o.in_spec.exp for o in octaves],
              iters_bp=[o.iters_bp for o in octaves],
              iters_lp=[o.iters_lp for o in octaves if o.lp_q is not None],
              iters_readout=[prog.clf.iters1, prog.clf.iters_n],
-             stream_kernel_launches=launches, step_ms_median=step_ms,
+             stream_kernel_launches=launches, step_counts=counts,
+             captured_equals_eager=True, step_ms_median=step_ms,
              step_ms_mean=sum(secs) / len(secs) * 1e3,
              streams_per_s=S * len(secs) / sum(secs),
              plain_step_ms_median=sorted(secs_plain)[len(secs) // 2] * 1e3,
-             codes_equal_plain=True, codes_equal_oneshot=True, **breakdown))
+             codes_equal_plain=True, codes_equal_oneshot=True,
+             timing_pairs=serve_timing(pipe, audio),
+             captured_parts_device_ms=step_parts(pipe, "fixed"),
+             eager=breakdown))
     return launches
+
+
+
+# -- the serving tier: async pipeline, eviction, router, poison ---------------
+
+
+def same_results(got, want, what: str) -> None:
+    key = lambda rs: [(r.session_id, r.label, r.confidence,  # noqa: E731
+                       r.samples_seen) for r in rs]
+    if key(got) != key(want):
+        raise AssertionError(f"{what}: results differ")
+
+
+def same_rows(a, b, ids, what: str) -> None:
+    """Every register row of each session, bit for bit, in two servers
+    (or a router and a server) whatever slots they hold."""
+    import torch
+    torch.cuda.synchronize()
+    for sid in ids:
+        sa, sb = a.session(sid), b.session(sid)
+        srv_a = a.shard(a.shard_of(sid)) if hasattr(a, "shard") else a
+        for x, y in zip(srv_a.state.tensors(), b.state.tensors()):
+            if not torch.equal(x[sa.slot], y[sb.slot]):
+                raise AssertionError(f"{what}: {sid}'s registers differ")
+
+
+def phase_serving_tier(audio):
+    """The serving tier on the card at 256 slots, float: submit / poll /
+    drain against feed(), eviction to checkpoints and reopening, a 2-shard
+    router against one server (each bit for bit), and the poisoned-server
+    contract (a step forced to raise, a replay forced to fail)."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+    from repro_torch.configs.esc10_mp import make_pipeline
+    from repro_torch.serving import StreamRouter, StreamServer
+    pipe = make_pipeline()
+    S = audio.shape[0]
+    ids = [f"m{i:03d}" for i in range(S)]
+    rounds = [[(sid, audio[i, r * 160:(r + 1) * 160])
+               for i, sid in enumerate(ids)] for r in range(10)]
+    kw = dict(capacity=S, max_chunk=256)
+    out = dict(phase="serving_tier", streams=S)
+
+    # submit / poll / drain with a watermark == feed()
+    sync, asy = StreamServer(pipe, **kw), StreamServer(
+        pipe, coalesce_watermark=64, **kw)
+    for srv in (sync, asy):
+        for sid in ids:
+            srv.open(sid)
+    polled = 0
+    for reqs in rounds:
+        want = sync.feed(reqs)
+        tickets = [asy.submit(reqs[g::4]) for g in range(4)]  # 64 each
+        t0 = time.perf_counter()
+        while asy.poll(tickets[-1]) is None and \
+                time.perf_counter() - t0 < 5:
+            pass
+        polled += tickets[-1].done
+        asy.drain()
+        got = [None] * len(reqs)
+        for g, t in enumerate(tickets):
+            got[g::4] = t.results
+        same_results(got, want, "async vs feed()")
+    same_rows(asy, sync, ids, "async vs feed()")
+    out["async"] = dict(equal=True, waves=asy.steps_run,
+                        resolved_by_poll=polled,
+                        step_counts=asy.step_counts())
+
+    # eviction to named checkpoints, then reopening
+    with tempfile.TemporaryDirectory() as d:
+        ev = StreamServer(pipe, checkpoint_dir=d, **kw)
+        ref = StreamServer(pipe, **kw)
+        for srv in (ev, ref):
+            for sid in ids:
+                srv.open(sid)
+        parked, rest = ids[:32], ids[32:]
+        for r in range(10):
+            if r == 4:
+                for sid in parked:
+                    ev.evict(sid)
+            if r == 6:
+                for sid in parked:       # LIFO free slots: they move
+                    ev.open(sid)
+            reqs = [q for q in rounds[r]
+                    if 4 <= r < 6 and q[0] in rest or not 4 <= r < 6]
+            same_results(ev.feed(reqs), ref.feed(reqs), "eviction")
+        moved = sum(ev.session(s).slot != ref.session(s).slot
+                    for s in parked)
+        same_rows(ev, ref, ids, "evicted and reopened")
+        out["eviction"] = dict(equal=True, parked=len(parked),
+                               moved_slots=moved)
+
+    # a 2-shard router == one server
+    router = StreamRouter(pipe, num_shards=2, **kw)
+    single = StreamServer(pipe, **kw)
+    for sid in ids:
+        router.open(sid)
+        single.open(sid)
+    for reqs in rounds[:6]:
+        same_results(router.feed(reqs), single.feed(reqs), "router")
+    same_rows(router, single, ids, "router")
+    out["router"] = dict(equal=True, shards=[
+        srv.stats()["resident"] for srv in router.shards])
+
+    # the poisoned-server contract
+    def poisoned(srv, what):
+        try:
+            srv.feed(rounds[1][:8])
+        except RuntimeError as e:
+            first = str(e)
+        else:
+            raise AssertionError(f"{what}: feed did not raise")
+        try:
+            srv.open("late")
+        except RuntimeError as e:
+            if "poisoned" not in str(e) or "wave 1" not in str(e):
+                raise AssertionError(f"{what}: {e}")
+        else:
+            raise AssertionError(f"{what}: a poisoned server took a call")
+        return dict(error=first, stats_poisoned=srv.stats()["poisoned"])
+
+    srv = StreamServer(pipe, capacity=8, max_chunk=256)
+    for sid in ids[:8]:
+        srv.open(sid)
+    srv.feed(rounds[0][:8])
+
+    def bad_step(p, state, chunk, valid):
+        raise RuntimeError("forced step failure")
+
+    srv._step = bad_step
+    out["poison_step"] = poisoned(srv, "step forced to raise")
+    srv = StreamServer(pipe, capacity=8, max_chunk=256)
+    for sid in ids[:8]:
+        srv.open(sid)
+    srv.feed(rounds[0][:8])                    # captured
+    with mock.patch.object(torch.cuda.CUDAGraph, "replay",
+                           side_effect=RuntimeError("forced replay failure")):
+        out["poison_replay"] = poisoned(srv, "replay forced to fail")
+    log(out)
+    return out
 
 
 def phase_fixed_oneshot(x, cal):
@@ -2095,6 +2545,7 @@ def main() -> int:
     cascade_row = phase_oneshot_cascade(fb, x1)
 
     serve_launches = phase_serve(clips[:256, :50 * 160])
+    phase_serving_tier(clips[:256, :10 * 160])
     oneshot_launches = phase_oneshot(x1)
 
     cal = clips[:8]

@@ -40,12 +40,14 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import numbers
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.mp import device_scalar
 from repro_torch.core.quant import FixedPointSpec, pow2_spec_for
 
 __all__ = [
@@ -85,12 +87,41 @@ def _floatp(q: torch.Tensor) -> bool:
     return q.dtype.is_floating_point
 
 
+def _carrier(like: torch.Tensor) -> torch.dtype:
+    return torch.float32 if _floatp(like) else torch.int32
+
+
 def _c(a, like: torch.Tensor) -> torch.Tensor:
-    """A program constant on the carrier dtype and device of ``like``."""
-    dtype = torch.float32 if _floatp(like) else torch.int32
+    """A program constant on the carrier dtype and device of ``like``. A
+    scalar comes from the shared device-scalar cache; an array is copied
+    over (steps that run per wave pass cached tensors, :func:`_rom`)."""
+    dtype = _carrier(like)
     if isinstance(a, torch.Tensor):
         return a.to(device=like.device, dtype=dtype)
+    if isinstance(a, numbers.Number):
+        return device_scalar(float(a) if dtype == torch.float32 else int(a),
+                             dtype, like.device)
     return torch.as_tensor(np.asarray(a), device=like.device).to(dtype)
+
+
+def _rom(owner, name: str, like: torch.Tensor, *, make=None,
+         shift: bool = False) -> torch.Tensor:
+    """The program array ``owner.<name>`` (or ``make()``) as a tensor on
+    ``like``'s device: int32 under ``shift`` (shift counts), else the
+    carrier dtype of ``like``. Made once per (name, dtype, device) and
+    cached on ``owner``, a frozen program object (the cache sits in its
+    instance dict, outside its fields), as ``kernels.fir_mp`` caches its
+    device tables: a step that reads it copies nothing from the host, so
+    it can run inside a captured CUDA graph."""
+    dtype = torch.int32 if shift else _carrier(like)
+    cache = vars(owner).setdefault("_device_consts", {})
+    key = (name, dtype, str(like.device))
+    t = cache.get(key)
+    if t is None:
+        a = make() if make is not None else getattr(owner, name)
+        t = cache[key] = torch.as_tensor(np.ascontiguousarray(a),
+                                         device=like.device).to(dtype)
+    return t
 
 
 def _shift_count(k, like: torch.Tensor):
@@ -99,6 +130,14 @@ def _shift_count(k, like: torch.Tensor):
         return int(k)
     return torch.as_tensor(np.asarray(k) if not isinstance(k, torch.Tensor)
                            else k, device=like.device).to(torch.int32)
+
+
+def _shift_tensor(k, like: torch.Tensor) -> torch.Tensor:
+    """A shift count from :func:`_shift_count` as an int32 tensor (an int
+    from the shared device-scalar cache)."""
+    if isinstance(k, int):
+        return device_scalar(k, torch.int32, like.device)
+    return k
 
 
 def _sum(q: torch.Tensor, dim: int) -> torch.Tensor:
@@ -112,8 +151,7 @@ def shift_right(q: torch.Tensor, k) -> torch.Tensor:
     Float carrier: ``floor(ldexp(q, -k))``."""
     k = _shift_count(k, q)
     if _floatp(q):
-        kt = torch.as_tensor(k, device=q.device, dtype=torch.int32)
-        return torch.floor(torch.ldexp(q, -kt))
+        return torch.floor(torch.ldexp(q, -_shift_tensor(k, q)))
     return torch.bitwise_right_shift(q, k)
 
 
@@ -122,8 +160,7 @@ def shift_left(q: torch.Tensor, k) -> torch.Tensor:
     or more give 0)."""
     k = _shift_count(k, q)
     if _floatp(q):
-        kt = torch.as_tensor(k, device=q.device, dtype=torch.int32)
-        return torch.ldexp(q, kt)
+        return torch.ldexp(q, _shift_tensor(k, q))
     return torch.bitwise_left_shift(q, k)
 
 
@@ -618,8 +655,8 @@ def bank_accumulate_q(bank: FixedBankProgram, xq: torch.Tensor, *,
     for o, st in enumerate(bank.octaves):
         if mp:
             s = fxp_hwr_accumulate(fxp_fir_bank(
-                rescale(x_o, st.sig_shift), st.bp_q, st.gamma_bp,
-                st.iters_bp, st.band_spec))
+                rescale(x_o, st.sig_shift), _rom(st, "bp_q", x_o),
+                st.gamma_bp, st.iters_bp, st.band_spec))
         else:
             bands = [rescale(fxp_fir_shift_add(x_o, st.bp_rom[f]),
                              st.bp_prod_shift)
@@ -629,9 +666,9 @@ def bank_accumulate_q(bank: FixedBankProgram, xq: torch.Tensor, *,
         parts.append(shift_left(s, st.acc_shift))
         if st.lp_q is not None:
             if mp:
-                y_lp = fxp_fir_bank(rescale(x_o, st.lp_sig_shift), st.lp_q,
-                                    st.gamma_lp, st.iters_lp,
-                                    st.lp_spec)[..., 0, :]
+                y_lp = fxp_fir_bank(rescale(x_o, st.lp_sig_shift),
+                                    _rom(st, "lp_q", x_o), st.gamma_lp,
+                                    st.iters_lp, st.lp_spec)[..., 0, :]
             else:
                 y_lp = _clamp(rescale(fxp_fir_shift_add(x_o, st.lp_rom[0]),
                                       st.lp_prod_shift), st.lp_spec)
@@ -645,10 +682,10 @@ def bank_accumulate_q(bank: FixedBankProgram, xq: torch.Tensor, *,
 def standardize_q(prog: FixedPointProgram, s_q: torch.Tensor) -> torch.Tensor:
     """32-bit accumulators -> 8-bit standardized kernel vector: subtract
     the mu ROM, then the per-band two-term CSD reciprocal sigma."""
-    diff = s_q - _c(prog.mu_q, s_q)
-    t1 = rescale(diff, prog.phi_shift_q)
-    t2 = rescale(diff, prog.phi_shift2_q)
-    s2 = _shift_count(prog.phi_sign2_q, s_q)
+    diff = s_q - _rom(prog, "mu_q", s_q)
+    t1 = rescale(diff, _rom(prog, "phi_shift_q", s_q, shift=True))
+    t2 = rescale(diff, _rom(prog, "phi_shift2_q", s_q, shift=True))
+    s2 = _rom(prog, "phi_sign2_q", s_q, shift=True)
     phi = torch.where(s2 > 0, t1 + t2, torch.where(s2 < 0, t1 - t2, t1))
     return _clamp(phi, prog.phi)
 
@@ -659,19 +696,19 @@ def classifier_q(clf: FixedClassifier, K_q: torch.Tensor) -> torch.Tensor:
     K = shift_left(K_q, clf.phi_shift)          # phi grid -> operand grid
     Kp = K[:, :, None]
     Kn = -K[:, :, None]
-    wp = _c(clf.wp_q, K_q)
-    wn = _c(clf.wn_q, K_q)
+    wp = _rom(clf, "wp_q", K_q)
+    wn = _rom(clf, "wn_q", K_q)
 
     def z_of(a, b, bias):
         ops = torch.cat([_clamp(a[None] + Kp, clf.spec),
                          _clamp(b[None] + Kn, clf.spec)], dim=1)
-        bias_col = _c(bias, K_q)[None, None, :].expand(
+        bias_col = _rom(clf, bias, K_q)[None, None, :].expand(
             ops.shape[0], 1, ops.shape[2])
         ops = torch.cat([ops, bias_col], dim=1)     # (B, 2P+1, C)
         return fxp_mp_bisect(ops.movedim(1, -1), clf.gamma1_q, clf.iters1)
 
-    z_pos = z_of(wp, wn, clf.bpos_q)
-    z_neg = z_of(wn, wp, clf.bneg_q)
+    z_pos = z_of(wp, wn, "bpos_q")
+    z_neg = z_of(wn, wp, "bneg_q")
     z = fxp_mp_bisect(torch.stack([z_pos, z_neg], dim=-1), clf.gamman_q,
                       clf.iters_n)
     return _relu(z_pos - z) - _relu(z_neg - z)
@@ -748,8 +785,9 @@ def session_step_q(prog: FixedPointProgram, state, chunk_q: torch.Tensor,
         buf = torch.cat([state.delays[o], x_o], dim=1)
         buf_bp = buf[:, T1 - (M_bp - 1):]
         if bank.mode == "mp":
-            band = fxp_fir_bank(rescale(buf_bp, st.sig_shift), st.bp_q,
-                                st.gamma_bp, st.iters_bp, st.band_spec,
+            band = fxp_fir_bank(rescale(buf_bp, st.sig_shift),
+                                _rom(st, "bp_q", buf_bp), st.gamma_bp,
+                                st.iters_bp, st.band_spec,
                                 pad=False)                   # (S, F, l_max)
         else:
             bands = [rescale(fxp_fir_shift_add(buf_bp, st.bp_rom[f],
@@ -776,8 +814,10 @@ def session_step_q(prog: FixedPointProgram, state, chunk_q: torch.Tensor,
                         + torch.arange(M_lp, device=dev)[None, :])
                 win = xw[rows[:, :, None],
                          start.long()[:, None, None] + widx[None]]
-                kept = fxp_mp_dot(win, _c(st.lp_q[0, ::-1].copy(), xw),
-                                  st.gamma_lp, st.iters_lp, st.lp_spec)
+                w_lp = _rom(st, "lp_q_reversed", xw,
+                            make=lambda: st.lp_q[0, ::-1])
+                kept = fxp_mp_dot(win, w_lp, st.gamma_lp, st.iters_lp,
+                                  st.lp_spec)
             else:
                 y_lp = _clamp(rescale(fxp_fir_shift_add(
                     buf_lp, st.lp_rom[0], pad=False), st.lp_prod_shift),

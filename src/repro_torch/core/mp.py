@@ -20,6 +20,9 @@ this exact tree.
 
 from __future__ import annotations
 
+import functools
+import numbers
+
 import torch
 import torch.nn.functional as F
 
@@ -36,6 +39,7 @@ __all__ = [
     "mp_linear",
     "DEFAULT_BISECT_ITERS",
     "DEFAULT_NEWTON_ITERS",
+    "device_scalar",
 ]
 
 DEFAULT_BISECT_ITERS = 26  # |interval| * 2^-26 < 1e-7 * gamma: fp32-parity
@@ -63,7 +67,19 @@ def tree_sum(h: torch.Tensor) -> torch.Tensor:
     return h[..., 0]
 
 
+@functools.lru_cache(maxsize=256)
+def device_scalar(value, dtype: torch.dtype,
+                  device: torch.device) -> torch.Tensor:
+    """A 0-d constant on ``device``, made once per (value, dtype, device)
+    and shared (read-only): a step that uses it copies nothing from the
+    host, so it can run inside a captured CUDA graph."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def _gamma(gamma, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(gamma, numbers.Real) and not isinstance(gamma,
+                                                          torch.Tensor):
+        return device_scalar(float(gamma), like.dtype, like.device)
     return torch.as_tensor(gamma, dtype=like.dtype, device=like.device)
 
 

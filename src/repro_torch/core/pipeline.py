@@ -16,6 +16,12 @@ the one entry point:
   call carry packets of different lengths; a slot with no valid samples
   (or inactive) gets its registers back bit for bit.
 
+The session step copies nothing from the host and never waits for the
+card (its constants are made once per pipeline or program and cached on
+the device), so ``serving.make_batched_step`` can capture it as one CUDA
+graph per chunk bucket. The deprecated one-cohort shims of the reference
+(:class:`StreamingState`, ``init_state``, ``step``, ``stream``) run on it.
+
 ``config.stream_impl`` picks the session step's octave cascade:
 ``"pallas"`` is the CUDA stream kernel (``kernels.fir_mp_stream``; its
 plain PyTorch version on the CPU), ``"xla"`` the torch-op cascade. Both
@@ -49,8 +55,8 @@ from repro_torch.core import mp as mp_mod
 from repro_torch.core.filterbank import FilterBank, FilterBankConfig
 from repro_torch.device import resolve_device
 
-__all__ = ["InFilterPipeline", "SessionState", "clear_slots", "set_active",
-           "take_slot", "put_slot"]
+__all__ = ["InFilterPipeline", "SessionState", "StreamingState",
+           "clear_slots", "set_active", "take_slot", "put_slot"]
 
 
 class SessionState(NamedTuple):
@@ -77,6 +83,23 @@ class SessionState(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.acc.shape[0]
+
+    def tensors(self) -> tuple:
+        """Every register tensor, in field order (delays and consumed
+        flattened)."""
+        return (*self.delays, *self.consumed, self.acc, self.amax,
+                self.count, self.active)
+
+
+class StreamingState(NamedTuple):
+    """DEPRECATED one-cohort streaming state (the reference's pre-session
+    API, kept for its ``init_state`` / ``step`` callers): a view of
+    :class:`SessionState` whose B streams all share one age (0-d int32
+    ``consumed`` per octave); ``amax`` is the per-stream running amax."""
+    delays: tuple
+    consumed: tuple
+    acc: torch.Tensor
+    amax: torch.Tensor
 
 
 class InFilterPipeline(nn.Module):
@@ -295,6 +318,74 @@ class InFilterPipeline(nn.Module):
         return (state, prog.out_spec.dequantize(p_q),
                 prog.phi.dequantize(phi_q))
 
+    # -- deprecated one-cohort streaming shims --------------------------------
+
+    def init_state(self, batch: int, dtype=torch.float32) -> StreamingState:
+        """DEPRECATED: use ``init_session``. One cohort of ``batch``
+        streams that advance in lockstep (0-d per-octave ages). The port's
+        float registers are float32 (int32 codes under
+        ``numerics="fixed"``), so a float pipeline takes no other
+        ``dtype``."""
+        if self.config.numerics == "float" and dtype != torch.float32:
+            raise ValueError(f"the port's float registers are float32, "
+                             f"got dtype {dtype}")
+        sess = self.init_session(batch)
+        return StreamingState(
+            delays=sess.delays,
+            consumed=tuple(torch.zeros((), dtype=torch.int32,
+                                       device=self.device)
+                           for _ in sess.consumed),
+            acc=sess.acc, amax=sess.amax)
+
+    def step(self, state: StreamingState, chunk):
+        """DEPRECATED: use ``apply``. Consume one (B, L) chunk; returns
+        ``(state', p (B, C))``: the session step on the cohort lifted to a
+        ``SessionState`` (every row the same age), collapsed back."""
+        chunk = self._tensor(chunk)
+        B, L = chunk.shape
+        i32 = dict(dtype=torch.int32, device=self.device)
+        sess = SessionState(
+            delays=state.delays,
+            consumed=tuple(c.to(torch.int32).expand(B).contiguous()
+                           for c in state.consumed),
+            acc=state.acc, amax=state.amax,
+            count=state.consumed[0].to(torch.int32).expand(B).contiguous(),
+            active=torch.ones(B, dtype=torch.bool, device=self.device))
+        sess, p, _ = self._session_step(sess, chunk,
+                                        torch.full((B,), L, **i32))
+        return StreamingState(sess.delays,
+                              tuple(c[0] for c in sess.consumed), sess.acc,
+                              sess.amax), p
+
+    def stream(self, chunks, *, dtype=None) -> torch.Tensor:
+        """Classify an iterable of (B, L_i) chunks; returns the final p.
+        Memory stays fixed whatever the stream's length.
+
+        ``dtype`` fixes the stream's dtype up front (None: the first
+        chunk's; float64 chunks count as float32, as JAX takes them).
+        A chunk of another dtype raises rather than silently changing the
+        registers' type mid-stream."""
+        state = p = None
+        if dtype is not None:
+            dtype = _torch_dtype(dtype)
+        for chunk in chunks:
+            chunk = torch.as_tensor(chunk)
+            if chunk.dtype == torch.float64:
+                chunk = chunk.float()
+            if dtype is None:
+                dtype = chunk.dtype
+            if chunk.dtype != dtype:
+                raise ValueError(
+                    f"stream() chunk dtype {chunk.dtype} != stream dtype "
+                    f"{dtype}; cast explicitly (mixed-dtype chunks would "
+                    "silently change the streaming registers' type)")
+            if state is None:
+                state = self.init_state(chunk.shape[0], dtype)
+            state, p = self.step(state, chunk)
+        if p is None:
+            raise ValueError("stream() needs at least one chunk")
+        return p
+
     def _cascade_pallas_fixed(self, prog, state: SessionState,
                               xq: torch.Tensor, n: torch.Tensor):
         """Integer octave cascade through the int stream kernel
@@ -397,6 +488,14 @@ class InFilterPipeline(nn.Module):
                             state.count + n, state.active)
 
 
+def _torch_dtype(dtype) -> torch.dtype:
+    """A torch dtype from a torch or numpy dtype (or its name)."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    import numpy as np
+    return torch.from_numpy(np.empty(0, np.dtype(dtype))).dtype
+
+
 # ---------------------------------------------------------------------------
 # slot surgery (admission bookkeeping for serving code)
 # ---------------------------------------------------------------------------
@@ -436,9 +535,6 @@ def put_slot(state: SessionState, slot: int, row: SessionState
              ) -> SessionState:
     """Write a row from :func:`take_slot` into ``slot``, IN PLACE (returns
     ``state``)."""
-    for dst, src in zip((*state.delays, *state.consumed, state.acc,
-                         state.amax, state.count, state.active),
-                        (*row.delays, *row.consumed, row.acc, row.amax,
-                         row.count, row.active)):
+    for dst, src in zip(state.tensors(), row.tensors()):
         dst[slot] = src
     return state

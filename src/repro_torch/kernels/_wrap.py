@@ -3,7 +3,10 @@ the checks made before a pointer reaches a kernel.
 
 ``LAUNCHES`` counts launches per kernel (one per wrapper call that launched
 its kernel, none for a call that ran the plain version), so a run can show
-that its path went through the kernels.
+that its path went through the kernels. A wrapper called while its stream
+is being captured into a CUDA graph launches nothing yet: its launch is
+held apart (:func:`take_captured`) and counted each time the graph is
+replayed (:func:`add_launches`, called by whoever replays it).
 """
 
 from __future__ import annotations
@@ -17,9 +20,36 @@ LAUNCHES = {"fir_mp_stream_cascade": 0, "fir_mp_stream_octave": 0,
             "mp_linear": 0, "mp_waterfill": 0}
 
 
+_CAPTURED: dict = {}
+
+
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel ``name`` by its wrapper: in ``LAUNCHES``,
+    or, while the current stream is capturing a graph, among the graph's
+    launches."""
+    if torch.cuda.is_current_stream_capturing():
+        _CAPTURED[name] = _CAPTURED.get(name, 0) + 1
+    else:
+        LAUNCHES[name] += 1
+
+
+def take_captured() -> dict:
+    """The launches counted during captures since the last call (kernel
+    -> count), and forget them."""
+    out = dict(_CAPTURED)
+    _CAPTURED.clear()
+    return out
+
+
+def add_launches(counts: dict) -> None:
+    """Count a replayed graph's launches (from :func:`take_captured`)."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
 
 
 def _on_cuda(*tensors) -> bool:

@@ -41,7 +41,7 @@ layout) and a table of per-octave rows (:func:`oneshot_octave_rows`,
 :func:`oneshot_q_octave_rows`); the integer one reads its stage constants
 from the same stage table as the int stream kernel.
 
-Each launch is counted in ``kernels._wrap.LAUNCHES``.
+Each launch is counted in ``kernels._wrap.LAUNCHES`` (``count_launch``).
 """
 
 from __future__ import annotations
@@ -55,8 +55,8 @@ import torch
 
 from repro_torch.core.filterbank import accumulate_block_len
 from repro_torch.kernels import ref
-from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
-                                       _on_cuda, _stream)
+from repro_torch.kernels._wrap import (_check, _expect, _f32, _on_cuda,
+                                       _stream, count_launch)
 
 __all__ = ["fir_mp_stream_cascade", "fir_mp_stream_octave",
            "fir_mp_bank_kernel", "fir_mp_kernel", "fir_mp_oneshot_cascade",
@@ -318,7 +318,7 @@ def fir_mp_stream_cascade(chunk, n, delays, consumed, acc, amax, bp_taps,
         _check(code, "fir_mp_stream_cascade", f"S={S} L={L} octaves={O} "
                                               f"F={Fn} M={M} T1={T1} "
                                               f"M_lp={M_lp}")
-    LAUNCHES["fir_mp_stream_cascade"] += 1
+    count_launch("fir_mp_stream_cascade")
     return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
             acc_out, amax_out if update_amax else amax)
 
@@ -414,7 +414,7 @@ def fir_mp_stream_octave(x, n, start, delay, acc, amax, H, lp, gamma, *,
                           update_amax=update_amax, cascade=False, plan=plan)
     _check(code, "fir_mp_stream_octave",
            f"S={S} L={L} F={Fn} M={M} T1={T1} M_lp={M_lp}")
-    LAUNCHES["fir_mp_stream_octave"] += 1
+    count_launch("fir_mp_stream_octave")
     return acc_o, delay_o, amax_o, y_next
 
 
@@ -651,7 +651,7 @@ def fir_mp_oneshot_cascade(x, bp_taps, lp_taps, gamma, *,
     if code:
         _check(code, "fir_mp_oneshot_cascade", f"B={B} N={N} octaves={O} "
                                                f"F={F} M={M} M_lp={M_lp}")
-    LAUNCHES["fir_mp_oneshot_cascade"] += 1
+    count_launch("fir_mp_oneshot_cascade")
     return sums
 
 
@@ -674,7 +674,7 @@ def _one_stage(x, H, gamma, accumulate, iters, key):
         code = _oneshot_launch(plan, x, [], [H], sums=None, y=out, M=M,
                                M_fir=M, gamma=gamma, iters=iters)
     _check(code, key, f"B={B} N={N} F={Fn} M={M}")
-    LAUNCHES[key] += 1
+    count_launch(key)
     return out
 
 
@@ -759,7 +759,7 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
     if code:
         _check(code, key, f"S={S} L={L} octaves={O} F={list(Fs)} M={M} "
                           f"T1={T1} M_lp={M_lp}")
-    LAUNCHES[key] += 1
+    count_launch(key)
     return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
             acc_out, amax_out)
 
@@ -861,7 +861,7 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
                             M_lp=M_lp, T1=T1, update_amax=update_amax,
                             cascade=False, plan=plan)
     _check(code, key, f"S={S} L={L} F={Fn} M={M} T1={T1} M_lp={M_lp}")
-    LAUNCHES[key] += 1
+    count_launch(key)
     return acc_o, delay_o, amax_o, y_next
 
 
@@ -997,7 +997,7 @@ def fir_mp_oneshot_cascade_q(bank, xq):
     if code:
         _check(code, key, f"B={B} N={N} octaves={O} F={F} M={M} "
                           f"M_lp={M_lp}")
-    LAUNCHES[key] += 1
+    count_launch(key)
     return sums
 
 
@@ -1038,5 +1038,5 @@ def fir_mp_bank_q_kernel(xq, H_q, *, gamma_q: int, iters: int, qmin: int,
          torch.empty((B, Fn, N), dtype=torch.int32, device=xq.device))
     sums, code = _oneshot_q_launch(plan, xq, table, P=Fn, M=M, M_lp=1, y=y)
     _check(code, key, f"B={B} N={N} F={Fn} M={M}")
-    LAUNCHES[key] += 1
+    count_launch(key)
     return sums if accumulate else y

@@ -21,8 +21,8 @@ import types
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels._wrap import (LAUNCHES, _check, _expect, _f32,
-                                       _on_cuda, _stream)
+from repro_torch.kernels._wrap import (_check, _expect, _f32, _on_cuda,
+                                       _stream, count_launch)
 
 __all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_plan",
            "mp_waterfill_kernel", "mp_waterfill_plan"]
@@ -66,7 +66,7 @@ def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
                              O, int(w.dtype == torch.bfloat16), tile_to,
                              float(gamma), int(iters), _stream())
     _check(code, "mp_linear", f"B={B} d={d} O={O} tile_to={tile_to}")
-    LAUNCHES["mp_linear"] += 1
+    count_launch("mp_linear")
     return y
 
 
@@ -141,5 +141,5 @@ def mp_waterfill_kernel(L: torch.Tensor, gamma,
                                 float(gamma), int(iters), plan["group"],
                                 plan["per_lane"], _stream())
     _check(code, "mp_waterfill", f"R={R} m={m}")
-    LAUNCHES["mp_waterfill"] += 1
+    count_launch("mp_waterfill")
     return z.to(L.dtype)

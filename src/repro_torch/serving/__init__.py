@@ -1,9 +1,19 @@
-"""Stream serving over the slot-batched session step."""
+"""Session-oriented stream serving for the in-filter classifier.
 
-from repro_torch.serving.server import StreamServer, bucket_length  # noqa: F401
-from repro_torch.serving.session import (  # noqa: F401
-    Decision,
-    FeedRequest,
-    FeedResult,
-    Session,
-)
+``StreamServer`` multiplexes many sensor streams onto the slot capacity of
+one slot-batched ``SessionState``: one session step per wave, on the card
+one CUDA graph replay per wave (``make_batched_step``). ``submit()`` /
+``feed_async()`` queue requests for coalesced dispatch and ``drain()`` is
+the sync point; ``StreamRouter`` spreads residency over N shards behind
+one admission API (stream id -> shard -> slot).
+"""
+
+from repro_torch.serving.session import (Decision, FeedRequest, FeedResult,
+                                         FeedTicket, Session)
+from repro_torch.serving.server import (StreamServer, bucket_length,
+                                        make_batched_step)
+from repro_torch.serving.router import RouterTicket, StreamRouter, shard_of
+
+__all__ = ["StreamServer", "StreamRouter", "Session", "Decision",
+           "FeedRequest", "FeedResult", "FeedTicket", "RouterTicket",
+           "bucket_length", "make_batched_step", "shard_of"]

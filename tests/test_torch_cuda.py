@@ -31,7 +31,8 @@ from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
                                             mp_linear_plan,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ops import mp_linear as mp_linear_op
-from repro_torch.serving import StreamServer
+from repro_torch.core import pipeline as pl
+from repro_torch.serving import StreamServer, bucket_length
 
 pytestmark = pytest.mark.cuda
 
@@ -466,8 +467,10 @@ def test_fixed_served_codes_equal_oneshot_on_the_card(dev, clips, impl):
     for r in range(5):
         server.feed([(sid, clips[i, r * 160:(r + 1) * 160])
                      for i, sid in enumerate(ids)])
-    # one cascade launch per wave, no per-octave launch
-    assert LAUNCHES["fir_mp_stream_cascade_q"] == (5 if impl == "pallas"
+    # one graph replay per wave, each one cascade launch (plus the warm-up
+    # run before the bucket's capture), no per-octave launch
+    assert server.step_counts()["replays"] == 5
+    assert LAUNCHES["fir_mp_stream_cascade_q"] == (5 + 1 if impl == "pallas"
                                                    else 0)
     assert LAUNCHES["fir_mp_stream_octave_q"] == 0
     assert server.state.acc.dtype == torch.int32
@@ -624,3 +627,117 @@ def test_decode_step_through_the_kernel_matches_plain(dev, compute_dtype):
     torch.cuda.synchronize()
     bound = tol * (1 + float(want.float().abs().max()))
     assert float((got.float().cpu() - want.float()).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# the served step as one CUDA graph per bucket
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("impl", ["pallas", "xla"])
+@pytest.mark.parametrize("numerics", ["float", "fixed"])
+def test_captured_step_equals_eager_across_buckets_and_churn(
+        dev, clips, numerics, impl):
+    """The server's graph replays against ``_session_step`` run eagerly on
+    the same waves, bit for bit: decisions and every register, across
+    bucket changes (256 -> 512 -> 256 -> 512) and a slot opened and
+    closed between replays; one replay per wave, one capture per bucket."""
+    pipe = make_pipeline(numerics=numerics, stream_impl=impl)
+    if numerics == "fixed":
+        pipe.calibrate_fixed(clips)
+    S = 8
+    reset_launches()
+    server = StreamServer(pipe, capacity=S, max_chunk=512)
+    ids = [f"s{i}" for i in range(S - 1)]
+    for sid in ids:
+        server.open(sid)
+    state = pl.set_active(pipe.init_session(S, active=np.zeros(S, bool)),
+                          list(range(S - 1)), True)
+    rng = np.random.default_rng(0)
+    lens = [160, 160, 300, 160, 17, 160, 512, 160]
+    buckets = set()
+    for r, n in enumerate(lens):
+        if r == 2:
+            assert server.open("v").slot == S - 1
+            pl.set_active(pl.clear_slots(state, [S - 1]), [S - 1], True)
+        if r == 5:
+            server.close("v")
+            pl.set_active(state, [S - 1], False)
+        sids = ids + (["v"] if 2 <= r < 5 else [])
+        reqs = [(sid, rng.standard_normal(n if k % 2 == 0 else 160)
+                 .astype(np.float32)) for k, sid in enumerate(sids)]
+        res = server.feed(reqs)
+        L = bucket_length(max(len(c) for _, c in reqs), 16, 512)
+        buckets.add(L)
+        chunk = np.zeros((S, L), np.float32)
+        valid = np.zeros(S, np.int32)
+        for k, (_, c) in enumerate(reqs):
+            slot = S - 1 if k == S - 1 else k
+            chunk[slot, :len(c)] = c
+            valid[slot] = len(c)
+        state, p, _ = pipe._session_step(state,
+                                         torch.from_numpy(chunk).to(dev),
+                                         torch.from_numpy(valid).to(dev))
+        for k, fr in enumerate(res):
+            row = p[S - 1 if k == S - 1 else k].cpu()
+            label = int(torch.argmax(row))
+            assert (fr.label, fr.confidence) == (label, float(row[label]))
+    torch.cuda.synchronize()
+    for a, b in zip(server.state.tensors(), state.tensors()):
+        assert torch.equal(a, b)
+    counts = server.step_counts()
+    assert counts["replays"] == len(lens) and counts["eager_runs"] == 0
+    assert counts["captures"] == len(buckets) == 2
+    key = ("fir_mp_stream_cascade_q" if numerics == "fixed"
+           else "fir_mp_stream_cascade")
+    # the eager run above launched once per wave as well
+    assert LAUNCHES[key] == ((2 * len(lens) + counts["captures"])
+                             if impl == "pallas" else 0)
+
+
+def test_async_pipeline_on_the_card_equals_feed(dev, clips):
+    pipe = make_pipeline()
+    S = 8
+    sync = StreamServer(pipe, capacity=S, max_chunk=256)
+    asy = StreamServer(pipe, capacity=S, max_chunk=256,
+                       coalesce_watermark=2)
+    ids = [f"s{i}" for i in range(S)]
+    for srv in (sync, asy):
+        for sid in ids:
+            srv.open(sid)
+    for r in range(4):
+        reqs = [(sid, clips[i, r * 160:(r + 1) * 160])
+                for i, sid in enumerate(ids)]
+        want = sync.feed(reqs)
+        tickets = [asy.submit(reqs[k:k + 2]) for k in range(0, S, 2)]
+        assert asy.steps_run == 4 * (r + 1)          # the watermark fired
+        while asy.poll(tickets[-1]) is None:
+            pass                                     # CUDA events
+        got = [x for t in tickets for x in t.results]
+        assert [(x.label, x.confidence, x.samples_seen) for x in got] == \
+            [(x.label, x.confidence, x.samples_seen) for x in want]
+    torch.cuda.synchronize()
+    for a, b in zip(sync.state.tensors(), asy.state.tensors()):
+        assert torch.equal(a, b)
+
+
+def test_failed_replay_poisons_the_server(dev, monkeypatch):
+    pipe = make_pipeline()
+    server = StreamServer(pipe, capacity=4, max_chunk=256)
+    server.open("a")
+    x = np.zeros(160, np.float32)
+    server.feed([("a", x)])                          # captured, replayed
+
+    def fail(self):
+        raise RuntimeError("CUDA error: forced replay failure")
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay", fail)
+    with pytest.raises(RuntimeError, match="wave 1") as ei:
+        server.feed([("a", x)])
+    assert "forced replay failure" in str(ei.value.__cause__)
+    monkeypatch.undo()
+    for call in (lambda: server.feed([("a", x)]), lambda: server.open("b"),
+                 lambda: server.drain()):
+        with pytest.raises(RuntimeError, match="poisoned.*wave 1"):
+            call()
+    assert "bucket 256" in server.stats()["poisoned"]

@@ -1,4 +1,4 @@
-"""The port's StreamServer (synchronous core) on the CPU."""
+"""The port's StreamServer on the CPU: waves, splits, history, slots."""
 
 import numpy as np
 import pytest
@@ -6,7 +6,7 @@ import torch
 
 from repro_torch.configs.esc10_mp import make_pipeline
 from repro_torch.serving import FeedRequest, StreamServer, bucket_length
-from repro_torch.serving.session import HISTORY_LEN, Decision, Session
+from repro_torch.serving.session import Decision, Session
 
 
 def _audio(rows, n, seed=0):
@@ -73,15 +73,19 @@ def test_long_chunks_split_and_requests_keep_order():
 
 
 def test_session_history_keeps_the_newest_decisions():
-    sess = Session(id="a", slot=0)
+    n = 64                      # the default max_history
+    sess = Session(id="a", slot=0, opened_at=0.0, last_fed=0.0)
     assert sess.last_decision is None
-    for k in range(HISTORY_LEN + 6):
-        sess.record(Decision(k + 1, k % 3, 0.5))
-    assert len(sess.history) == HISTORY_LEN
+    for k in range(n + 6):
+        sess.record(Decision(k + 1, k % 3, 0.5), now=float(k))
+    assert len(sess.history) == n
     assert sess.history[0].samples_seen == 7
-    assert sess.last_decision == Decision(HISTORY_LEN + 6, (HISTORY_LEN + 5) % 3,
-                                          0.5)
-    assert sess.samples_seen == HISTORY_LEN + 6
+    assert sess.last_decision == Decision(n + 6, (n + 5) % 3, 0.5)
+    assert (sess.samples_seen, sess.last_fed) == (n + 6, n + 5.0)
+    short = Session(id="b", slot=1, opened_at=0.0, last_fed=0.0,
+                    max_history=2)
+    short.load_meta(sess.meta())
+    assert short.history == sess.history and short.samples_seen == n + 6
 
 
 def test_bucket_ladder_validation():
