@@ -148,6 +148,40 @@ nothing of the reference package). Phases, each failing loudly:
              not gated. Bounds count the cheapest exact form of the MP
              step; the reference algorithm's count is printed beside.
 
+11. train — esc10-mp ``InFilterPipeline.fit`` at full width (30 bands)
+             on 260 seeded synthetic 1 s clips at 16 kHz (26 per class)
+             under ``configs.esc10_mp.TRAIN`` (600 SGD steps, gamma
+             annealed from 4 over 200). Gates: the features in one
+             one-shot cascade launch, within the one-shot phase's phi
+             tolerance of the plain path (bisect, torch ops) on the first
+             32 clips; the first 20 losses within 1e-3 x (1 + max) of the
+             same 20 steps run by the port on the CPU from the same params
+             and batches; every loss finite and the last below the first;
+             the trained pipeline deploys through ``calibrate_fixed`` and a
+             fixed ``apply`` in one int cascade launch, p finite in
+             [-1, 1]. Printed: held-out accuracy (float and fixed), the
+             features' ms, ms per step (host; device busy by the
+             profiler), kernels per step, the 600 steps' seconds.
+12. LM train and MP backward — ``make_train_step`` at full width and
+             depth 2 (1.63 G params, B = 2, S = 32 from ``TokenStream``,
+             MP mode, AdamW): three steps on one batch, 15 forward and 15
+             backward launches each, losses finite and falling, grad norms
+             finite; ms per step and one more step profiled (forward, the
+             backward's three passes, the rest). Then one more step whose
+             15 backward calls are recorded (x, w and g as the step gives
+             them: 64 rows for the projections, 62 for the head), and the
+             backward kernel (``csrc/mp_linear_bwd.cu``) against its plain
+             version on each of them, pass by pass: its levels within
+             1e-6 x (1 + |z|) of the sort's and every support the sort's
+             except on a branch with an operand within that of its level
+             (counted and printed); dx and dw within 1e-5 x max (the
+             step's gradients lie far below 1) of the plain dx and dw on
+             the kernel's own levels, and of the plain version on the rows
+             and columns no such branch feeds (their counts printed); the
+             control (dv's sign flipped) must miss. Its ms, plain ms and bound are summed over those 15
+             calls; the bound counts the cheapest exact form: Newton from
+             the left on each level, with the passes these inputs need
+             (counted here, its levels held to the sort's too).
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -157,6 +191,8 @@ path made none.
 
 from __future__ import annotations
 
+import dataclasses
+import gc
 import importlib
 import json
 import math
@@ -356,11 +392,18 @@ def short_entry(name: str) -> str:
     mp_linear<bf16,BB=2,TO=8,res>, fir_mp_stream<16,6> or
     mp_waterfill_rows<32,1> (elements per lane, lanes per row); others are
     shortened."""
-    m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)E", name)
+    m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
+                  name)
     if m:
         wt = "bf16" if m.group(1) == "t" else "f32"
         res = "res" if m.group(4) == "1" else "global"
-        return f"mp_linear<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
+        kind = "mp_linear_levels" if m.group(5) == "1" else "mp_linear"
+        return f"{kind}<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
+    m = re.search(r"(mp_linear_d[xw])_kernelI([tf])Li(\d+)E(?:Li(\d+)E)?",
+                  name)
+    if m:
+        wt = "bf16" if m.group(2) == "t" else "f32"
+        return f"{m.group(1)}<{wt},{','.join(filter(None, m.group(3, 4)))}>"
     m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot(?:_q)?|"
                   r"mp_waterfill_rows)_kernelILi(\d+)ELi(\d+)E", name)
     if m:
@@ -2514,6 +2557,414 @@ def phase_decode(cfg):
     return launches, kern_us * 1e-3
 
 
+# -- training: esc10-mp fit, the MP backward and the qwen3-8b train step -------
+
+
+TRAIN_CPU_STEPS = 20      # fit's first steps, held against the CPU's
+TRAIN_LOSS_TOL = 1e-3     # x (1 + max |CPU loss|) over those steps
+FEATURE_GATE_CLIPS = 32   # clips whose features are held against plain
+LEVEL_TOL = 1e-6          # x (1 + |z|): the backward's levels vs the sort
+LM_BATCH, LM_SEQ, LM_STEPS = 2, 32, 3
+
+
+def phase_train():
+    """esc10-mp ``InFilterPipeline.fit`` at full width on the card (30
+    bands, 260 seeded 1 s clips, ``configs.esc10_mp.TRAIN``: 600 steps),
+    then deployed fixed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.esc10_mp import FILTERBANK, TRAIN
+    from repro_torch.core import trainer
+    from repro_torch.core.filterbank import FilterBank
+    from repro_torch.core.pipeline import InFilterPipeline
+    from repro_torch.data.acoustic import make_esc10_like
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    cfg = FILTERBANK._replace(use_pallas=True)
+    ds = make_esc10_like(per_class_train=26, per_class_test=4, fs=16000.0,
+                         seconds=1.0, seed=0)
+    x = torch.from_numpy(np.ascontiguousarray(ds.x_train)).cuda()
+    x_test = torch.from_numpy(np.ascontiguousarray(ds.x_test)).cuda()
+    y_test = torch.from_numpy(ds.y_test).cuda()
+
+    # fit, timed whole; its features in one cascade launch
+    reset_launches()
+    t0 = time.perf_counter()
+    pipe, losses = InFilterPipeline.fit(cfg, ds.x_train, ds.y_train, 10,
+                                        TRAIN, device="cuda")
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = dict(LAUNCHES)
+    if fit_launches["fir_mp_oneshot_cascade"] != 1:
+        raise AssertionError(f"fit's features: {fit_launches}")
+    if not (all(math.isfinite(v) for v in losses)
+            and len(losses) == TRAIN.num_steps and losses[-1] < losses[0]):
+        raise AssertionError(f"fit's losses: first {losses[:3]}, last "
+                             f"{losses[-3:]}")
+
+    # the features through the kernel against the plain path
+    fb = FilterBank(cfg, device="cuda")
+    s = fb.accumulate(x)
+    torch.cuda.synchronize()
+    feat_ms = cuda_ms(lambda: fb.accumulate(x), 3)
+    plain = FilterBank(cfg._replace(use_pallas=False, solver="bisect"),
+                       device="cuda")
+    n = FEATURE_GATE_CLIPS
+    t0 = time.perf_counter()
+    s_plain = plain.accumulate(x[:n])
+    torch.cuda.synchronize()
+    feat_plain_ms = (time.perf_counter() - t0) * 1e3
+    phi = (s - pipe.mu) / pipe.sigma
+    phi_plain = (s_plain - pipe.mu) / pipe.sigma
+    dphi = float((phi[:n] - phi_plain).abs().max())
+    tol = ONESHOT_PHI_TOL * (1 + float(phi_plain.abs().max()))
+    if not dphi <= tol:
+        raise AssertionError(f"fit's features vs plain: {dphi} > {tol}")
+
+    # the first steps against the port on the CPU, same params and batches
+    cpu_cfg = dataclasses.replace(TRAIN, num_steps=TRAIN_CPU_STEPS)
+    _, cpu_losses = trainer.train(phi.cpu(), ds.y_train, 10, cpu_cfg,
+                                  device="cpu")
+    cpu_gap = max(abs(a - b) for a, b in zip(losses, cpu_losses))
+    cpu_tol = TRAIN_LOSS_TOL * (1 + max(abs(v) for v in cpu_losses))
+    if not cpu_gap <= cpu_tol:
+        raise AssertionError(f"fit's first {TRAIN_CPU_STEPS} losses, card "
+                             f"vs CPU: {cpu_gap} > {cpu_tol}")
+
+    # the step: host ms over the 600 steps, device time under the profiler
+    t0 = time.perf_counter()
+    trainer.train(phi, ds.y_train, 10, TRAIN, device="cuda")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    prof_steps = 20
+    prof = profiled(lambda: trainer.train(
+        phi, ds.y_train, 10, dataclasses.replace(TRAIN, num_steps=prof_steps),
+        device="cuda"), reps=1)
+
+    # held-out accuracy, float, then the fixed deploy (one int cascade)
+    acc = float((pipe.apply(x_test).argmax(-1) == y_test).float().mean())
+    fixed = InFilterPipeline(cfg._replace(numerics="fixed"), pipe.bp_taps,
+                             pipe.lp_taps, pipe.mu, pipe.sigma,
+                             pipe.clf.params, device="cuda")
+    fixed.calibrate_fixed(ds.x_train[:8])
+    reset_launches()
+    p_fixed = fixed.apply(x_test)
+    torch.cuda.synchronize()
+    fixed_launches = dict(LAUNCHES)
+    if fixed_launches["fir_mp_oneshot_cascade_q"] != 1 or not (
+            bool(torch.isfinite(p_fixed).all())
+            and float(p_fixed.abs().max()) <= 1.0):
+        raise AssertionError(f"fixed deploy: {fixed_launches}, p in "
+                             f"[{float(p_fixed.min())}, "
+                             f"{float(p_fixed.max())}]")
+    acc_fixed = float((p_fixed.argmax(-1) == y_test).float().mean())
+    log(dict(phase="train", config="esc10-mp FILTERBANK", clips=len(ds.y_train),
+             steps=TRAIN.num_steps, first_loss=losses[0],
+             last_loss=losses[-1], fit_s=fit_s,
+             features_ms=feat_ms, features_plain_ms_32_clips=feat_plain_ms,
+             features_max_abs_diff_phi=dphi, features_tol=tol,
+             cpu_steps=TRAIN_CPU_STEPS, cpu_max_loss_gap=cpu_gap,
+             cpu_tol=cpu_tol, train_600_steps_s=train_s,
+             host_ms_per_step=train_s * 1e3 / TRAIN.num_steps,
+             device_busy_ms_per_step=prof["busy_us"] * 1e-3 / prof_steps,
+             device_busy_share=prof["busy_share"],
+             kernels_per_step=prof["kernels"] / prof_steps,
+             top_device_us_per_step=[[k, t / prof_steps]
+                                     for k, t in prof["top_us"]],
+             held_out_accuracy=acc, held_out_accuracy_fixed=acc_fixed,
+             test_clips=len(ds.y_test)))
+
+
+def ops_mp_linear_bwd(B: int, d: int, O: int, passes: int) -> int:
+    """f32 ops of mp_linear's backward in its cheapest exact form, for
+    ``passes`` Newton passes summed over the B x O x 2 levels: the max
+    pass (u, v and a max of each |.|: 4 per (b, o, i)); per level and
+    pass, Newton from the left (from max |t| - gamma; each pass per
+    operand forms t, |t| - z, the max with 0, its sum, the compare and
+    its count: 6, and 4 per level for the step); then dx and dw in one
+    pass (u, v, four compares, two sign subtractions, two products by
+    g / k, and per sum one add or subtraction and the accumulate: 14)."""
+    return B * O * d * (4 + 14) + passes * (6 * d + 4)
+
+
+def ops_mp_linear_bwd_kernel_form(B: int, d: int, O: int,
+                                  iters: int = 26) -> int:
+    """A side figure, not the bound: f32 ops of the form the kernel runs,
+    the forward's steps (``ops_mp_linear``) plus an exact solve of at
+    least three passes per (b, o, i): a count (per branch the add, two
+    compares and two adds: 10 for u and v), a sum (two selects more: 14)
+    and a recount (10); then dx and dw, each per (b, o, i) the two
+    operands, four compares, two sign subtractions, two products and the
+    accumulate (11 each, 22). About 268 per (b, o, i)."""
+    return ops_mp_linear(B, d, O, iters) + B * O * d * (10 + 14 + 10 + 22)
+
+
+def ops_mp_linear_bwd_reference(B: int, d: int, O: int) -> int:
+    """A side figure: f32 ops of the reference's rule as its jnp runs it,
+    per (b, o) and branch the sort of 2d operands (2d log2(2d)
+    compare-exchanges), the cumsum, the 2d candidate levels (sub, div)
+    and compares, then per (b, o, i) the masks (two compares, a
+    subtraction, a division per branch), g (m_u -+ m_v) and the two sums
+    (12)."""
+    m = 2 * d
+    per_branch = m * max(1, math.ceil(math.log2(m))) + m + 3 * m
+    return B * O * (2 * per_branch + 12 * d)
+
+
+def newton_passes(x, w, gamma, cap: int = 64):
+    """(passes, z): per (b, o) and branch (u, v) the passes Newton from
+    the left takes to the exact level of [t; -t] on these inputs, the
+    last one the pass that finds the support's count unchanged, or back
+    at the one of two passes before (an operand within rounding of the
+    level, which the recomputed z then puts on either side in turn), and
+    the level it ends at; blocked as the plain backward. ``cap`` stops a
+    level that has not settled (the most passes is printed beside)."""
+    import torch
+    from repro_torch.kernels import ref
+    w = w.float()
+    B, d = x.shape
+    O = w.shape[1]
+    passes = torch.zeros((B, O, 2), dtype=torch.int32, device=x.device)
+    z_out = torch.empty((B, O, 2), dtype=torch.float32, device=x.device)
+    ob = max(1, min(O, ref.LINEAR_BLOCK // max(1, B * d)))
+    for o in range(0, O, ob):
+        wb = w[:, o:o + ob].T[None]
+        for j, t in enumerate((x[:, None, :] + wb, x[:, None, :] - wb)):
+            L = torch.cat([t, -t], dim=-1)
+            z = L.amax(-1) - gamma
+            k_prev = k_prev2 = torch.full_like(z, -1.0)
+            done = torch.zeros(z.shape, dtype=torch.bool, device=x.device)
+            n = torch.zeros(z.shape, dtype=torch.int32, device=x.device)
+            for _ in range(cap):
+                above = L > z[..., None]
+                k = above.sum(-1).float()
+                n += (~done).int()
+                done |= (k == k_prev) | (k == k_prev2)
+                s = torch.where(above, L, 0.0).sum(-1)
+                z = torch.where(done, z, (s - gamma) / k.clamp_min(1.0))
+                k_prev2, k_prev = k_prev, k
+                if bool(done.all()):
+                    break
+            passes[:, o:o + ob, j] = n
+            z_out[:, o:o + ob, j] = z
+    return passes, z_out
+
+
+def phase_train_lm(cfg):
+    """qwen3-8b at full width, depth 2, MP mode: ``make_train_step`` on
+    one TokenStream batch (B = 2, S = 32), three steps, one more under the
+    profiler, then one more whose backward calls are recorded (x, w, g,
+    gamma, iters as ``ops.mp_linear``'s backward passes them) for
+    ``phase_mp_backward``."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init_state, step = make_train_step(cfg, AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=10))
+    state = init_state(torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    n_params = T.param_count(state.params)
+    toks = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch(0)
+    batch = {"tokens": torch.as_tensor(toks).to(dev)}
+    per_step = 7 * cfg.num_layers + 1
+    reset_launches()
+    losses, norms, step_ms = [], [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = dict(LAUNCHES)
+    want = per_step * LM_STEPS
+    if (launches["mp_linear"], launches["mp_linear_bwd"]) != (want, want):
+        raise AssertionError(f"train step launches {launches}: want "
+                             f"{per_step} forward and backward per step")
+    if not (all(math.isfinite(v) for v in losses + norms)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"train step: losses {losses}, grad norms "
+                             f"{norms}")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        float(m["loss"])
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    parts = {"forward": 0.0, "backward_levels": 0.0, "backward_dx": 0.0,
+             "backward_dw": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) * 1e-3
+        lv = re.search(r"mp_linear_kernel<.*,\s*(true|false)>", e.key)
+        if lv:
+            parts["backward_levels" if lv.group(1) == "true"
+                  else "forward"] += t
+        elif "mp_linear_dx_kernel" in e.key:
+            parts["backward_dx"] += t
+        elif "mp_linear_dw_kernel" in e.key:
+            parts["backward_dw"] += t
+        else:
+            parts["other"] += t
+    busy = sum(parts.values())
+    bwd = parts["backward_levels"] + parts["backward_dx"] + parts["backward_dw"]
+    log(dict(phase="train_lm", arch=cfg.name, layers=cfg.num_layers,
+             d_model=cfg.d_model, vocab=cfg.vocab_size, mp_mode=True,
+             batch=LM_BATCH, seq=LM_SEQ, params=n_params,
+             losses=losses, grad_norms=norms, ms_per_step=step_ms,
+             profiled_step_ms=prof_ms, device_ms=parts,
+             device_busy_ms=busy,
+             backward_share_of_device=bwd / busy if busy else None,
+             mp_linear_launches=launches["mp_linear"],
+             mp_linear_bwd_launches=launches["mp_linear_bwd"],
+             peak_memory_bytes=torch.cuda.max_memory_allocated()))
+    calls = []
+    real = ops.mp_linear_bwd_kernel
+
+    def record(x, w, g, gamma, iters):
+        # detached: a saved tensor would hold the step's autograd graph
+        calls.append((x.detach(), w.detach(), g.detach(), gamma, iters))
+        return real(x, w, g, gamma, iters)
+
+    ops.mp_linear_bwd_kernel = record
+    try:
+        state, m = step(state, batch)
+        float(m["loss"])
+    finally:
+        ops.mp_linear_bwd_kernel = real
+    if len(calls) != per_step:
+        raise AssertionError(f"recorded {len(calls)} backward calls, want "
+                             f"{per_step}")
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches["mp_linear_bwd"], bwd, calls
+
+
+def phase_mp_backward(calls, layers: int):
+    """The backward kernel against its plain version on the backward
+    calls of one depth-``layers`` train step (``phase_train_lm``'s
+    record: the step's own x, w and g), pass by pass; returns its
+    kernels-line row (ms, plain ms and bound summed over those calls)."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mp_kernels import (_mp_linear_bwd_launch,
+                                                mp_linear_bwd_kernel)
+    row = dict(name="mp_linear_bwd", max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+               memory_allocated_at_start=torch.cuda.memory_allocated())
+    ops = ops_kernel = ops_ref = nbytes = 0.0
+    per_call = []
+    for x, w, gy, gamma, iters in calls:
+        t_call = time.perf_counter()
+        (B, d), O = x.shape, w.shape[1]
+        wf = w.float()
+        dx, dw, lv = _mp_linear_bwd_launch(x, w, gy, gamma, iters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want_dx, want_dw = ref.mp_linear_bwd(x, wf, gy, gamma)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        want_lv = ref.mp_linear_levels(x, wf, gy, gamma)
+        zk, zp = lv[..., :2], want_lv[..., :2]
+        z_gap = float(((zk - zp).abs() / (1 + zp.abs())).max())
+        near = ref.mp_linear_near_level(x, wf, zp, LEVEL_TOL)
+        k_off = int(((lv[..., 2:] != want_lv[..., 2:]) & ~near).sum())
+        own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, wf, lv)
+        # every gate at KERNEL_TOL x the compared tensor's own max: the
+        # step's gradients lie far below 1, where 1e-5 x (1 + max) would
+        # hold nothing (nor tell the control from the kernel)
+        t_dx = KERNEL_TOL * float(own_dx.abs().max())
+        t_dw = KERNEL_TOL * float(own_dw.abs().max())
+        e_dx = float((dx - own_dx).abs().max())
+        e_dw = float((dw - own_dw).abs().max())
+        # against the plain version, elementwise on the rows of dx and the
+        # columns of dw that no near-level branch feeds
+        tie = near.any(-1)
+        rows, cols = ~tie.any(1), ~tie.any(0)
+        clean = (float((dx[rows] - want_dx[rows]).abs().max())
+                 if rows.any() else 0.0,
+                 float((dw[:, cols] - want_dw[:, cols]).abs().max())
+                 if cols.any() else 0.0)
+        tol_dx = KERNEL_TOL * float(want_dx.abs().max())
+        tol_dw = KERNEL_TOL * float(want_dw.abs().max())
+        # the control: dv's sign flipped on the kernel's own levels
+        flip = lv.clone()
+        flip[..., 3] = -flip[..., 3]
+        c_dx, c_dw = ref.mp_linear_bwd_from_levels(x, wf, flip)
+        ctl = (float((c_dx - own_dx).abs().max()),
+               float((c_dw - own_dw).abs().max()))
+        # the bound's form on these inputs: Newton's passes, and its levels
+        passes, z_newton = newton_passes(x, w, gamma)
+        n_gap = float(((z_newton - zp).abs() / (1 + zp.abs())).max())
+        fails = []
+        if not z_gap <= LEVEL_TOL:
+            fails.append(f"levels {z_gap}")
+        if k_off:
+            fails.append(f"{k_off} supports off the sort's away from a tie")
+        if not (e_dx <= t_dx and e_dw <= t_dw):
+            fails.append(f"dx {e_dx} / dw {e_dw} on its own levels")
+        if not (clean[0] <= tol_dx and clean[1] <= tol_dw):
+            fails.append(f"dx {clean[0]} / dw {clean[1]} vs plain off ties")
+        if not (ctl[0] > t_dx and ctl[1] > t_dw):
+            fails.append(f"the flipped control passes: {ctl}")
+        if not n_gap <= LEVEL_TOL:
+            fails.append(f"the bound's Newton levels {n_gap} off the sort's")
+        if fails:
+            raise AssertionError(
+                f"mp_linear_bwd B={B} d={d} O={O} (call {len(per_call)}): "
+                + "; ".join(fails) + f"; gates dx {t_dx} / {tol_dx}, dw "
+                f"{t_dw} / {tol_dw}")
+        k_ms = cuda_ms(lambda: mp_linear_bwd_kernel(x, w, gy, gamma, iters),
+                       3 if O > 50000 else 5)
+        nb = (4 * B * d * 2 + w.element_size() * d * O + 4 * B * O
+              + 4 * d * O)
+        n_passes = int(passes.sum())
+        c_ops = min(ops_mp_linear_bwd(B, d, O, n_passes),
+                    ops_mp_linear_bwd_reference(B, d, O))
+        b_ms, _ = bound_ms(c_ops, nb)
+        err = max(float((dx - want_dx).abs().max()),
+                  float((dw - want_dw).abs().max()))
+        per_call.append(dict(
+            B=B, d=d, O=O, w=str(w.dtype).replace("torch.", ""), ms=k_ms,
+            plain_ms=p_ms, bound_ms=b_ms, x_bound=k_ms / b_ms,
+            newton_passes_mean=n_passes / passes.numel(),
+            newton_passes_max=int(passes.max()),
+            max_abs_err=err, max_abs_err_own_levels=max(e_dx, e_dw),
+            max_abs_err_off_ties=max(clean), level_gap=z_gap,
+            newton_level_gap=n_gap, branches_near_a_level=int(near.sum()),
+            pairs_near_a_level=int(tie.sum()),
+            dx_rows_checked=int(rows.sum()), dw_cols_checked=int(cols.sum()),
+            gates=(t_dx, t_dw, tol_dx, tol_dw), control_err=ctl,
+            check_s=time.perf_counter() - t_call))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += k_ms
+        row["plain_ms"] += p_ms
+        ops += c_ops
+        ops_kernel += ops_mp_linear_bwd_kernel_form(B, d, O, iters)
+        ops_ref += ops_mp_linear_bwd_reference(B, d, O)
+        nbytes += nb
+        del dx, dw, lv, want_dx, want_dw, want_lv, own_dx, own_dw, c_dx, c_dw
+        del passes, z_newton, near, flip
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
+    row["bound_ms_kernel_form"] = bound_ms(ops_kernel, nbytes)[0]
+    row["bound_ms_reference_algorithm"] = bound_ms(ops_ref, nbytes)[0]
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["calls"] = (f"one depth-{layers} train step's {len(calls)} "
+                    f"backward calls: {per_call}")
+    log({"kernel_vs_plain": row})
+    torch.cuda.empty_cache()
+    return row
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2560,6 +3011,12 @@ def main() -> int:
     lin_row, wf_row = phase_mp_kernels(qwen)
     decode_launches, decode_device_ms = phase_decode(qwen)
 
+    phase_train()
+    qwen2 = dataclasses.replace(qwen, num_layers=2)
+    bwd_launches, bwd_device_ms, bwd_calls = phase_train_lm(qwen2)
+    bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers)
+    del bwd_calls
+
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
         dict(stream_row, route="cuda", source=src + "fir_mp_stream.cu",
@@ -2597,13 +3054,18 @@ def main() -> int:
              replaces="src/repro/kernels/mp_linear.py:89",
              launches=decode_launches, device_ms=decode_device_ms,
              library_ms=None),
+        dict(bwd_row, route="cuda", source=src + "mp_linear_bwd.cu",
+             replaces="src/repro/kernels/ops.py:73",
+             launches=bwd_launches, device_ms=bwd_device_ms,
+             library_ms=None),
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
              replaces="src/repro/kernels/mp_waterfill.py:46",
              launches=wf_row["launches_here"], library_ms=None),
     ]
     keys = ("name", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "device_ms", "plain_ms", "bound_ms", "bound_by", "x_bound",
+            "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
     log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})

@@ -3,6 +3,7 @@ classifier (30-filter multirate MP FIR bank + MP kernel machine), as
 deployed on the Spartan-7 FPGA (Table I)."""
 
 from repro_torch.core.filterbank import FilterBankConfig
+from repro_torch.core.trainer import TrainConfig
 
 FILTERBANK = FilterBankConfig(
     fs=16000.0,
@@ -12,6 +13,13 @@ FILTERBANK = FilterBankConfig(
     lp_taps=6,                # LP window size 6
     mode="mp",
     gamma_f=4.0,
+)
+
+TRAIN = TrainConfig(
+    num_steps=600,
+    lr=0.5,
+    gamma_anneal_start=4.0,
+    gamma_anneal_steps=200,
 )
 
 # deployment quantization (Fig. 8: stable down to 8 bits)

@@ -6,9 +6,11 @@
     p  = [z+ - z]_+ - [z- - z]_+          in [-1, 1]
 
 w+ and w- are stored separately (the hardware ROMs) and relu'd on use.
-``MPKernelMachine`` is an ``nn.Module`` holding them as buffers (the port
-serves, it does not train yet); ``forward(params, K)`` is the functional
-form, and ``quantize_params`` the fixed-point twin's ROM contents.
+``forward(params, K)`` is the functional form; with ``exact=True`` it is
+differentiable in all five leaves (through relu, exp and the autograd
+rule of ``mp_exact``), which is how ``core.trainer`` trains it.
+``MPKernelMachine`` is an ``nn.Module`` holding them as parameters, and
+``quantize_params`` gives the fixed-point twin's ROM contents.
 """
 
 from __future__ import annotations
@@ -40,8 +42,9 @@ def init_params(generator: torch.Generator, num_templates: int,
                 device=None) -> MPKernelMachineParams:
     """Random templates, uniform in [0, 0.5), drawn from ``generator`` on
     the CPU (so a seed gives the same weights on every device) and moved to
-    ``device``. The reference draws from ``jax.random``; use the bridge to
-    carry its exact weights over."""
+    ``device``; the biases start at 0 and gamma1 at ``gamma1``. The
+    reference draws from ``jax.random``, so the same seed gives other
+    values there; use the bridge to carry its exact weights over."""
     shape = (num_templates, num_classes)
     w_pos = torch.rand(shape, generator=generator) * 0.5
     w_neg = torch.rand(shape, generator=generator) * 0.5
@@ -114,12 +117,14 @@ def quantize_params(params: MPKernelMachineParams,
 
 
 class MPKernelMachine(nn.Module):
-    """The classifier as a module; its weights are buffers."""
+    """The classifier as a module; its five leaves are parameters (the
+    deployed pipeline freezes them: ``requires_grad_(False)``)."""
 
     def __init__(self, params: MPKernelMachineParams):
         super().__init__()
         for name, t in params._asdict().items():
-            self.register_buffer(name, torch.as_tensor(t, dtype=torch.float32))
+            self.register_parameter(name, nn.Parameter(
+                torch.as_tensor(t, dtype=torch.float32).detach().clone()))
 
     @property
     def params(self) -> MPKernelMachineParams:

@@ -1,14 +1,15 @@
-"""Margin Propagation (MP) primitives in PyTorch (inference forms).
+"""Margin Propagation (MP) primitives in PyTorch.
 
 ``z = MP(L, gamma)`` solves the reverse water-filling constraint
 
     sum_i [L_i - z]_+  =  gamma,        gamma > 0
 
 along the last axis. The solvers here are the counterparts of
-``repro.core.mp``: the exact sort-based closed form (forward only; its
-autograd rule comes with the training slice), the add/compare/halve
-bisection the hardware runs, and the monotone Newton scheme the software
-hot path uses.
+``repro.core.mp``: the exact sort-based closed form, differentiable as a
+``torch.autograd.Function`` with the reference's rule (dz/dL_i =
+1{L_i > z} / |support|, dz/dgamma = -1/|support|; training runs through
+it), the add/compare/halve bisection the hardware runs, and the monotone
+Newton scheme the software hot path uses.
 
 Every float reduction inside a fixed-iteration solver goes through
 :func:`tree_sum`, an explicit adjacent-pair add tree. The streaming
@@ -83,13 +84,8 @@ def _gamma(gamma, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(gamma, dtype=like.dtype, device=like.device)
 
 
-def mp_exact(L: torch.Tensor, gamma) -> torch.Tensor:
-    """Exact reverse water-filling along the last axis (forward only).
-
-    L: (..., m); gamma: scalar or broadcastable to (...,). Returns (...,).
-    """
+def _mp_exact_fwd(L: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     m = L.shape[-1]
-    g = _gamma(gamma, L)
     s = torch.sort(L, dim=-1, descending=True).values
     cs = torch.cumsum(s, dim=-1)
     k = torch.arange(1, m + 1, dtype=L.dtype, device=L.device)
@@ -97,6 +93,47 @@ def mp_exact(L: torch.Tensor, gamma) -> torch.Tensor:
     k_star = torch.clamp((s > z_k).sum(-1), min=1)
     cs_sel = torch.gather(cs, -1, (k_star - 1)[..., None])[..., 0]
     return (cs_sel - g) / k_star.to(L.dtype)
+
+
+def _sum_to(t: torch.Tensor, shape) -> torch.Tensor:
+    """``t`` summed down to ``shape`` (the inverse of broadcasting)."""
+    lead = t.ndim - len(shape)
+    t = t.sum(dim=tuple(range(lead))) if lead > 0 else t
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and t.shape[i] != 1)
+    return t.sum(dim=dims, keepdim=True) if dims else t
+
+
+class _MPExact(torch.autograd.Function):
+    """The reference's custom VJP (``repro.core.mp._mp_exact_bwd``): saves
+    (L, z); dL = g 1{L > z} / k and dgamma = -g / k, k = max(|support|,
+    1), dgamma summed down to gamma's shape."""
+
+    @staticmethod
+    def forward(ctx, L, g):
+        z = _mp_exact_fwd(L, g)
+        ctx.save_for_backward(L, z)
+        ctx.gamma_shape = g.shape
+        return z
+
+    @staticmethod
+    def backward(ctx, gz):
+        L, z = ctx.saved_tensors
+        support = (L > z[..., None]).to(L.dtype)
+        k = torch.clamp_min(support.sum(-1), 1.0)
+        dL = gz[..., None] * support / k[..., None]
+        dgamma = None
+        if ctx.needs_input_grad[1]:
+            dgamma = _sum_to(-gz / k, ctx.gamma_shape)
+        return dL, dgamma
+
+
+def mp_exact(L: torch.Tensor, gamma) -> torch.Tensor:
+    """Exact reverse water-filling along the last axis, differentiable in
+    L and gamma.
+
+    L: (..., m); gamma: scalar or broadcastable to (...,). Returns (...,).
+    """
+    return _MPExact.apply(L, _gamma(gamma, L))
 
 
 def mp_bisect(L: torch.Tensor, gamma,

@@ -3,9 +3,11 @@
     audio -> multirate octave bank of MP FIR filters -> HWR + accumulate
           -> standardize -> MP template kernel machine -> p in [-1, 1]
 
-``InFilterPipeline`` is an ``nn.Module`` whose taps, standardization
-statistics and classifier weights are buffers on one device. ``apply`` is
-the one entry point:
+``InFilterPipeline`` is an ``nn.Module`` whose taps and standardization
+statistics are buffers and whose classifier weights are frozen
+parameters, all on one device. :meth:`InFilterPipeline.fit` makes one from
+labelled audio (features, standardization, MP-aware training). ``apply``
+is the one entry point:
 
 * stateless, ``apply(x)``: one-shot ``audio (B, N) -> p (B, C)``;
 * stateful, ``apply(chunk, state)``: the slot-batched session step. A
@@ -103,7 +105,7 @@ class StreamingState(NamedTuple):
 
 
 class InFilterPipeline(nn.Module):
-    """Config + taps + classifier + standardization, as buffers."""
+    """Config + taps + classifier + standardization, on one device."""
 
     def __init__(self, config: FilterBankConfig, bp_taps, lp_taps, mu, sigma,
                  clf: km.MPKernelMachineParams, device=None):
@@ -125,13 +127,39 @@ class InFilterPipeline(nn.Module):
         self.register_buffer("sigma", torch.as_tensor(sigma, **f32))
         self.clf = km.MPKernelMachine(
             km.MPKernelMachineParams(*(torch.as_tensor(t, **f32)
-                                       for t in clf)))
+                                       for t in clf))).requires_grad_(False)
 
     @classmethod
     def from_filterbank(cls, fb: FilterBank, clf, mu, sigma
                         ) -> "InFilterPipeline":
         return cls(fb.config, fb.bp_by_octave, fb.lp_filters, mu, sigma, clf,
                    device=fb.device)
+
+    @classmethod
+    def fit(cls, config: FilterBankConfig, x_train, y_train,
+            num_classes: int, train_cfg=None, device=None):
+        """Extract features, standardize, train the MP kernel machine
+        (``core.trainer``) and pack the deployable pipeline. Returns
+        (pipeline, loss trace).
+
+        The features are ``FilterBank.accumulate`` on all of ``x_train``
+        (B, N): on the card under ``use_pallas`` one launch of the one-shot
+        cascade kernel (the int one under ``numerics="fixed"``). mu and
+        sigma are their mean and sample standard deviation (+ 1e-6) over
+        the clips. ``device`` is ``cuda`` unless given (raises without a
+        card)."""
+        from repro_torch.core import trainer
+        if train_cfg is None:
+            train_cfg = trainer.TrainConfig()
+        fb = FilterBank(config, device=device)
+        with torch.no_grad():
+            s = fb.accumulate(x_train)
+        mu = s.mean(0)
+        sigma = s.std(0, correction=1) + 1e-6
+        K = (s - mu) / sigma
+        params, losses = trainer.train(K, y_train, num_classes, train_cfg,
+                                       device=fb.device)
+        return cls.from_filterbank(fb, params, mu, sigma), losses
 
     @property
     def bp_taps(self) -> tuple:

@@ -1,9 +1,10 @@
 """Quantization utilities (paper §V, Fig. 8).
 
 * ``QuantSpec`` + ``fake_quant`` are the QAT proxy: values are
-  round(x / s) clamped to [-(2^(b-1)), 2^(b-1)-1] and carried in float.
-  ``fake_quant`` is forward only here; the straight-through gradient comes
-  with the training slice.
+  round(x / s) clamped to [-(2^(b-1)), 2^(b-1)-1] and carried in float,
+  with the reference's gradient: straight through the round, zero outside
+  the range and half at its edges (the clip is a max then a min, whose
+  gradients split at ties, in ``jnp`` as in torch).
 * ``FixedPointSpec`` is the hardware twin's type: symmetric fixed point
   with a POWER-OF-TWO scale, so every conversion between formats is a bit
   shift and the datapath of ``core.fixed`` runs on int32 with add,
@@ -116,19 +117,36 @@ def pow2_spec_for(x, bits: int, amax: float | None = None) -> FixedPointSpec:
     return FixedPointSpec(bits=bits, exp=exp)
 
 
+class _STERound(torch.autograd.Function):
+    """``torch.round`` with the gradient passed straight through (the
+    reference's ``_ste_round``)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
 def fake_quant(x: torch.Tensor, bits: int, amax=None) -> torch.Tensor:
-    """Quantize-dequantize onto a symmetric ``bits``-bit grid.
+    """Quantize-dequantize onto a symmetric ``bits``-bit grid, with a
+    straight-through gradient (QAT).
 
     ``amax`` sets the range: a scalar, or a tensor broadcasting against
     ``x`` (the session path passes a per-stream ``(S, 1)`` running amax).
     ``None`` uses the tensor's own max |x| (right for taps, not for a batch
-    of independent streams).
+    of independent streams); no gradient flows into the range.
     """
+    from repro_torch.core.mp import device_scalar
     if amax is None:
         amax = x.detach().abs().amax()
     amax = torch.as_tensor(amax, dtype=x.dtype, device=x.device)
     amax = torch.where(amax > 0, amax, torch.ones_like(amax))
     scale = amax / ((1 << (bits - 1)) - 1)
-    q = torch.round(x / scale)
-    q = torch.clamp(q, -(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+    q = _STERound.apply(x / scale)
+    lo = device_scalar(float(-(1 << (bits - 1))), q.dtype, q.device)
+    hi = device_scalar(float((1 << (bits - 1)) - 1), q.dtype, q.device)
+    q = torch.minimum(torch.maximum(q, lo), hi)
     return q * scale

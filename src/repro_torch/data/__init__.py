@@ -1,1 +1,2 @@
-"""Synthetic acoustic data (numpy), copied from the reference."""
+"""Synthetic data (numpy), copied from the reference: acoustic clips
+(``acoustic``) and token batches (``tokens``)."""

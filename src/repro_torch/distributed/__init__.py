@@ -1,1 +1,2 @@
-"""Step functions of the port (serving: ``steps.make_serve_step``)."""
+"""Step functions of the port (``steps``: the train and serve steps) and
+the training loop's ``monitor.StragglerMonitor``."""

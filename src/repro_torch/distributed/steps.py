@@ -1,14 +1,111 @@
-"""The serving step: the counterpart of the reference's
-``repro.distributed.steps.make_serve_step`` (training steps come with the
-training slice, ROADMAP.md)."""
+"""Train and serve step builders: the counterpart of the reference's
+``repro.distributed.steps`` on one device.
+
+``make_train_step(cfg, opt)`` -> (init_state, train_step): the chunked
+cross-entropy loss (``make_loss_fn``), its gradients by torch autograd
+(through ``kernels.ops.mp_linear``'s backward kernel in MP mode), averaged
+over ``accum`` microbatches, and one AdamW update.
+
+``make_serve_step(cfg)`` -> the decode step producing next-token ids.
+"""
 
 from __future__ import annotations
 
+from typing import Any, NamedTuple
+
 import torch
 
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
+                                     adamw_update, tree_leaves, tree_map)
 
-__all__ = ["make_serve_step"]
+__all__ = ["TrainState", "make_train_step", "make_serve_step",
+           "make_loss_fn"]
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+    step: torch.Tensor   # 0-d int32
+
+
+def make_loss_fn(cfg, seq_chunk: int = 1024):
+    """Chunked cross entropy of next-token prediction: the head (through
+    ``layers.linear``, so an MP product in ``mp_mode``) and the softmax run
+    one sequence chunk of ``seq_chunk`` positions at a time, so the (B, S,
+    V) logits never exist at once. Mean over the labelled positions."""
+
+    def loss_fn(params, batch):
+        h = T.forward(params, cfg, batch, return_hidden=True)[:, :-1]
+        labels = batch["tokens"][:, 1:].long()
+        head = (params["tok_embed"].T if cfg.tie_embeddings
+                else params["lm_head"])
+        S2 = h.shape[1]
+        C = min(seq_chunk, S2)
+        tot = torch.zeros((), dtype=torch.float32, device=h.device)
+        for c0 in range(0, S2, C):
+            hc, lc = h[:, c0:c0 + C], labels[:, c0:c0 + C]
+            logits = L.linear(hc, head, mp_mode=cfg.mp_mode,
+                              mp_gamma=cfg.mp_gamma,
+                              compute_dtype=L.cdt(cfg)).float()
+            m = logits.amax(-1, keepdim=True).detach()
+            logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+            valid = lc >= 0
+            gold = torch.where(valid, logits.gather(
+                -1, lc.clamp_min(0)[..., None])[..., 0], 0.0)
+            tot = tot + ((logz - gold) * valid.float()).sum()
+        n = torch.clamp_min((labels >= 0).sum().float(), 1.0)
+        return tot / n
+
+    return loss_fn
+
+
+def make_train_step(cfg, opt: AdamWConfig, accum: int = 1):
+    """``accum`` > 1 splits the batch into that many microbatches whose
+    gradients are averaged before the one AdamW update."""
+    loss_fn = make_loss_fn(cfg)
+
+    def init_state(generator: torch.Generator, device=None) -> TrainState:
+        params = T.init(cfg, generator, device=device)
+        dev = tree_leaves(params)[0].device
+        return TrainState(params=params, opt=adamw_init(params),
+                          step=torch.zeros((), dtype=torch.int32, device=dev))
+
+    def value_and_grad(params, batch):
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = loss_fn(leaves, batch)
+        loss.backward()
+        return loss.detach(), tree_map(lambda p: p.grad, leaves)
+
+    def grads_of(params, batch):
+        if accum == 1:
+            return value_and_grad(params, batch)
+        B = batch["tokens"].shape[0]
+        if B % accum:
+            raise ValueError(f"batch {B} does not split into {accum} "
+                             "microbatches")
+        mb = B // accum
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=batch["tokens"].device)
+        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                              device=p.device), params)
+        for a in range(accum):
+            micro = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
+            loss, g = value_and_grad(params, micro)
+            loss_sum = loss_sum + loss
+            gsum = tree_map(torch.add, gsum, g)
+        scale = 1.0 / accum
+        return loss_sum * scale, tree_map(lambda g: g * scale, gsum)
+
+    def train_step(state: TrainState, batch):
+        loss, grads = grads_of(state.params, batch)
+        new_params, new_opt, om = adamw_update(opt, grads, state.opt,
+                                               state.params)
+        metrics = {"loss": loss, **om}
+        return TrainState(new_params, new_opt, state.step + 1), metrics
+
+    return init_state, train_step
 
 
 def make_serve_step(cfg, temperature: float = 0.0):

@@ -8,9 +8,9 @@ Layers, as in the reference's ``repro.kernels``:
                   (``LAUNCHES``) and the checks before a launch
   fir_mp.py     - one wrapper per FIR kernel: launch for CUDA tensors, the
                   plain version for CPU tensors
-  mp_kernels.py - the same for the two MP solve kernels
+  mp_kernels.py - the same for the MP solve kernels
   ops.py        - public wrappers: leading dims, the session step's octave
-                  cascade, the forward-only ``mp_linear``
+                  cascade, ``mp_linear`` as an autograd Function
   ref.py        - the plain PyTorch versions
 
 Kernels:
@@ -33,6 +33,8 @@ Kernels:
                  bit ``core.fixed``'s torch ops
   mp_linear    - the fused multiplierless matrix product of eq. 9, every
                  MP-mode projection of the transformer (``models.layers``)
+  mp_linear_bwd - its gradients (masks of the exact water levels): a
+                 levels pass on mp_linear's kernel, then dx and dw
   mp_waterfill - row-wise reverse water-filling z = MP(L, gamma)
 """
 

@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build_all", "load", "lib_path", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fir_mp_stream", "fir_mp_bank", "fir_mp_stream_q",
-           "fir_mp_bank_q", "mp_linear", "mp_waterfill")
+           "fir_mp_bank_q", "mp_linear", "mp_linear_bwd", "mp_waterfill")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -44,6 +44,8 @@ SIGNATURES = {
     "fir_mp_bank_q": ("fir_mp_oneshot_q_launch",
                       [_P] * 3 + [_P, _I] * 2 + [_I] * 5 + [_P]),
     "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
+    "mp_linear_bwd": ("mp_linear_bwd_launch",
+                      [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
     "mp_waterfill": ("mp_waterfill_launch",
                      [_P] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
 }

@@ -17,7 +17,7 @@ LAUNCHES = {"fir_mp_stream_cascade": 0, "fir_mp_stream_octave": 0,
             "fir_mp_oneshot_cascade": 0, "fir_mp_bank": 0, "fir_mp": 0,
             "fir_mp_stream_cascade_q": 0, "fir_mp_stream_octave_q": 0,
             "fir_mp_oneshot_cascade_q": 0, "fir_mp_bank_q": 0,
-            "mp_linear": 0, "mp_waterfill": 0}
+            "mp_linear": 0, "mp_linear_bwd": 0, "mp_waterfill": 0}
 
 
 _CAPTURED: dict = {}

@@ -3,6 +3,8 @@
 * ``mp_linear_kernel`` — ``csrc/mp_linear.cu``, the fused multiplierless
   matrix product of eq. 9 (replaces the reference's Pallas
   ``mp_linear_pallas``);
+* ``mp_linear_bwd_kernel`` — ``csrc/mp_linear_bwd.cu``, its gradients
+  (replaces the reference's custom VJP ``_mp_linear_vjp_bwd``, jnp);
 * ``mp_waterfill_kernel`` — ``csrc/mp_waterfill.cu``, row-wise reverse
   water-filling (replaces ``mp_waterfill_pallas``).
 
@@ -24,7 +26,8 @@ from repro_torch.kernels import ref
 from repro_torch.kernels._wrap import (_check, _expect, _f32, _on_cuda,
                                        _stream, count_launch)
 
-__all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_plan",
+__all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_bwd_kernel",
+           "mp_linear_plan",
            "mp_waterfill_kernel", "mp_waterfill_plan"]
 
 # the weight dtypes the mp_linear kernel reads as they are
@@ -68,6 +71,52 @@ def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
     _check(code, "mp_linear", f"B={B} d={d} O={O} tile_to={tile_to}")
     count_launch("mp_linear")
     return y
+
+
+def mp_linear_bwd_kernel(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                         gamma, iters: int = ref.DEFAULT_ITERS) -> tuple:
+    """The gradients of :func:`mp_linear_kernel`: x (B, d) float32, w (d,
+    O) float32 or bfloat16, output gradient g (B, O) float32 -> (dx (B, d),
+    dw (d, O)), float32, with the masks of the exact water levels (the
+    reference's custom VJP). The kernel finds each level by ``iters``
+    bisection steps, then solves it exactly on the support found; the
+    plain version (``ref.mp_linear_bwd``) sorts."""
+    _linear_args(w.dtype, 0)
+    if not _on_cuda(x, w, g):
+        return ref.mp_linear_bwd(x, w, g, gamma)
+    dx, dw, _ = _mp_linear_bwd_launch(x, w, g, gamma, iters)
+    return dx, dw
+
+
+def _mp_linear_bwd_launch(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                          gamma, iters: int = ref.DEFAULT_ITERS) -> tuple:
+    """One launch of ``csrc/mp_linear_bwd.cu`` on CUDA tensors -> (dx, dw,
+    lv): the levels of every (b, o) go through a (B, O, 4) float32 scratch
+    tensor, [z_u, z_v, g / k_u, g / k_v] (``ref.mp_linear_levels``),
+    returned as well for the checks that hold each pass apart."""
+    from repro_torch.kernels._build import load
+    _linear_args(w.dtype, 0)
+    if not _on_cuda(x, w, g):
+        raise ValueError("mp_linear_bwd: the launch takes CUDA tensors")
+    if x.ndim != 2 or w.ndim != 2:
+        raise ValueError(f"x must be (B, d) and w (d, O), got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    B, d = x.shape
+    O = w.shape[1]
+    _expect("w", w, (d, O))
+    _expect("g", g, (B, O))
+    x, w, g = _f32(x, "x"), w.contiguous(), _f32(g, "g")
+    f32 = dict(dtype=torch.float32, device=x.device)
+    lv = torch.empty((B, O, 4), **f32)
+    dx = torch.empty((B, d), **f32)
+    dw = torch.empty((d, O), **f32)
+    code = load("mp_linear_bwd")(
+        x.data_ptr(), w.data_ptr(), g.data_ptr(), lv.data_ptr(),
+        dx.data_ptr(), dw.data_ptr(), B, d, O, int(w.dtype == torch.bfloat16),
+        float(gamma), int(iters), _stream())
+    _check(code, "mp_linear_bwd", f"B={B} d={d} O={O}")
+    count_launch("mp_linear_bwd")
+    return dx, dw, lv
 
 
 def mp_linear_plan(B: int, d: int, O: int,

@@ -21,6 +21,7 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_stream_cascade,
                                          fir_mp_stream_cascade_q)
 from repro_torch.kernels.mp_kernels import (LINEAR_W_DTYPES,
+                                            mp_linear_bwd_kernel,
                                             mp_linear_kernel,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ref import DEFAULT_ITERS
@@ -39,25 +40,36 @@ def mp_waterfill(L: torch.Tensor, gamma, *,
     return z.reshape(L.shape[:-1])
 
 
+class _MPLinear(torch.autograd.Function):
+    """The kernel's product with the reference's custom VJP: the backward
+    launches ``mp_linear_bwd_kernel`` on the card (the plain version on
+    the CPU). gamma and iters get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x2, w, gamma, iters):
+        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            ctx.save_for_backward(x2, w)
+        ctx.gamma, ctx.iters = gamma, iters
+        return mp_linear_kernel(x2, w, gamma, iters)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w = ctx.saved_tensors
+        dx, dw = mp_linear_bwd_kernel(x2, w, g.float(), ctx.gamma, ctx.iters)
+        return dx, dw.to(w.dtype), None, None
+
+
 def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, *,
               iters: int = DEFAULT_ITERS) -> torch.Tensor:
-    """Multiplierless (..., d) @ (d, O) through the fused kernel. A w of a
-    dtype the kernel does not read (``LINEAR_W_DTYPES``) is widened to
-    float32 first.
-
-    Forward only: the reference's custom VJP becomes a
-    ``torch.autograd.Function`` with the training slice (ROADMAP.md), so
-    until then a call that autograd would have to differentiate raises
-    rather than silently detaching.
-    """
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise RuntimeError(
-            "ops.mp_linear is forward only: its gradient (the reference's "
-            "custom VJP) comes with the training slice (ROADMAP.md); run "
-            "it under torch.no_grad() or on tensors without requires_grad")
+    """Multiplierless (..., d) @ (d, O) through the fused kernel,
+    differentiable in x and w (the reference's custom VJP: masks of the
+    exact water levels, ``mp_linear_bwd_kernel``). A w of a dtype the
+    kernel does not read (``LINEAR_W_DTYPES``) is widened to float32
+    first; a bf16 w gets its gradient rounded to bf16."""
     if w.dtype not in LINEAR_W_DTYPES:
         w = w.float()
-    y = mp_linear_kernel(x.reshape(-1, x.shape[-1]), w, gamma, iters)
+    y = _MPLinear.apply(x.reshape(-1, x.shape[-1]), w, float(gamma),
+                        int(iters))
     return y.reshape(*x.shape[:-1], w.shape[1])
 
 

@@ -29,7 +29,9 @@ __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_bank_q", "fir_mp_bank_q_accumulate",
            "fir_mp_oneshot_cascade_q",
            "fir_mp_stream_octave_q", "fir_mp_stream_q", "mp_waterfill",
-           "mp_linear"]
+           "mp_linear", "mp_linear_bwd", "mp_exact_masks",
+           "mp_linear_levels", "mp_linear_bwd_from_levels",
+           "mp_linear_near_level"]
 
 DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
 BANK_TILE = 256      # positions per CTA of the bank kernel
@@ -446,3 +448,118 @@ def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma,
         out.append(_mpabs_bisect(xb + wb, gamma, iters)
                    - _mpabs_bisect(xb - wb, gamma, iters))
     return torch.cat(out, dim=-1)
+
+
+def mp_exact_masks(t: torch.Tensor, gamma) -> torch.Tensor:
+    """dz/dt for z = MP([t; -t], gamma) over the last axis, z by the exact
+    sort-based solve (``core.mp.mp_exact``): (1{t > z} - 1{-t > z}) / k,
+    k = max(#{operands of [t; -t] above z}, 1)."""
+    z = mp_mod.mp_exact(torch.cat([t, -t], dim=-1), gamma)[..., None]
+    s_pos = (t > z).to(t.dtype)
+    s_neg = (-t > z).to(t.dtype)
+    k = torch.clamp_min((s_pos + s_neg).sum(-1, keepdim=True), 1.0)
+    return (s_pos - s_neg) / k
+
+
+def mp_linear_bwd(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                  gamma) -> tuple:
+    """The gradients of ``mp_linear`` (the reference's custom VJP,
+    ``_mp_linear_vjp_bwd``): x (B, d), w (d, O), output gradient g (B, O)
+    -> (dx (B, d), dw (d, O)), float32, with m_u, m_v the masks of
+    :func:`mp_exact_masks` for u = x[b] + w[:, o] and v = x[b] - w[:, o]:
+    dx = sum_o g (m_u - m_v), dw = sum_b g (m_u + m_v). Blocked over O,
+    and over B where one row's block is already too large, so the
+    (B_blk, O_blk, d) operands stay within ``LINEAR_BLOCK`` elements. A
+    bf16 w is widened to float32 first (exact). gamma gets no gradient,
+    as in the reference."""
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    B, d = x.shape
+    O = w.shape[1]
+    dx = torch.zeros_like(x)
+    dw = torch.zeros_like(w)
+    for rs, os_ in _blocks(B, d, O):
+        xb, wb = x[rs, None, :], w[:, os_].T[None]     # (rb, 1, d), (1, ob, d)
+        du = mp_exact_masks(xb + wb, gamma)
+        dv = mp_exact_masks(xb - wb, gamma)
+        gy = g[rs, os_, None]
+        dx[rs] += (gy * (du - dv)).sum(1)
+        dw[:, os_] += (gy * (du + dv)).sum(0).T
+    return dx, dw
+
+
+def _blocks(B: int, d: int, O: int):
+    """(row, column) slices of at most ``LINEAR_BLOCK`` (b, o, i) operands."""
+    rb = max(1, min(B, LINEAR_BLOCK // max(1, d)))
+    ob = max(1, min(O, LINEAR_BLOCK // max(1, rb * d)))
+    for r in range(0, B, rb):
+        for o in range(0, O, ob):
+            yield slice(r, r + rb), slice(o, o + ob)
+
+
+def mp_linear_levels(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                     gamma) -> torch.Tensor:
+    """What the backward kernel's first pass writes, by the sort-based
+    solve: (B, O, 4) float32, [z_u, z_v, g * (1 / k_u), g * (1 / k_v)]
+    per (b, o), z_t the exact level of [t; -t] and k_t the count of its
+    operands above z_t (at least 1)."""
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    B, d = x.shape
+    O = w.shape[1]
+    out = torch.empty((B, O, 4), dtype=torch.float32, device=x.device)
+    for rs, os_ in _blocks(B, d, O):
+        xb, wb = x[rs, None, :], w[:, os_].T[None]
+        for j, t in enumerate((xb + wb, xb - wb)):
+            z = mp_mod.mp_exact(torch.cat([t, -t], dim=-1), gamma)
+            k = ((t > z[..., None]).sum(-1) + (-t > z[..., None]).sum(-1))
+            out[rs, os_, j] = z
+            out[rs, os_, 2 + j] = g[rs, os_] * (
+                1.0 / torch.clamp_min(k.float(), 1.0))
+    return out
+
+
+def mp_linear_bwd_from_levels(x: torch.Tensor, w: torch.Tensor,
+                              lv: torch.Tensor) -> tuple:
+    """The backward kernel's dx and dw passes on given levels ``lv`` (B, O,
+    4) (:func:`mp_linear_levels`, or the kernel's own): with the sign
+    masks s_t = 1{t > z_t} - 1{-t > z_t}, dx = sum_o (g_u s_u - g_v s_v)
+    and dw = sum_b (g_u s_u + g_v s_v)."""
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    B, d = x.shape
+    O = w.shape[1]
+    dx = torch.zeros_like(x)
+    dw = torch.zeros_like(w)
+
+    def sign(t, z):
+        return (t > z).float() - (-t > z).float()
+
+    for rs, os_ in _blocks(B, d, O):
+        xb, wb = x[rs, None, :], w[:, os_].T[None]
+        l = lv[rs, os_, :, None]
+        cu = l[..., 2, :] * sign(xb + wb, l[..., 0, :])
+        cv = l[..., 3, :] * sign(xb - wb, l[..., 1, :])
+        dx[rs] += (cu - cv).sum(1)
+        dw[:, os_] += (cu + cv).sum(0).T
+    return dx, dw
+
+
+def mp_linear_near_level(x: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
+                         tol: float) -> torch.Tensor:
+    """(B, O, 2) bool: the (b, o) branches (u, v) with an operand of [t; -t]
+    within ``tol`` x (1 + |z|) of its level z (``z``: (B, O, 2)), where two
+    solves summing in other orders may put it on either side. For the
+    checks that hold the backward kernel's levels against the sort."""
+    if w.dtype == torch.bfloat16:
+        w = w.float()
+    B, d = x.shape
+    O = w.shape[1]
+    out = torch.empty((B, O, 2), dtype=torch.bool, device=x.device)
+    for rs, os_ in _blocks(B, d, O):
+        xb, wb = x[rs, None, :], w[:, os_].T[None]
+        for j, t in enumerate((xb + wb, xb - wb)):
+            zj = z[rs, os_, j, None]
+            gap = torch.minimum((t - zj).abs(), (-t - zj).abs()).amin(-1)
+            out[rs, os_, j] = gap <= tol * (1.0 + zj[..., 0].abs())
+    return out

@@ -1,1 +1,2 @@
-"""Entry points of the port (``serve.serve_decode``)."""
+"""Entry points of the port: ``serve`` (``serve.serve_decode``) and
+``train``."""

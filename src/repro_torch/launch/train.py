@@ -1,0 +1,118 @@
+"""Training launcher for the transformer zoo, on one card: the counterpart
+of the reference's ``repro.launch.train``, with its arguments.
+
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
+        --smoke --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
+        --resume auto [--mp-mode] [--device cpu]
+
+* deterministic token batches addressed by step (``data.tokens``), so a
+  restart needs only the step counter;
+* ``CheckpointManager``: atomic, async, keep-last-k; ``--resume auto``
+  restores the latest checkpoint of ``--ckpt-dir``;
+* ``StragglerMonitor`` EWMA on step times;
+* gradient accumulation over ``--accum`` microbatches.
+
+On the card unless ``--device cpu``. A mesh (``--mesh-data`` /
+``--mesh-model`` above 1) raises ``NotImplementedError``: sharded training
+waits for ROADMAP.md §1 item 2. Architectures other than the dense
+RMSNorm/SwiGLU decoder raise as ``models.transformer`` does (item 7).
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import time
+
+import torch
+
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
+from repro_torch.data.tokens import TokenStream
+from repro_torch.device import resolve_device
+from repro_torch.distributed.monitor import StragglerMonitor
+from repro_torch.distributed.steps import make_train_step
+from repro_torch.optim import AdamWConfig
+
+__all__ = ["build_argparser", "main"]
+
+
+def build_argparser():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", choices=sorted(ARCH_IDS), required=True)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced same-family config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--warmup", type=int, default=20)
+    ap.add_argument("--accum", type=int, default=1,
+                    help="gradient accumulation microbatches")
+    ap.add_argument("--mesh-data", type=int, default=1)
+    ap.add_argument("--mesh-model", type=int, default=1)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--resume", choices=["auto", "never"], default="auto")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--mp-mode", action="store_true",
+                    help="run linear layers through the multiplierless MP "
+                         "path")
+    ap.add_argument("--device", default=None,
+                    help="cuda (default) or cpu")
+    return ap
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    if args.mesh_data > 1 or args.mesh_model > 1:
+        raise NotImplementedError(
+            "sharded training (--mesh-data / --mesh-model above 1) is not "
+            "ported yet; it is queued in ROADMAP.md (section 1, 'Modules "
+            "still to port', item 2)")
+    cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if args.mp_mode:
+        cfg = dataclasses.replace(cfg, mp_mode=True)
+    dev = resolve_device(args.device)
+    opt = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
+                      total_steps=args.steps)
+    init_state, train_step = make_train_step(cfg, opt, accum=args.accum)
+    state = init_state(torch.Generator(device=dev).manual_seed(args.seed),
+                       device=dev)
+
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start_step = 0
+    if ckpt and args.resume == "auto" and ckpt.latest_step() is not None:
+        state, start_step = ckpt.restore(state)
+        print(f"resumed from step {start_step}")
+
+    stream = TokenStream(cfg.vocab_size, args.seq, args.batch * args.accum,
+                         seed=args.seed)
+    monitor = StragglerMonitor()
+    losses = []
+    for step in range(start_step, args.steps):
+        batch = {"tokens": torch.as_tensor(stream.batch(step)).to(dev)}
+        t0 = time.time()
+        state, metrics = train_step(state, batch)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        monitor.record("host0", dt)
+        losses.append(loss)
+        if step % args.log_every == 0 or step == args.steps - 1:
+            print(f"step {step:5d} loss {loss:.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms "
+                  f"stragglers={monitor.stragglers()}")
+        if ckpt and (step + 1) % args.ckpt_every == 0:
+            ckpt.save(step + 1, state)
+    if ckpt:
+        ckpt.save(args.steps, state)
+        ckpt.wait()
+    if losses:
+        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+    return losses
+
+
+if __name__ == "__main__":
+    main()

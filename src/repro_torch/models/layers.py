@@ -1,5 +1,6 @@
-"""Decode-time layers of the transformer zoo in PyTorch: the decode half of
-the reference's ``repro.models.layers``.
+"""Layers of the transformer zoo in PyTorch: the reference's
+``repro.models.layers`` for the dense RMSNorm/SwiGLU family, decode and
+full sequence (training, prefill).
 
 Conventions, as there:
   * params are plain nested dicts of tensors, float32 masters;
@@ -13,8 +14,11 @@ Conventions, as there:
     ``mp_linear`` kernel (``kernels.ops.mp_linear``), else ``torch.matmul``
     in the compute dtype.
 
-Decode only: full-sequence attention (``chunked_attention``), LayerNorm and
-the GELU MLP come with the prefill/training slice (ROADMAP.md).
+``chunked_attention`` is the reference's flash-style attention in torch
+ops: online softmax over kv chunks, GQA, causal and sliding-window masks,
+and as its backward the reference's rule (``_bwd_rule``: p recomputed per
+block from the saved log-sum-exp), so memory stays O(S). LayerNorm and the
+GELU MLP (the ``norm="ln"`` archs) are queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -26,8 +30,9 @@ import torch
 from repro_torch.kernels.ops import mp_linear
 
 __all__ = ["cdt", "dense_init", "linear", "rms_norm", "rope_freqs",
-           "apply_rope", "init_attention", "attention_decode",
-           "init_attn_cache", "init_swiglu", "swiglu"]
+           "apply_rope", "chunked_attention", "init_attention",
+           "attention_block", "attention_decode", "init_attn_cache",
+           "init_swiglu", "swiglu"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -90,6 +95,155 @@ def apply_rope(x, positions, theta: float = 1e4):
 # ---------------------------------------------------------------------------
 
 
+class _Chunks:
+    """The padded, chunked, grouped layouts of one chunked_attention call:
+    q (B, Sq, H, hd) as nq chunks of (B, qc, Hk, G, hd), k and v
+    (B, Skv, Hk, hd) as nk chunks of (B, kc, Hk, hd); padded query
+    positions are -1, padded keys 2^30 (the reference's)."""
+
+    def __init__(self, q, k, causal, window, q_chunk, kv_chunk):
+        B, Sq, H, hd = q.shape
+        Skv, Hk = k.shape[1], k.shape[2]
+        self.B, self.Sq, self.Skv, self.H, self.Hk = B, Sq, Skv, H, Hk
+        self.G, self.hd = H // Hk, hd
+        self.scale = 1.0 / math.sqrt(hd)
+        self.qc, self.kc = min(q_chunk, Sq), min(kv_chunk, Skv)
+        self.nq = -(-Sq // self.qc)
+        self.nk = -(-Skv // self.kc)
+        dev = q.device
+        qpos = torch.full((self.nq * self.qc,), -1, dtype=torch.int32,
+                          device=dev)
+        qpos[:Sq] = torch.arange(Sq, dtype=torch.int32, device=dev)
+        kpos = torch.full((self.nk * self.kc,), 2 ** 30, dtype=torch.int32,
+                          device=dev)
+        kpos[:Skv] = torch.arange(Skv, dtype=torch.int32, device=dev)
+        self.qpos = qpos.reshape(self.nq, self.qc)
+        self.kpos = kpos.reshape(self.nk, self.kc)
+        self.causal, self.window = causal, window
+
+    def q(self, x):   # (B, Sq, H, hd) -> nq x (B, qc, Hk, G, hd)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, self.nq * self.qc
+                                        - self.Sq))
+        return x.reshape(self.B, self.nq, self.qc, self.Hk, self.G,
+                         self.hd).unbind(1)
+
+    def kv(self, x):  # (B, Skv, Hk, hd) -> nk x (B, kc, Hk, hd)
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, self.nk * self.kc
+                                        - self.Skv))
+        return x.reshape(self.B, self.nk, self.kc, self.Hk,
+                         self.hd).unbind(1)
+
+    def unq(self, chunks):  # nq x (B, qc, Hk, G, hd) -> (B, Sq, H, hd)
+        x = torch.stack(chunks, 1).reshape(self.B, self.nq * self.qc, self.H,
+                                           self.hd)
+        return x[:, :self.Sq]
+
+    def unkv(self, chunks):
+        x = torch.stack(chunks, 1).reshape(self.B, self.nk * self.kc,
+                                           self.Hk, self.hd)
+        return x[:, :self.Skv]
+
+    def scores(self, qc, kc, i, j):
+        """(B, Hk, G, qc, kc) float32 scores of q chunk i against kv chunk
+        j, masked to -1e30."""
+        s = torch.einsum("bqkgd,bckd->bkgqc", qc.float(),
+                         kc.float()) * self.scale
+        qp, kp = self.qpos[i][:, None], self.kpos[j][None, :]
+        mask = torch.ones(qp.shape[0], kp.shape[1], dtype=torch.bool,
+                          device=s.device)
+        if self.causal:
+            mask &= qp >= kp
+        if self.window is not None:
+            mask &= (qp - kp) < self.window
+        return torch.where(mask, s, -1e30)
+
+
+def _rounded(t, dtype):
+    """``t`` rounded to ``dtype`` and carried in float32: a product of two
+    such operands summed in float32 is what the reference's einsums with
+    ``preferred_element_type=float32`` compute."""
+    return t.to(dtype).float()
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward: online softmax over kv chunks for each q chunk; saves
+    (q, k, v, out, lse). Backward: the reference's ``_bwd_rule``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_chunk, kv_chunk):
+        c = _Chunks(q, k, causal, window, q_chunk, kv_chunk)
+        kg, vg = c.kv(k), c.kv(v)
+        outs, lses = [], []
+        for i, qc in enumerate(c.q(q)):
+            shape = (c.B, c.Hk, c.G, c.qc)
+            m = torch.full(shape, -math.inf, device=q.device)
+            l = torch.zeros(shape, device=q.device)
+            acc = torch.zeros(shape + (c.hd,), device=q.device)
+            for j, (kc, vc) in enumerate(zip(kg, vg)):
+                s = c.scores(qc, kc, i, j)
+                m_new = torch.maximum(m, s.amax(-1))
+                p = torch.exp(s - m_new[..., None])
+                corr = torch.exp(m - m_new)
+                l = l * corr + p.sum(-1)
+                pv = torch.einsum("bkgqc,bckd->bkgqd", _rounded(p, vc.dtype),
+                                  vc.float())
+                acc = acc * corr[..., None] + pv
+                m = m_new
+            l_safe = torch.clamp_min(l, 1e-30)
+            outs.append((acc / l_safe[..., None]).permute(0, 3, 1, 2, 4)
+                        .to(q.dtype))
+            lses.append(m + torch.log(l_safe))
+        out = c.unq(outs)
+        ctx.save_for_backward(q, k, v, out, torch.stack(lses))
+        ctx.args = (causal, window, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lses = ctx.saved_tensors
+        c = _Chunks(q, k, *ctx.args)
+        qg, kg, vg = c.q(q), c.kv(k), c.kv(v)
+        dog, og = c.q(dout), c.q(out)
+        # D_i = rowsum(dout * out), (B, Hk, G, qc) per q chunk
+        Dg = [(do.float() * o.float()).sum(-1).permute(0, 2, 3, 1)
+              for do, o in zip(dog, og)]
+        dq = [torch.zeros(qc.shape, device=q.device) for qc in qg]
+        dks, dvs = [], []
+        for j, (kc, vc) in enumerate(zip(kg, vg)):
+            dk = torch.zeros(kc.shape, device=q.device)
+            dv = torch.zeros(vc.shape, device=q.device)
+            for i, (qc, doc) in enumerate(zip(qg, dog)):
+                s = c.scores(qc, kc, i, j)
+                p = torch.exp(s - lses[i][..., None])
+                dp = torch.einsum("bqkgd,bckd->bkgqc", doc.float(),
+                                  vc.float())
+                ds = p * (dp - Dg[i][..., None]) * c.scale
+                pb = _rounded(p, vc.dtype)
+                dsb = _rounded(ds, qc.dtype)
+                dv = dv + torch.einsum("bkgqc,bqkgd->bckd", pb, doc.float())
+                dk = dk + torch.einsum("bkgqc,bqkgd->bckd", dsb, qc.float())
+                dq[i] = dq[i] + torch.einsum("bkgqc,bckd->bqkgd", dsb,
+                                             kc.float())
+            dks.append(dk)
+            dvs.append(dv)
+        return (c.unq(dq).to(q.dtype), c.unkv(dks).to(k.dtype),
+                c.unkv(dvs).to(v.dtype), None, None, None, None)
+
+
+def chunked_attention(q, k, v, *, causal: bool = True, window=None,
+                      q_chunk: int = 512, kv_chunk: int = 1024):
+    """Flash attention in torch ops (GQA-aware), the reference's algorithm.
+
+    q (B, Sq, H, hd); k, v (B, Skv, Hk, hd), H % Hk == 0; positions are
+    0..S-1. Scores, the softmax statistics and the accumulators are
+    float32; p is rounded to v's dtype before it meets v, as there. The
+    backward recomputes p per block from the saved log-sum-exp and
+    accumulates dq, dk, dv in float32 (the reference's custom VJP)."""
+    return _FlashAttention.apply(q, k, v, causal, window, q_chunk, kv_chunk)
+
+
+
+
 def init_attention(gen: torch.Generator, cfg) -> dict:
     hd = cfg.head_dim
     dev = gen.device
@@ -127,6 +281,17 @@ def _project_qkv(p, x, cfg, positions):
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+def attention_block(p, x, cfg, positions, *, q_chunk=512, kv_chunk=1024):
+    """Full-sequence attention (training / prefill): x (B, S, D)."""
+    B, S, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg, positions)
+    out = chunked_attention(q, k, v, causal=not cfg.is_encoder,
+                            window=cfg.sliding_window, q_chunk=q_chunk,
+                            kv_chunk=kv_chunk)
+    return _lin(cfg, out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                p["wo"])
 
 
 def attention_decode(p, x, cfg, cache, cur_pos):

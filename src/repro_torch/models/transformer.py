@@ -1,10 +1,12 @@
-"""The transformer zoo's config schema and its decode path, in PyTorch.
+"""The transformer zoo's config schema, its full-sequence forward and its
+decode path, in PyTorch.
 
-The counterpart of the reference's ``repro.models.transformer`` for
-serving: ``ArchConfig`` (a copy, field for field), ``init``, ``init_cache``,
-``decode_step`` and ``param_count``.
+The counterpart of the reference's ``repro.models.transformer``:
+``ArchConfig`` (a copy, field for field), ``init``, ``forward`` (training
+and prefill), ``init_cache``, ``decode_step`` and ``param_count``.
 
     params = init(cfg, generator)               # nested dict, f32 masters
+    logits = forward(params, cfg, {"tokens": tokens})
     logits, cache = decode_step(params, cfg, tokens, cache, cur_pos)
 
 Where the reference stacks per-layer params on a leading axis for
@@ -15,9 +17,11 @@ two layouts.
 What runs here: the dense decoder family with RMSNorm and SwiGLU (the
 reference's "uniform" layer plan, attention mixer, no MoE), in float or in
 the paper's MP mode (``mp_mode``), where every projection and the LM head
-go through the CUDA ``mp_linear`` kernel. The other families (moe, ssm,
-hybrid, vlm, audio), LayerNorm/GELU blocks and the full-sequence
-``forward`` raise ``NotImplementedError``: they are queued in ROADMAP.md.
+go through the CUDA ``mp_linear`` kernel (and, training, its backward
+kernel). The other families (moe, ssm, hybrid, vlm, audio) and
+LayerNorm/GELU blocks raise ``NotImplementedError``: they are queued in
+ROADMAP.md. ``cfg.remat`` is not taken: the forward keeps every block's
+activations (the reference recomputes them in its backward).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ __all__ = ["ArchConfig", "init", "forward", "decode_step", "init_cache",
 
 
 # ---------------------------------------------------------------------------
-# config (a copy of the reference's schema; the port ports its decode path)
+# config (a copy of the reference's schema)
 # ---------------------------------------------------------------------------
 
 
@@ -115,7 +119,7 @@ class ArchConfig:
 def _not_ported(what: str):
     return NotImplementedError(
         f"{what} is not ported to PyTorch yet; it is queued in ROADMAP.md "
-        "(section 1, 'Modules still to port')")
+        "(section 1, 'Modules still to port', item 7)")
 
 
 def _check_ported(cfg: ArchConfig) -> None:
@@ -155,6 +159,16 @@ def _init_block(gen, cfg) -> dict:
     return p
 
 
+def _block(p, x, cfg, positions):
+    h = _norm(p["norm1"], x, cfg)
+    x = x + L.attention_block(p["attn"], h, cfg, positions,
+                              q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
+    if cfg.d_ff > 0:
+        h = _norm(p["norm2"], x, cfg)
+        x = x + L.swiglu(p["ffn"], h, cfg)
+    return x
+
+
 def _block_decode(p, x, cfg, cache, cur_pos):
     h = _norm(p["norm1"], x, cfg)
     h, cache = L.attention_decode(p["attn"], h, cfg, cache, cur_pos)
@@ -166,13 +180,14 @@ def _block_decode(p, x, cfg, cache, cur_pos):
 
 
 # the reference casts every float32 leaf of a layer to the compute dtype
-# before use (``_constrain``), except these
+# before use (``_constrain``), except these; gradients flow back through
+# the cast to the float32 masters
 _KEEP_F32 = {"scale", "bias", "a_log", "dt_bias", "D", "conv_b",
              "bq", "bk", "bv", "bi", "bo"}
 
 
 def _constrain(p_layer: dict, cfg: ArchConfig) -> dict:
-    """A layer's params as the reference's decode step uses them: with a
+    """A layer's params as the reference's steps use them: with a
     compute dtype other than float32, every float32 leaf not named in
     ``_KEEP_F32`` (the projections, and ``q_norm``/``k_norm``) cast to it.
     The masters stay float32: the cast is made on use, per step."""
@@ -217,9 +232,26 @@ def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     return params
 
 
-def forward(params: dict, cfg: ArchConfig, batch: dict):
-    """Full-sequence forward (training / prefill): not ported yet."""
-    raise _not_ported("the full-sequence forward (chunked attention)")
+def forward(params: dict, cfg: ArchConfig, batch: dict,
+            return_hidden: bool = False) -> torch.Tensor:
+    """Full-sequence forward: ``batch["tokens"]`` (B, S) int -> logits
+    (B, S, padded_vocab) in the compute dtype, or with ``return_hidden``
+    the final-norm hidden states (B, S, D) (the chunked loss applies the
+    head itself). Each layer's weights are cast to the compute dtype on
+    use, as the reference's ``_constrain`` casts them."""
+    _check_ported(cfg)
+    tokens = batch["tokens"]
+    x = params["tok_embed"][tokens.long()].to(L.cdt(cfg))
+    positions = torch.arange(x.shape[1], device=x.device)
+    for p_layer in params["layers"]:
+        x = _block(_constrain(p_layer, cfg), x, cfg, positions)
+    x = _norm(params["final_norm"], x, cfg)
+    if return_hidden:
+        return x
+    head = (params["tok_embed"].T if cfg.tie_embeddings
+            else params["lm_head"])
+    return L.linear(x, head, mp_mode=cfg.mp_mode, mp_gamma=cfg.mp_gamma,
+                    compute_dtype=L.cdt(cfg))
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,

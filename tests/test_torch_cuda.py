@@ -27,7 +27,8 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
                                         fir_mp_stream_octave_q, stream_plan)
-from repro_torch.kernels.mp_kernels import (mp_linear_kernel,
+from repro_torch.kernels.mp_kernels import (_mp_linear_bwd_launch,
+                                            mp_linear_kernel,
                                             mp_linear_plan,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ops import mp_linear as mp_linear_op
@@ -574,6 +575,140 @@ def test_mp_linear_op_on_the_card(dev):
     _close(y, ref.mp_linear(x.reshape(6, 64), w, 4.0).reshape(2, 3, 5))
     with pytest.raises(TypeError, match="float32"):
         mp_linear_kernel(x[0].bfloat16(), w, 4.0)
+
+
+# the backward's shapes: B = 1, O under one column tile, d off the
+# thread count and off the dx / dw position tiles, a ragged batch tile,
+# the k/v projection's and the down projection's d, and a d too wide for
+# the resident tiles of the levels pass
+MP_LINEAR_BWD_SHAPES = [(1, 300, 37), (3, 1000, 131), (5, 129, 3),
+                        (7, 257, 300), (4, 4096, 1024), (4, 12288, 100),
+                        (2, 20000, 9)]
+
+
+LEVEL_TOL = 1e-6   # x (1 + |z|): two exact solves summing in other orders
+
+
+def _check_bwd(x, w, g, gamma):
+    """The backward kernel pass by pass: its levels against the sort's (z
+    within LEVEL_TOL; g / k bit for bit except on a branch with an operand
+    within LEVEL_TOL of z, where the two solves may take the operand on
+    either side), its dx and dw against the plain dx and dw on its own
+    levels (within TOL), and against the plain version, elementwise where
+    no operand of a row or column sits at a level."""
+    dx, dw, lv = _mp_linear_bwd_launch(x, w, g, gamma)
+    want = ref.mp_linear_levels(x, w, g, gamma)
+    torch.cuda.synchronize()
+    zk, zp = lv[..., :2], want[..., :2]
+    assert bool(((zk - zp).abs() <= LEVEL_TOL * (1 + zp.abs())).all())
+    near = ref.mp_linear_near_level(x, w, zp, LEVEL_TOL)
+    assert bool(((lv[..., 2:] == want[..., 2:]) | near).all())
+    own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, w, lv)
+    _close(dx, own_dx)
+    _close(dw, own_dw)
+    want_dx, want_dw = ref.mp_linear_bwd(x, w, g, gamma)
+    tie = near.any(-1)                                  # (B, O)
+    rows, cols = ~tie.any(1), ~tie.any(0)
+    if bool(rows.any()):
+        _close(dx[rows], want_dx[rows])
+    if bool(cols.any()):
+        _close(dw[:, cols], want_dw[:, cols])
+    return dx, dw, int(tie.sum())
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,d,O", MP_LINEAR_BWD_SHAPES)
+def test_mp_linear_bwd_kernel_matches_plain(dev, B, d, O, w_dtype):
+    """dx and dw of the backward kernel (bisection, then the exact solve
+    on its support) against the plain version (the sort-based solve), w
+    in float32 and in bf16 (the plain version gets w.float()), pass by
+    pass (``_check_bwd``). Tolerance: TOL x (1 + max |plain|), the sums'
+    order."""
+    rng = np.random.default_rng(7 * B + d + O)
+    x = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((d, O))
+                          / np.sqrt(d)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((B, O)).astype(np.float32))
+    x, w, g = x.to(dev), w.to(dev).to(w_dtype), g.to(dev)
+    reset_launches()
+    dx, dw, _ = _check_bwd(x, w, g, 8.0)
+    assert LAUNCHES["mp_linear_bwd"] == 1
+    assert tuple(dx.shape) == (B, d) and tuple(dw.shape) == (d, O)
+
+
+def test_mp_linear_bwd_kernel_solves_ties_exactly(dev):
+    """Integer operands: levels land exactly on operands (ties at the
+    support's edge), where the exact solve and the sort agree bit for bit
+    (every sum exact) and a bisection midpoint would not (gamma = 3 puts
+    the midpoints off the integers)."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-3, 4, (6, 50)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-3, 4, (50, 70)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((6, 70)).astype(np.float32))
+    x, w, g = x.to(dev), w.to(dev), g.to(dev)
+    dx, dw, lv = _mp_linear_bwd_launch(x, w, g, 3.0)
+    assert torch.equal(lv, ref.mp_linear_levels(x, w, g, 3.0))
+    want_dx, want_dw = ref.mp_linear_bwd(x, w, g, 3.0)
+    _close(dx, want_dx)
+    _close(dw, want_dw)
+
+
+def test_mp_linear_autograd_launches_the_backward_kernel(dev, monkeypatch):
+    """Autograd through ``ops.mp_linear`` on CUDA tensors: one forward and
+    one backward launch per call, never the plain backward."""
+    def no_plain(*a, **k):
+        raise AssertionError("the plain backward ran on the card")
+    monkeypatch.setattr(ref, "mp_linear_bwd", no_plain)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((2, 3, 64)).astype(
+        np.float32)).to(dev).requires_grad_()
+    w = torch.from_numpy((rng.standard_normal((64, 5)) / 8).astype(
+        np.float32)).to(dev).bfloat16().requires_grad_()
+    reset_launches()
+    y = mp_linear_op(x, w, 4.0)
+    (y * y).sum().backward()
+    assert LAUNCHES["mp_linear"] == 1 and LAUNCHES["mp_linear_bwd"] == 1
+    assert x.grad.dtype == torch.float32 and w.grad.dtype == torch.bfloat16
+    monkeypatch.undo()
+    want_dx, want_dw = ref.mp_linear_bwd(
+        x.detach().reshape(6, 64), w.detach().float(),
+        2 * y.detach().reshape(6, 5), 4.0)
+    _close(x.grad.reshape(6, 64), want_dx)
+    # dw comes back rounded to w's bf16: within one bf16 ulp
+    torch.testing.assert_close(w.grad.float(), want_dw, rtol=2 ** -8,
+                               atol=TOL * (1 + float(want_dw.abs().max())))
+
+
+def test_fit_on_the_card(dev):
+    """``fit`` at the smoke bank on the card: its features in one launch of
+    the one-shot cascade kernel, its losses within 1e-3 x (1 + max) of the
+    same fit on the CPU (the plain cascade, the same params and batches;
+    the sorts and sums run in other orders), and the trained pipeline
+    deploys fixed (one launch of the int cascade kernel)."""
+    import dataclasses
+    from repro_torch.configs.esc10_mp import FILTERBANK_SMOKE, TRAIN
+    ds = make_esc10_like(per_class_train=3, per_class_test=2, fs=4000.0,
+                         seconds=0.5, seed=0)
+    cfg = FILTERBANK_SMOKE._replace(use_pallas=True)
+    tc = dataclasses.replace(TRAIN, num_steps=20)
+    reset_launches()
+    pipe, losses = InFilterPipeline.fit(cfg, ds.x_train, ds.y_train, 10, tc,
+                                        device=dev)
+    assert LAUNCHES["fir_mp_oneshot_cascade"] == 1
+    cpu_pipe, cpu_losses = InFilterPipeline.fit(cfg, ds.x_train, ds.y_train,
+                                                10, tc, device="cpu")
+    np.testing.assert_allclose(pipe.mu.cpu().numpy(), cpu_pipe.mu.numpy(),
+                               rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(losses, cpu_losses, rtol=0,
+                               atol=1e-3 * (1 + max(cpu_losses)))
+    fixed = InFilterPipeline(cfg._replace(numerics="fixed"), pipe.bp_taps,
+                             pipe.lp_taps, pipe.mu, pipe.sigma,
+                             pipe.clf.params, device=dev)
+    fixed.calibrate_fixed(ds.x_train)
+    reset_launches()
+    p = fixed.apply(ds.x_test)
+    assert LAUNCHES["fir_mp_oneshot_cascade_q"] == 1
+    assert bool(torch.isfinite(p).all()) and float(p.abs().max()) <= 1.0
 
 
 @pytest.mark.parametrize("R,m", [(1, 8), (7, 100), (33, 257), (5, 2000),

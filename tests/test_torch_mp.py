@@ -128,7 +128,8 @@ def test_kernel_machine_matches_reference(exact):
     ref = km_ref.MPKernelMachineParams(*(jnp.asarray(a) for a in leaves))
     port = km.MPKernelMachine(km.MPKernelMachineParams(
         *(torch.as_tensor(a) for a in leaves)))
-    _close(port(torch.from_numpy(K), exact=exact),
+    # the module's weights are parameters (trainable): detach its output
+    _close(port(torch.from_numpy(K), exact=exact).detach(),
            km_ref.forward(ref, jnp.asarray(K), exact=exact))
 
 

@@ -121,10 +121,15 @@ def test_core_mp_linear_matches_reference(exact, block_out):
 
 
 def test_mp_linear_is_forward_only():
+    """Since the training slice ``ops.mp_linear`` is differentiable: its
+    gradients are the plain backward's (``ref.mp_linear_bwd``) on the CPU;
+    under no_grad it runs the forward alone."""
     x = torch.randn(2, 8, requires_grad=True)
-    w = torch.randn(8, 3)
-    with pytest.raises(RuntimeError, match="forward only"):
-        ops.mp_linear(x, w, 1.0)
+    w = torch.randn(8, 3, requires_grad=True)
+    g = torch.randn(2, 3)
+    ops.mp_linear(x, w, 1.0).backward(g)
+    want_dx, want_dw = ref.mp_linear_bwd(x.detach(), w.detach(), g, 1.0)
+    assert torch.equal(x.grad, want_dx) and torch.equal(w.grad, want_dw)
     with torch.no_grad():
         assert tuple(ops.mp_linear(x, w, 1.0).shape) == (2, 3)
     with pytest.raises(ValueError, match="does not match"):

@@ -195,8 +195,12 @@ def test_make_pipeline_defaults_to_the_kernels():
     c = pipe.config
     assert (c.stream_impl, c.use_pallas, c.num_filters) == ("pallas", True, 30)
     assert all(t.device.type == "cpu" for t in pipe.buffers())
+    assert all(t.device.type == "cpu" for t in pipe.parameters())
     assert {n for n, _ in pipe.named_buffers()} >= {"mu", "sigma", "bp_0",
-                                                    "lp_4", "clf.w_pos"}
+                                                    "lp_4"}
+    # the classifier's weights: frozen parameters of the deployed pipeline
+    assert {n for n, p in pipe.named_parameters()
+            if not p.requires_grad} >= {"clf.w_pos", "clf.log_gamma1"}
 
 
 def test_no_silent_cpu_without_cuda(monkeypatch):

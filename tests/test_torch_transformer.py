@@ -280,8 +280,9 @@ def test_unported_families_raise_naming_roadmap():
             T.init(cfg, torch.Generator().manual_seed(0), device="cpu")
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             T.init_cache(cfg, B, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        T.forward({}, pc, {"tokens": torch.zeros(1, 2, dtype=torch.int32)})
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            T.forward({}, cfg, {"tokens": torch.zeros(1, 2,
+                                                      dtype=torch.int32)})
 
 
 def test_no_silent_cpu_without_cuda(monkeypatch):
