@@ -166,22 +166,33 @@ nothing of the reference package). Phases, each failing loudly:
              depth 2 (1.63 G params, B = 2, S = 32 from ``TokenStream``,
              MP mode, AdamW): three steps on one batch, 15 forward and 15
              backward launches each, losses finite and falling, grad norms
-             finite; ms per step and one more step profiled (forward, the
-             backward's three passes, the rest). Then one more step whose
-             15 backward calls are recorded (x, w and g as the step gives
-             them: 64 rows for the projections, 62 for the head), and the
-             backward kernel (``csrc/mp_linear_bwd.cu``) against its plain
-             version on each of them, pass by pass: its levels within
-             1e-6 x (1 + |z|) of the sort's and every support the sort's
-             except on a branch with an operand within that of its level
-             (counted and printed); dx and dw within 1e-5 x max (the
-             step's gradients lie far below 1) of the plain dx and dw on
-             the kernel's own levels, and of the plain version on the rows
-             and columns no such branch feeds (their counts printed); the
-             control (dv's sign flipped) must miss. Its ms, plain ms and bound are summed over those 15
-             calls; the bound counts the cheapest exact form: Newton from
-             the left on each level, with the passes these inputs need
-             (counted here, its levels held to the sort's too).
+             finite; ms per step, peak memory, and one more step profiled:
+             the forward's launches (all writing levels under grad; one
+             that does not fails), the backward's grads pass, the rest.
+             Then one more step whose 15 forward launches must all write
+             levels (checked at the wrapper, without the profiler) and
+             whose 15 grads passes are recorded (x, w,
+             g and the levels lv the forward wrote, as the step gives
+             them: 64 rows for the projections, 62 for the head), and on
+             each of them: the levels-writing forward's y bit for bit the
+             forward alone's and its levels the step's again; those
+             levels within 1e-6 x (1 + |z|) of the sort's and every
+             support the sort's except on a branch with an operand within
+             that of its level (counted and printed); the grads pass
+             (``csrc/mp_linear_bwd.cu``) the same bits twice, within 1e-5
+             x max (the step's gradients lie far below 1) of the plain dx
+             and dw on its own levels and of the plain version on the
+             rows and columns no such branch feeds (their counts
+             printed); the control (dv's sign flipped) must miss. Row 6b's
+             ms is the grads launch plus what the levels add to the
+             forward (the levels-writing forward minus the forward alone),
+             summed over the 15 calls with the plain ms; its bound counts
+             the same work in its cheapest form: Newton from the forward's
+             bracket with the passes these inputs need, and one fused mask
+             pass (counted here, its levels held to the sort's too); the
+             bounds of a backward that solves its own levels (the
+             sort-based form, and a levels pass in the old kernel's form)
+             and the same work as the rule reads are printed beside.
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -389,9 +400,9 @@ def ptxas_report(text: str) -> dict:
 
 def short_entry(name: str) -> str:
     """A readable name for a kernel instantiation's mangled symbol, e.g.
-    mp_linear<bf16,BB=2,TO=8,res>, fir_mp_stream<16,6> or
-    mp_waterfill_rows<32,1> (elements per lane, lanes per row); others are
-    shortened."""
+    mp_linear<bf16,BB=2,TO=8,res> (mp_linear_levels<...> with LEVELS),
+    mp_linear_grads<bf16>, fir_mp_stream<16,6> or mp_waterfill_rows<32,1>
+    (elements per lane, lanes per row); others are shortened."""
     m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
                   name)
     if m:
@@ -399,11 +410,11 @@ def short_entry(name: str) -> str:
         res = "res" if m.group(4) == "1" else "global"
         kind = "mp_linear_levels" if m.group(5) == "1" else "mp_linear"
         return f"{kind}<{wt},BB={m.group(2)},TO={m.group(3)},{res}>"
-    m = re.search(r"(mp_linear_d[xw])_kernelI([tf])Li(\d+)E(?:Li(\d+)E)?",
-                  name)
+    m = re.search(r"mp_linear_grads_kernelI([tf])E", name)
     if m:
-        wt = "bf16" if m.group(2) == "t" else "f32"
-        return f"{m.group(1)}<{wt},{','.join(filter(None, m.group(3, 4)))}>"
+        return f"mp_linear_grads<{'bf16' if m.group(1) == 't' else 'f32'}>"
+    if "mp_linear_dx_sum_kernel" in name:
+        return "mp_linear_dx_sum"
     m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot(?:_q)?|"
                   r"mp_waterfill_rows)_kernelILi(\d+)ELi(\d+)E", name)
     if m:
@@ -582,7 +593,11 @@ def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
     a call makes are counted by the wrappers (``LAUNCHES``); a profile
     that lost a launch's record is taken again, up to ``tries`` times,
     after which a call of one launch is timed by the records that came
-    (some profiles of one-launch calls came back a record short)."""
+    (some profiles of one-launch calls came back a record short). Where
+    no profile traced anything on the device (torch.profiler has been seen
+    to return no device records at all), every device time is None and the
+    call's CUDA-event time (launch gaps included) stands apart as
+    ``events_us``; ``timed_by`` says which (``device_fields``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -591,6 +606,7 @@ def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
     fn()
     torch.cuda.synchronize()
     per = sum(LAUNCHES.values()) - before
+    traced = False
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -599,10 +615,19 @@ def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
         evs = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
+        traced = traced or bool(evs)
         picked = [e for e in evs if mine(e.name)]
         if per > 0 and len(picked) == per * reps:
             break
     else:
+        if per > 0 and not traced:
+            log(f"device_us: the profiler traced nothing on the device in "
+                f"{tries} tries; device time not measured, CUDA events "
+                f"apart")
+            return dict(launch_us=None, kernel_us=None, all_us=None,
+                        kernels_per_call=None,
+                        events_us=cuda_ms(fn, reps) * 1e3,
+                        timed_by="cuda_events")
         if not (per == 1 and len(picked) >= reps // 2):
             raise AssertionError(
                 f"profiled {len(picked)} kernel launches in {reps} calls "
@@ -614,7 +639,23 @@ def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
         us[i % per] += e.time_range.elapsed_us() / calls
     return dict(launch_us=us, kernel_us=sum(us),
                 all_us=sum(e.time_range.elapsed_us() for e in evs) / calls,
-                kernels_per_call=len(evs) / calls)
+                kernels_per_call=len(evs) / calls, events_us=None,
+                timed_by="profiler")
+
+
+def device_fields(prof: dict, b_ms: float | None = None) -> dict:
+    """A row's device time from ``device_us``'s result: ``device_ms`` (the
+    picked kernel's launches) and, given the bound, ``x_bound`` from it.
+    Where the profiler traced nothing both are None, and the CUDA-event
+    time is ``events_ms``; ``device_timed_by`` says which."""
+    us = prof["kernel_us"]
+    ev = prof["events_us"]
+    out = dict(device_ms=None if us is None else us * 1e-3,
+               events_ms=None if ev is None else ev * 1e-3,
+               device_timed_by=prof["timed_by"])
+    if b_ms is not None:
+        out["x_bound"] = (None if us is None else out["device_ms"] / b_ms)
+    return out
 
 
 def profiled(fn, reps: int = 10) -> dict:
@@ -1009,14 +1050,12 @@ def phase_stream_kernel(fb, gen, clips):
             M_lp=c.lp_taps, T1=T1, gamma=c.gamma_f, solver=c.solver,
             update_amax=True, cascade=True, plan=plan)})
     host.update(plan_us(plan_args, dict(octaves=O)))
-    device_ms = prof["kernel_us"] * 1e-3
     row = dict(name="fir_mp_stream_cascade",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
-               max_abs_err=err, ms=k_ms, device_ms=device_ms,
+               max_abs_err=err, ms=k_ms, **device_fields(prof, b_ms),
                plain_ms=cuda_ms(lambda: ref.fir_mp_stream(*served, *taps,
                                                           **kw), 3),
-               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
-               x_bound_events=k_ms / b_ms,
+               bound_ms=b_ms, bound_by=b_by, x_bound_events=k_ms / b_ms,
                bound_ms_reference_algorithm=bound_ms(ops_ref, nb)[0],
                threads=plan["threads"], smem_bytes=plan["smem_bytes"],
                valid_per_octave=[int(nv[0]) for nv, _ in counts],
@@ -1082,13 +1121,18 @@ def phase_bank_kernels(fb, x):
     # device time per launch of the route before the cascade: per octave
     # the band-pass sums, then the low-pass at every position
     chain = device_us(lambda: one_stage_chain(fb, x), is_oneshot_kernel)
-    per_octave = {"fir_mp_bank": chain["launch_us"][0::2],
-                  "fir_mp": chain["launch_us"][1::2]}
+    lu = chain["launch_us"]      # None: the profiler traced nothing
+    per_octave = {"fir_mp_bank": lu and lu[0::2], "fir_mp": lu and lu[1::2]}
+    # without a profile the events time the whole chain, both kernels
+    ev = chain["events_us"]
     for r in rows.values():
         r["bound_ms"], r["bound_by"] = bound_ms(r.pop("ops"), r.pop("nbytes"))
         r["shapes"] = f"B={B} N={N}..{x_o.shape[1]}"
         r["launches_here"] = launches_here[r["name"]]
-        r["device_ms"] = sum(per_octave[r["name"]]) * 1e-3
+        r["device_ms"] = (sum(per_octave[r["name"]]) * 1e-3 if lu
+                          else None)
+        r["device_timed_by"] = chain["timed_by"]
+        r["chain_events_ms"] = None if ev is None else ev * 1e-3
         r["per_octave_device_us"] = per_octave[r["name"]]
         log({"kernel_vs_plain": r})
     return rows
@@ -1163,14 +1207,14 @@ def phase_oneshot_cascade(fb, x):
     prof = device_us(run, is_oneshot_kernel)
     ops, nb = oneshot_ops(c, B, N)
     b_ms, b_by = bound_ms(ops, nb)
-    device_ms = prof["kernel_us"] * 1e-3
     plan = oneshot_plan(B, N, c.filters_per_octave, octaves=c.num_octaves)
     row = dict(name="fir_mp_oneshot_cascade",
                shapes=f"B={B} N={N}, {c.num_octaves} octaves",
-               max_abs_err=0.0, ms=cuda_ms(run, 20), device_ms=device_ms,
+               max_abs_err=0.0, ms=cuda_ms(run, 20),
+               **device_fields(prof, b_ms),
                plain_ms=cuda_ms(lambda: ref.fir_mp_oneshot_cascade(x, *taps),
                                 2),
-               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms=b_ms, bound_by=b_by,
                bound_ms_all_positions=bound_ms(
                    oneshot_ops(c, B, N, kept_only=False)[0], nb)[0],
                device_kernels_per_call=prof["kernels_per_call"],
@@ -1612,6 +1656,8 @@ def oneshot_breakdown(pipe, x) -> dict:
     out = dict(bank_ms=cuda_ms(bank, 10), readout_ms=cuda_ms(rest, 10),
                bank_kernel_device_us=dev["kernel_us"],
                bank_device_us=dev["all_us"],
+               bank_events_us=dev["events_us"],
+               bank_device_timed_by=dev["timed_by"],
                bank_device_records=dev["kernels_per_call"])
     for k, fn in (("apply", lambda: pipe.apply(x)), ("readout", rest)):
         r = profiled(fn)
@@ -1774,15 +1820,13 @@ def phase_int_stream_kernel(prog, gen, clips):
             rows, L=L, P=P, ystride=plan["scratch"], F_max=max(Fs), M=M,
             M_lp=M_lp, T1=T1, update_amax=True, cascade=True, plan=plan)})
     host.update(plan_us(plan_args, dict(octaves=O, integer=True)))
-    device_ms = prof["kernel_us"] * 1e-3
     k_ms = cuda_ms(run, 50)
     row = dict(name="fir_mp_stream_cascade_q",
                shapes=f"S={S} L={L} n=160, {O} octaves (a served wave)",
-               max_abs_err=0.0, ms=k_ms, device_ms=device_ms,
+               max_abs_err=0.0, ms=k_ms, **device_fields(prof, b_ms),
                plain_ms=cuda_ms(lambda: ref.fir_mp_stream_q(prog, *served),
                                 3),
-               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
-               x_bound_events=k_ms / b_ms,
+               bound_ms=b_ms, bound_by=b_by, x_bound_events=k_ms / b_ms,
                bound_ms_reference_algorithm=bound_ms(ops_ref, nb,
                                                      INT32_OPS_PER_S)[0],
                threads=plan["threads"], smem_bytes=plan["smem_bytes"],
@@ -1850,11 +1894,10 @@ def phase_int_bank_kernel(prog, x):
     xq = fx.quantize_signal(prog, x)
     chain = device_us(lambda: int_one_stage_chain(prog.bank, xq),
                       is_bank_q_kernel)
-    device_ms = chain["kernel_us"] * 1e-3
     row = dict(name="fir_mp_bank_q", shapes=f"B={B} N={N}..{N_o}",
-               max_abs_err=0.0, ms=ms, device_ms=device_ms,
+               max_abs_err=0.0, ms=ms, **device_fields(chain, b_ms),
                launch_device_us=chain["launch_us"], plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms=b_ms, bound_by=b_by,
                bound_ms_reference_algorithm=bound_ms(ops_ref, nbytes,
                                                      INT32_OPS_PER_S)[0],
                launches_here=launches_here)
@@ -1949,17 +1992,17 @@ def phase_oneshot_cascade_q(prog, x):
     prof = device_us(run, is_bank_q_kernel)
     ops, nb = oneshot_q_ops(bank, B, N)
     b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
-    device_ms = prof["kernel_us"] * 1e-3
     O = len(bank.octaves)
     F = bank.octaves[0].bp_q.shape[0]
     plan = oneshot_plan(B, N, F, octaves=O, integer=True)
     row = dict(name="fir_mp_oneshot_cascade_q",
                shapes=f"B={B} N={N}, {O} octaves",
-               max_abs_err=0.0, ms=cuda_ms(run, 20), device_ms=device_ms,
+               max_abs_err=0.0, ms=cuda_ms(run, 20),
+               **device_fields(prof, b_ms),
                device_records_per_call=prof["kernels_per_call"],
                plain_ms=cuda_ms(
                    lambda: ref.fir_mp_oneshot_cascade_q(bank, xq), 2),
-               bound_ms=b_ms, bound_by=b_by, x_bound=device_ms / b_ms,
+               bound_ms=b_ms, bound_by=b_by,
                bound_ms_all_positions=bound_ms(
                    oneshot_q_ops(bank, B, N, kept_only=False)[0], nb,
                    INT32_OPS_PER_S)[0],
@@ -2241,6 +2284,8 @@ def fixed_oneshot_breakdown(pipe, prog, x) -> dict:
     out = dict(bank_ms=cuda_ms(bank, 10), readout_ms=cuda_ms(rest, 10),
                bank_kernel_device_us=dev["kernel_us"],
                bank_device_us=dev["all_us"],
+               bank_events_us=dev["events_us"],
+               bank_device_timed_by=dev["timed_by"],
                bank_device_records=dev["kernels_per_call"])
     for k, fn in (("apply", lambda: pipe.apply(x)), ("readout", rest)):
         r = profiled(fn)
@@ -2554,7 +2599,8 @@ def phase_decode(cfg):
                peak_memory_bytes=peak_bytes,
                generated=res.tokens.tolist())
     log(out)
-    return launches, kern_us * 1e-3
+    # None: the profiler traced nothing on the device
+    return launches, kern_us * 1e-3 if kern_us else None
 
 
 # -- training: esc10-mp fit, the MP backward and the qwen3-8b train step -------
@@ -2674,27 +2720,40 @@ def phase_train():
              test_clips=len(ds.y_test)))
 
 
-def ops_mp_linear_bwd(B: int, d: int, O: int, passes: int) -> int:
-    """f32 ops of mp_linear's backward in its cheapest exact form, for
-    ``passes`` Newton passes summed over the B x O x 2 levels: the max
-    pass (u, v and a max of each |.|: 4 per (b, o, i)); per level and
-    pass, Newton from the left (from max |t| - gamma; each pass per
-    operand forms t, |t| - z, the max with 0, its sum, the compare and
-    its count: 6, and 4 per level for the step); then dx and dw in one
-    pass (u, v, four compares, two sign subtractions, two products by
-    g / k, and per sum one add or subtraction and the accumulate: 14)."""
-    return B * O * d * (4 + 14) + passes * (6 * d + 4)
+def ops_mp_linear_grads(B: int, d: int, O: int, passes: int) -> int:
+    """f32 ops of row 6b's work, what the backward adds to the forward's
+    bisection, in its cheapest exact form: per level the exact tail from
+    the bracket the forward's steps leave, ``passes`` Newton passes summed
+    over the B x O x 2 levels, each of a level's passes but its last a
+    count and sum in one (per operand t, the compare of |t| with the
+    level's threshold, |.| being an operand modifier, and two predicated
+    adds: 4), its last pass the count alone (3), and 4 per level and pass
+    for the step; then one fused mask pass per (b, o, i) (u, v, and per
+    branch a compare, a sign and two predicated adds: 10), with g / k
+    formed once per (b, o) and branch."""
+    levels = 2 * B * O
+    return (d * (4 * passes - levels) + 4 * passes + B * O * d * 10
+            + levels)
+
+
+def ops_mp_linear_grads_as_read(B: int, d: int, O: int, passes: int) -> int:
+    """A side figure, not the bound: the same work as the rule reads, with
+    no threshold on |t|: per pass and operand t, |t| - z, the max with 0,
+    its sum, the compare and its count (6), 4 per level and pass for the
+    step, and per (b, o, i) u, v, four compares, two sign subtractions, two
+    products by g / k and per sum an add and the accumulate (14)."""
+    return B * O * d * 14 + passes * (6 * d + 4)
 
 
 def ops_mp_linear_bwd_kernel_form(B: int, d: int, O: int,
                                   iters: int = 26) -> int:
-    """A side figure, not the bound: f32 ops of the form the kernel runs,
-    the forward's steps (``ops_mp_linear``) plus an exact solve of at
-    least three passes per (b, o, i): a count (per branch the add, two
-    compares and two adds: 10 for u and v), a sum (two selects more: 14)
-    and a recount (10); then dx and dw, each per (b, o, i) the two
-    operands, four compares, two sign subtractions, two products and the
-    accumulate (11 each, 22). About 268 per (b, o, i)."""
+    """A side figure, not the bound: f32 ops of a backward that runs its
+    own levels pass, the forward's steps (``ops_mp_linear``) plus an exact
+    solve of at least three passes per (b, o, i): a count (per branch the
+    add, two compares and two adds: 10 for u and v), a sum (two selects
+    more: 14) and a recount (10); then dx and dw, each per (b, o, i) the
+    two operands, four compares, two sign subtractions, two products and
+    the accumulate (11 each, 22). About 268 per (b, o, i)."""
     return ops_mp_linear(B, d, O, iters) + B * O * d * (10 + 14 + 10 + 22)
 
 
@@ -2710,13 +2769,15 @@ def ops_mp_linear_bwd_reference(B: int, d: int, O: int) -> int:
     return B * O * (2 * per_branch + 12 * d)
 
 
-def newton_passes(x, w, gamma, cap: int = 64):
+def newton_passes(x, w, gamma, iters: int, cap: int = 64):
     """(passes, z): per (b, o) and branch (u, v) the passes Newton from
     the left takes to the exact level of [t; -t] on these inputs, the
     last one the pass that finds the support's count unchanged, or back
     at the one of two passes before (an operand within rounding of the
     level, which the recomputed z then puts on either side in turn), and
-    the level it ends at; blocked as the plain backward. ``cap`` stops a
+    the level it ends at; blocked as the plain backward. Newton starts
+    from the left end of the bracket that ``iters`` bisection steps leave
+    (the forward's, as the plain version computes it). ``cap`` stops a
     level that has not settled (the most passes is printed beside)."""
     import torch
     from repro_torch.kernels import ref
@@ -2730,7 +2791,7 @@ def newton_passes(x, w, gamma, cap: int = 64):
         wb = w[:, o:o + ob].T[None]
         for j, t in enumerate((x[:, None, :] + wb, x[:, None, :] - wb)):
             L = torch.cat([t, -t], dim=-1)
-            z = L.amax(-1) - gamma
+            z = ref._mpabs_bracket(t, gamma, iters)[0]
             k_prev = k_prev2 = torch.full_like(z, -1.0)
             done = torch.zeros(z.shape, dtype=torch.bool, device=x.device)
             n = torch.zeros(z.shape, dtype=torch.int32, device=x.device)
@@ -2752,9 +2813,9 @@ def newton_passes(x, w, gamma, cap: int = 64):
 def phase_train_lm(cfg):
     """qwen3-8b at full width, depth 2, MP mode: ``make_train_step`` on
     one TokenStream batch (B = 2, S = 32), three steps, one more under the
-    profiler, then one more whose backward calls are recorded (x, w, g,
-    gamma, iters as ``ops.mp_linear``'s backward passes them) for
-    ``phase_mp_backward``."""
+    profiler, then one more whose grads passes are recorded (x, w, g and
+    the forward's levels lv as ``ops.mp_linear``'s backward passes them)
+    for ``phase_mp_backward``."""
     import re
 
     import torch
@@ -2793,92 +2854,133 @@ def phase_train_lm(cfg):
             and losses[-1] < losses[0]):
         raise AssertionError(f"train step: losses {losses}, grad norms "
                              f"{norms}")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, m = step(state, batch)
-        float(m["loss"])
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    parts = {"forward": 0.0, "backward_levels": 0.0, "backward_dx": 0.0,
-             "backward_dw": 0.0, "other": 0.0}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(e, "self_device_time_total", 0.0) * 1e-3
-        lv = re.search(r"mp_linear_kernel<.*,\s*(true|false)>", e.key)
-        if lv:
-            parts["backward_levels" if lv.group(1) == "true"
-                  else "forward"] += t
-        elif "mp_linear_dx_kernel" in e.key:
-            parts["backward_dx"] += t
-        elif "mp_linear_dw_kernel" in e.key:
-            parts["backward_dw"] += t
-        else:
-            parts["other"] += t
-    busy = sum(parts.values())
-    bwd = parts["backward_levels"] + parts["backward_dx"] + parts["backward_dw"]
+    # under grad every forward launch writes levels; the backward runs the
+    # grads pass and its partials' sum, and no bisection. A profile that
+    # traced nothing on the device (torch.profiler has been seen to return
+    # no device records at all) is taken again on another step, twice at
+    # most; the recorded step below checks the forwards' levels at the
+    # wrapper whatever the profiler gives.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            float(m["loss"])
+            prof_ms = (time.perf_counter() - t0) * 1e3
+        parts = {"forward_with_levels": 0.0, "forward_alone": 0.0,
+                 "backward_grads": 0.0, "other": 0.0}
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            t = getattr(e, "self_device_time_total", 0.0) * 1e-3
+            lv = re.search(r"mp_linear_kernel<.*,\s*(true|false)>", e.key)
+            if lv:
+                parts["forward_with_levels" if lv.group(1) == "true"
+                      else "forward_alone"] += t
+            elif ("mp_linear_grads_kernel" in e.key
+                  or "mp_linear_dx_sum_kernel" in e.key):
+                parts["backward_grads"] += t
+            else:
+                parts["other"] += t
+        busy = sum(parts.values())
+        if busy:
+            break
+    else:
+        log("train_lm: the profiler traced nothing on the device in 3 "
+            "steps; the step's device split is not measured")
+        parts = None
+    if parts and (parts["forward_alone"]
+                  or not parts["forward_with_levels"]):
+        raise AssertionError(f"train step: forward kernels {parts}: every "
+                             "forward under grad must write levels")
     log(dict(phase="train_lm", arch=cfg.name, layers=cfg.num_layers,
              d_model=cfg.d_model, vocab=cfg.vocab_size, mp_mode=True,
              batch=LM_BATCH, seq=LM_SEQ, params=n_params,
              losses=losses, grad_norms=norms, ms_per_step=step_ms,
              profiled_step_ms=prof_ms, device_ms=parts,
              device_busy_ms=busy,
-             backward_share_of_device=bwd / busy if busy else None,
+             grads_share_of_device=parts["backward_grads"] / busy
+             if parts else None,
              mp_linear_launches=launches["mp_linear"],
              mp_linear_bwd_launches=launches["mp_linear_bwd"],
              peak_memory_bytes=torch.cuda.max_memory_allocated()))
-    calls = []
-    real = ops.mp_linear_bwd_kernel
+    calls, fwd_levels = [], []
+    real, real_fwd = ops.mp_linear_grads_kernel, ops.mp_linear_kernel
 
-    def record(x, w, g, gamma, iters):
+    def record(x, w, g, lv):
         # detached: a saved tensor would hold the step's autograd graph
-        calls.append((x.detach(), w.detach(), g.detach(), gamma, iters))
-        return real(x, w, g, gamma, iters)
+        calls.append((x.detach(), w.detach(), g.detach(), lv.detach()))
+        return real(x, w, g, lv)
 
-    ops.mp_linear_bwd_kernel = record
+    def record_fwd(*args, **kw):
+        fwd_levels.append(bool(kw.get("levels", False)))
+        return real_fwd(*args, **kw)
+
+    ops.mp_linear_grads_kernel, ops.mp_linear_kernel = record, record_fwd
     try:
         state, m = step(state, batch)
         float(m["loss"])
     finally:
-        ops.mp_linear_bwd_kernel = real
+        ops.mp_linear_grads_kernel, ops.mp_linear_kernel = real, real_fwd
     if len(calls) != per_step:
         raise AssertionError(f"recorded {len(calls)} backward calls, want "
                              f"{per_step}")
+    if fwd_levels != [True] * per_step:
+        raise AssertionError(f"train step forwards' levels {fwd_levels}: "
+                             f"every forward under grad must write levels")
     del state, m
     gc.collect()
     torch.cuda.empty_cache()
-    return launches["mp_linear_bwd"], bwd, calls
+    return (launches["mp_linear_bwd"], parts and parts["backward_grads"],
+            calls)
 
 
-def phase_mp_backward(calls, layers: int):
-    """The backward kernel against its plain version on the backward
-    calls of one depth-``layers`` train step (``phase_train_lm``'s
-    record: the step's own x, w and g), pass by pass; returns its
-    kernels-line row (ms, plain ms and bound summed over those calls)."""
+def phase_mp_backward(calls, layers: int, gamma: float):
+    """The backward against its plain version on the grads passes of one
+    depth-``layers`` train step (``phase_train_lm``'s record: the step's
+    own x, w, g and the levels its forward wrote), pass by pass; returns
+    its kernels-line row (ms: the grads launch plus what the levels add to
+    the forward, plain ms and bound summed over those calls)."""
     import torch
     from repro_torch.kernels import ref
-    from repro_torch.kernels.mp_kernels import (_mp_linear_bwd_launch,
-                                                mp_linear_bwd_kernel)
+    from repro_torch.kernels.mp_kernels import (mp_linear_grads_kernel,
+                                                mp_linear_kernel)
+    iters = ref.DEFAULT_ITERS
     row = dict(name="mp_linear_bwd", max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+               grads_ms=0.0, levels_added_ms=0.0, forward_ms=0.0,
+               forward_with_levels_ms=0.0, plain_grads_ms=0.0,
                memory_allocated_at_start=torch.cuda.memory_allocated())
-    ops = ops_kernel = ops_ref = nbytes = 0.0
+    ops = ops_read = ops_kernel = ops_ref = nbytes = 0.0
     per_call = []
-    for x, w, gy, gamma, iters in calls:
+    for x, w, gy, lv in calls:
         t_call = time.perf_counter()
         (B, d), O = x.shape, w.shape[1]
         wf = w.float()
-        dx, dw, lv = _mp_linear_bwd_launch(x, w, gy, gamma, iters)
+        # the levels-writing forward: y the forward alone's, bit for bit,
+        # and the step's own levels again
+        y_lv, lv2 = mp_linear_kernel(x, w, gamma, iters, levels=True)
+        y_same = bool(torch.equal(y_lv, mp_linear_kernel(x, w, gamma, iters)))
+        lv_same = bool(torch.equal(lv2, lv))
+        del y_lv, lv2
+        dx, dw = mp_linear_grads_kernel(x, w, gy, lv)
+        dx2, dw2 = mp_linear_grads_kernel(x, w, gy, lv)
+        twice = bool(torch.equal(dx, dx2) and torch.equal(dw, dw2))
+        del dx2, dw2
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         want_dx, want_dw = ref.mp_linear_bwd(x, wf, gy, gamma)
         torch.cuda.synchronize()
         p_ms = (time.perf_counter() - t0) * 1e3
-        want_lv = ref.mp_linear_levels(x, wf, gy, gamma)
+        want_lv = ref.mp_linear_levels(x, wf, gamma)
         zk, zp = lv[..., :2], want_lv[..., :2]
         z_gap = float(((zk - zp).abs() / (1 + zp.abs())).max())
         near = ref.mp_linear_near_level(x, wf, zp, LEVEL_TOL)
         k_off = int(((lv[..., 2:] != want_lv[..., 2:]) & ~near).sum())
-        own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, wf, lv)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, wf, gy, lv)
+        torch.cuda.synchronize()
+        pg_ms = (time.perf_counter() - t0) * 1e3
         # every gate at KERNEL_TOL x the compared tensor's own max: the
         # step's gradients lie far below 1, where 1e-5 x (1 + max) would
         # hold nothing (nor tell the control from the kernel)
@@ -2899,13 +3001,19 @@ def phase_mp_backward(calls, layers: int):
         # the control: dv's sign flipped on the kernel's own levels
         flip = lv.clone()
         flip[..., 3] = -flip[..., 3]
-        c_dx, c_dw = ref.mp_linear_bwd_from_levels(x, wf, flip)
+        c_dx, c_dw = ref.mp_linear_bwd_from_levels(x, wf, gy, flip)
         ctl = (float((c_dx - own_dx).abs().max()),
                float((c_dw - own_dw).abs().max()))
-        # the bound's form on these inputs: Newton's passes, and its levels
-        passes, z_newton = newton_passes(x, w, gamma)
+        # the bound's form on these inputs: Newton's passes from the
+        # forward's bracket, and its levels
+        passes, z_newton = newton_passes(x, w, gamma, iters)
         n_gap = float(((z_newton - zp).abs() / (1 + zp.abs())).max())
         fails = []
+        if not (y_same and lv_same):
+            fails.append(f"levels forward: y the same bits {y_same}, the "
+                         f"step's levels again {lv_same}")
+        if not twice:
+            fails.append("the grads pass gave other bits a second time")
         if not z_gap <= LEVEL_TOL:
             fails.append(f"levels {z_gap}")
         if k_off:
@@ -2923,21 +3031,27 @@ def phase_mp_backward(calls, layers: int):
                 f"mp_linear_bwd B={B} d={d} O={O} (call {len(per_call)}): "
                 + "; ".join(fails) + f"; gates dx {t_dx} / {tol_dx}, dw "
                 f"{t_dw} / {tol_dw}")
-        k_ms = cuda_ms(lambda: mp_linear_bwd_kernel(x, w, gy, gamma, iters),
-                       3 if O > 50000 else 5)
+        reps = 3 if O > 50000 else 5
+        f_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma, iters), reps)
+        fl_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma, iters,
+                                                 levels=True), reps)
+        g_ms = cuda_ms(lambda: mp_linear_grads_kernel(x, w, gy, lv), reps)
+        k_ms = g_ms + fl_ms - f_ms
         nb = (4 * B * d * 2 + w.element_size() * d * O + 4 * B * O
               + 4 * d * O)
         n_passes = int(passes.sum())
-        c_ops = min(ops_mp_linear_bwd(B, d, O, n_passes),
-                    ops_mp_linear_bwd_reference(B, d, O))
+        c_ops = ops_mp_linear_grads(B, d, O, n_passes)
+        c_read = ops_mp_linear_grads_as_read(B, d, O, n_passes)
         b_ms, _ = bound_ms(c_ops, nb)
         err = max(float((dx - want_dx).abs().max()),
                   float((dw - want_dw).abs().max()))
         per_call.append(dict(
             B=B, d=d, O=O, w=str(w.dtype).replace("torch.", ""), ms=k_ms,
-            plain_ms=p_ms, bound_ms=b_ms, x_bound=k_ms / b_ms,
-            newton_passes_mean=n_passes / passes.numel(),
-            newton_passes_max=int(passes.max()),
+            grads_ms=g_ms, forward_ms=f_ms, forward_with_levels_ms=fl_ms,
+            plain_ms=p_ms, plain_grads_ms=pg_ms, bound_ms=b_ms,
+            x_bound=k_ms / b_ms, bound_ms_as_read=bound_ms(c_read, nb)[0],
+            newton_passes_from_bracket_mean=n_passes / passes.numel(),
+            newton_passes_from_bracket_max=int(passes.max()),
             max_abs_err=err, max_abs_err_own_levels=max(e_dx, e_dw),
             max_abs_err_off_ties=max(clean), level_gap=z_gap,
             newton_level_gap=n_gap, branches_near_a_level=int(near.sum()),
@@ -2947,15 +3061,22 @@ def phase_mp_backward(calls, layers: int):
             check_s=time.perf_counter() - t_call))
         row["max_abs_err"] = max(row["max_abs_err"], err)
         row["ms"] += k_ms
+        row["grads_ms"] += g_ms
+        row["levels_added_ms"] += fl_ms - f_ms
+        row["forward_ms"] += f_ms
+        row["forward_with_levels_ms"] += fl_ms
         row["plain_ms"] += p_ms
+        row["plain_grads_ms"] += pg_ms
         ops += c_ops
+        ops_read += c_read
         ops_kernel += ops_mp_linear_bwd_kernel_form(B, d, O, iters)
         ops_ref += ops_mp_linear_bwd_reference(B, d, O)
         nbytes += nb
-        del dx, dw, lv, want_dx, want_dw, want_lv, own_dx, own_dw, c_dx, c_dw
+        del dx, dw, want_dx, want_dw, want_lv, own_dx, own_dw, c_dx, c_dw
         del passes, z_newton, near, flip
     row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
-    row["bound_ms_kernel_form"] = bound_ms(ops_kernel, nbytes)[0]
+    row["bound_ms_as_read"] = bound_ms(ops_read, nbytes)[0]
+    row["bound_ms_levels_pass_form"] = bound_ms(ops_kernel, nbytes)[0]
     row["bound_ms_reference_algorithm"] = bound_ms(ops_ref, nbytes)[0]
     row["x_bound"] = row["ms"] / row["bound_ms"]
     row["calls"] = (f"one depth-{layers} train step's {len(calls)} "
@@ -3014,7 +3135,7 @@ def main() -> int:
     phase_train()
     qwen2 = dataclasses.replace(qwen, num_layers=2)
     bwd_launches, bwd_device_ms, bwd_calls = phase_train_lm(qwen2)
-    bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers)
+    bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers, qwen2.mp_gamma)
     del bwd_calls
 
     src = "src/repro_torch/kernels/csrc/"
@@ -3053,10 +3174,12 @@ def main() -> int:
         dict(lin_row, route="cuda", source=src + "mp_linear.cu",
              replaces="src/repro/kernels/mp_linear.py:89",
              launches=decode_launches, device_ms=decode_device_ms,
+             device_timed_by="profiler" if decode_device_ms else None,
              library_ms=None),
         dict(bwd_row, route="cuda", source=src + "mp_linear_bwd.cu",
              replaces="src/repro/kernels/ops.py:73",
              launches=bwd_launches, device_ms=bwd_device_ms,
+             device_timed_by="profiler" if bwd_device_ms else None,
              library_ms=None),
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
              replaces="src/repro/kernels/mp_waterfill.py:46",
@@ -3064,8 +3187,8 @@ def main() -> int:
     ]
     keys = ("name", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "max_abs_err", "ms",
-            "device_ms", "plain_ms", "bound_ms", "bound_by", "x_bound",
-            "library_ms")
+            "device_ms", "device_timed_by", "plain_ms", "bound_ms",
+            "bound_by", "x_bound", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
     log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})

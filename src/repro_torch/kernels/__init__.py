@@ -33,8 +33,9 @@ Kernels:
                  bit ``core.fixed``'s torch ops
   mp_linear    - the fused multiplierless matrix product of eq. 9, every
                  MP-mode projection of the transformer (``models.layers``)
-  mp_linear_bwd - its gradients (masks of the exact water levels): a
-                 levels pass on mp_linear's kernel, then dx and dw
+  mp_linear_bwd - its gradients (masks of the exact water levels) in one
+                 pass for dx and dw, from the levels that mp_linear's
+                 kernel writes in a training forward
   mp_waterfill - row-wise reverse water-filling z = MP(L, gamma)
 """
 

@@ -43,9 +43,8 @@ SIGNATURES = {
                         [_P] * 9 + [_I] * 13 + [_P]),
     "fir_mp_bank_q": ("fir_mp_oneshot_q_launch",
                       [_P] * 3 + [_P, _I] * 2 + [_I] * 5 + [_P]),
-    "mp_linear": ("mp_linear_launch", [_P] * 3 + [_I] * 5 + [_F, _I, _P]),
-    "mp_linear_bwd": ("mp_linear_bwd_launch",
-                      [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    "mp_linear": ("mp_linear_launch", [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
+    "mp_linear_bwd": ("mp_linear_bwd_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "mp_waterfill": ("mp_waterfill_launch",
                      [_P] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
 }

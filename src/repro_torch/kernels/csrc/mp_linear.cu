@@ -44,20 +44,34 @@
 // position adds exactly 0 to every sum and max). The sums run in another
 // order than the reference's, so a comparison right at gamma can go the
 // other way; bisection still brackets the root within the sums' rounding.
+//
+// The forward of a training step (a non-null lv) runs the same kernel
+// with LEVELS: after the same steps and the same store of y, it solves the
+// exact water level of both branches of every (b, o) from the bracket it
+// holds, on its resident tiles (Newton from the bracket's left end: one
+// pass counts and sums the operands above it, each round recounts at the
+// new level), and writes lv[b, o] = {z_u, z_v, 1 / k_u, 1 / k_v} (k the
+// count of operands above the level, at least 1) for the backward's grads
+// pass (mp_linear_bwd.cu). y keeps its bits: the tail runs after it.
 
 #include "mp_linear.cuh"
 
 // x (B, d) float32, w (d, O) float32 (w_bf16 = 0) or bfloat16 (w_bf16 = 1),
-// row-major -> y (B, O) float32, in the tile plan_for picks (to = 0) or in
-// a resident tile of to = 2, 4 or 8 columns. Returns 0, a cudaError_t
-// code, or -1 for what it does not take (B, d, O >= 1, iters >= 0,
-// d <= 2^22; a tile to that does not fit).
-extern "C" int mp_linear_launch(const void* x, const void* w, void* y, int B,
-                                int d, int O, int w_bf16, int to, float gamma,
-                                int iters, void* stream) {
+// row-major -> y (B, O) float32 and, where lv is not null, the levels
+// lv (B, O, 4) float32, in the tile plan_for picks (to = 0) or in a
+// resident tile of to = 2, 4 or 8 columns. Returns 0, a cudaError_t code,
+// or -1 for what it does not take (B, d, O >= 1, iters >= 0, d <= 2^22; a
+// tile to that does not fit).
+extern "C" int mp_linear_launch(const void* x, const void* w, void* y,
+                                void* lv, int B, int d, int O, int w_bf16,
+                                int to, float gamma, int iters,
+                                void* stream) {
   if (!takes(B, d, O, w_bf16, to, iters)) return -1;
   const Plan p = plan_for(B, d, O, w_bf16 ? 2 : 4, to);
   if (p.BB == 0) return -1;
+  if (lv)
+    return dispatch<true>(p, x, w, y, B, d, O, w_bf16, gamma, iters, stream,
+                          nullptr, static_cast<float4*>(lv));
   return dispatch<false>(p, x, w, y, B, d, O, w_bf16, gamma, iters,
                          stream, nullptr);
 }

@@ -1,7 +1,6 @@
-// The MP product's kernel, its tile plan and its launch, shared by the
-// forward (mp_linear.cu) and the backward (mp_linear_bwd.cu, which runs
-// the kernel with LEVELS for its first pass). What it computes and why it
-// is laid out so: the head of mp_linear.cu.
+// The MP product's kernel, its tile plan and its launch (mp_linear.cu),
+// and the helpers the backward's grads pass shares (mp_linear_bwd.cu).
+// What it computes and why it is laid out so: the head of mp_linear.cu.
 
 #pragma once
 
@@ -138,17 +137,33 @@ __device__ __forceinline__ float exchange(float (&acc)[NV], float* red, int p,
   return s;
 }
 
-// Per thread, over its positions i < d: for each pair k, the count
-// (SUM false) or the sum (SUM true) of the operands L of [t; -t] above
-// zk[k], t = u or v. Padded positions (>= d) are left out: a zero counts
-// as above a negative level.
-template <typename WT, int BB, int TO, bool RES, bool SUM>
+// The threshold tau of a level z on |t|: of an operand pair (t, -t),
+// exactly one member (the one of t's sign) is above z where |t| > tau, and
+// elsewhere none (z >= 0) or both (z < 0). For z >= 0, tau = z; for z < 0
+// one member is above z where |t| >= -z, which for floats is |t| > the
+// float below -z.
+__device__ __forceinline__ float threshold(float z) {
+  return z >= 0.f ? z : __int_as_float(__float_as_int(-z) - 1);
+}
+
+// Per thread, over its positions i < d: for each pair k with threshold
+// tk[k], the count (COUNT, into cnt) of t in [t; -t] with |t| > tk[k] and
+// (SUM, into sum) their |t|, t = u or v. That sum is the sum of the
+// operands of [t; -t] above the level, in the same order: a pair with
+// both members above it adds t + (-t) = 0 exactly. The count of operands
+// above it is cnt for z >= 0 and 2 d - cnt for z < 0 (above_count).
+// Padded positions (>= d) are left out.
+template <typename WT, int BB, int TO, bool RES, bool COUNT, bool SUM>
 __device__ __forceinline__ void tally_above(
     const float* __restrict__ x, const WT* __restrict__ w, const float* xt,
     const WT* wt, int dl, int b0, int o0, int B, int d, int O,
-    const float (&zk)[2 * BB * TO], float (&acc)[2 * BB * TO]) {
+    const float (&tk)[2 * BB * TO], float (&cnt)[2 * BB * TO],
+    float (&sum)[2 * BB * TO]) {
 #pragma unroll
-  for (int k = 0; k < 2 * BB * TO; ++k) acc[k] = 0.f;
+  for (int k = 0; k < 2 * BB * TO; ++k) {
+    if constexpr (COUNT) cnt[k] = 0.f;
+    if constexpr (SUM) sum[k] = 0.f;
+  }
   for (int i = threadIdx.x; i < d; i += kThreads) {
     float xv[BB], wv[TO];
     load_position<WT, BB, TO, RES>(x, w, xt, wt, i, dl, b0, o0, B, d, O, xv,
@@ -158,17 +173,24 @@ __device__ __forceinline__ void tally_above(
 #pragma unroll
       for (int o = 0; o < TO; ++o) {
         const int ku = b * TO + o, kv = (BB + b) * TO + o;
-        const float u = xv[b] + wv[o], v = xv[b] - wv[o];
-        if constexpr (SUM) {
-          acc[ku] += (u > zk[ku] ? u : 0.f) + (-u > zk[ku] ? -u : 0.f);
-          acc[kv] += (v > zk[kv] ? v : 0.f) + (-v > zk[kv] ? -v : 0.f);
-        } else {
-          acc[ku] += (u > zk[ku] ? 1.f : 0.f) + (-u > zk[ku] ? 1.f : 0.f);
-          acc[kv] += (v > zk[kv] ? 1.f : 0.f) + (-v > zk[kv] ? 1.f : 0.f);
+        const float au = fabsf(xv[b] + wv[o]), av = fabsf(xv[b] - wv[o]);
+        if (au > tk[ku]) {
+          if constexpr (SUM) sum[ku] += au;
+          if constexpr (COUNT) cnt[ku] += 1.f;
+        }
+        if (av > tk[kv]) {
+          if constexpr (SUM) sum[kv] += av;
+          if constexpr (COUNT) cnt[kv] += 1.f;
         }
       }
     }
   }
+}
+
+// #{operands of [t; -t] above z} from tally_above's count over d positions
+__device__ __forceinline__ float above_count(float z, float cnt,
+                                             float two_d) {
+  return z >= 0.f ? cnt : two_d - cnt;
 }
 
 // Rounds of the exact solve after the bisection (LEVELS). Each round from
@@ -180,16 +202,16 @@ constexpr int kExactRounds = 16;
 
 // BB batch rows x TO output columns over all of d. RES: w and x tiles
 // resident in shared memory ([dl][TO] w in WT, [BB][dl] x in f32);
-// otherwise read from device memory every pass. LEVELS (the backward's
-// first pass): instead of y, the exact water levels of both branches and
-// the output gradient over each support's size,
-// lv[b, o] = {z_u, z_v, g[b, o] * (1 / k_u), g[b, o] * (1 / k_v)}.
+// otherwise read from device memory every pass. LEVELS (the forward of a
+// training step): after y, which it stores as the forward alone does, the
+// exact water levels of both branches for the backward, solved from the
+// bracket the steps leave, with the tiles still resident,
+// lv[b, o] = {z_u, z_v, 1 / k_u, 1 / k_v}.
 template <typename WT, int BB, int TO, bool RES, bool LEVELS>
 __global__ void __launch_bounds__(kThreads, 2)
     mp_linear_kernel(const float* __restrict__ x, const WT* __restrict__ w,
                      float* __restrict__ y, int B, int d, int dl, int O,
-                     float gamma, int iters, const float* __restrict__ g,
-                     float4* __restrict__ lv) {
+                     float gamma, int iters, float4* __restrict__ lv) {
   // accumulator k = (s * BB + b) * TO + o; s = 0: u = x + w, s = 1: x - w
   constexpr int NV = 2 * BB * TO;
   static_assert(NV <= 32 && TO * sizeof(WT) >= 4, "tile too wide or narrow");
@@ -301,36 +323,50 @@ __global__ void __launch_bounds__(kThreads, 2)
       hi = mid;
     }
   }
+  if (warp == 0) {
+    const float z = (lo + hi) * 0.5f;
+    const float zv = __shfl_sync(kFull, z, (lane + BB * TO) & 31);
+    if (lane < BB * TO) {
+      const int b = lane / TO, o = lane % TO;
+      if (b0 + b < B && o0 + o < O)
+        y[(size_t)(b0 + b) * O + o0 + o] = z - zv;
+    }
+  }
   if constexpr (LEVELS) {
     // The exact level of each pair, as the sort-based closed form defines
     // it: z = (sum of the n operands above z - gamma) / n. From zc = lo
-    // (left of the root), n = #{L > zc} and their sum s give
+    // (left of the root), n = #{L > zc} and their sum s, in one pass, give
     // z = (s - gamma) / n; when #{L > z} is n again, z is that support's
-    // level, else z becomes zc with its count (monotone Newton from the
-    // left). Every reduction is uniform over the CTA, so the vote is too.
-    float zk[NV];
+    // level, else z becomes zc with its count and the sum is taken there
+    // (monotone Newton from the left). Both tallies compare |t| with one
+    // threshold per level (tally_above). Every reduction is uniform over
+    // the CTA, so the vote is too.
+    float tk[NV], cnt[NV];
     int p = iters + 1;   // the exchanges' parity runs on from the steps
-    float zc = lo, z = lo;
 #pragma unroll
-    for (int k = 0; k < NV; ++k) zk[k] = __shfl_sync(kFull, zc, k);
-    tally_above<WT, BB, TO, RES, false>(x, w, xt, wt, dl, b0, o0, B, d, O,
-                                        zk, acc);
-    float n = exchange<NV>(acc, &red[0][0][0], (p++) & 1, Add());
-    float kk = n;
-    for (int r = 0; r < kExactRounds; ++r) {
-      tally_above<WT, BB, TO, RES, true>(x, w, xt, wt, dl, b0, o0, B, d, O,
-                                         zk, acc);
-      const float s = exchange<NV>(acc, &red[0][0][0], (p++) & 1, Add());
+    for (int k = 0; k < NV; ++k) tk[k] = __shfl_sync(kFull, threshold(lo), k);
+    tally_above<WT, BB, TO, RES, true, true>(x, w, xt, wt, dl, b0, o0, B, d,
+                                             O, tk, cnt, acc);
+    float s = exchange<NV>(acc, &red[0][0][0], (p++) & 1, Add());
+    float n = above_count(
+        lo, exchange<NV>(cnt, &red[0][0][0], (p++) & 1, Add()), two_d);
+    float z, kk;
+    for (int r = 1;; ++r) {
       z = (s - gamma) / fmaxf(n, 1.f);
       kk = n;
 #pragma unroll
-      for (int k = 0; k < NV; ++k) zk[k] = __shfl_sync(kFull, z, k);
-      tally_above<WT, BB, TO, RES, false>(x, w, xt, wt, dl, b0, o0, B, d, O,
-                                          zk, acc);
-      const float n2 = exchange<NV>(acc, &red[0][0][0], (p++) & 1, Add());
-      if (!__syncthreads_or(lane < NV && n2 != n)) break;
-      zc = z;
+      for (int k = 0; k < NV; ++k)
+        tk[k] = __shfl_sync(kFull, threshold(z), k);
+      tally_above<WT, BB, TO, RES, true, false>(x, w, xt, wt, dl, b0, o0, B,
+                                                d, O, tk, cnt, acc);
+      const float n2 = above_count(
+          z, exchange<NV>(cnt, &red[0][0][0], (p++) & 1, Add()), two_d);
+      if (!__syncthreads_or(lane < NV && n2 != n) || r == kExactRounds)
+        break;
       n = n2;
+      tally_above<WT, BB, TO, RES, false, true>(x, w, xt, wt, dl, b0, o0, B,
+                                                d, O, tk, cnt, acc);
+      s = exchange<NV>(acc, &red[0][0][0], (p++) & 1, Add());
     }
     if (warp == 0) {
       const int src = (lane + BB * TO) & 31;
@@ -338,22 +374,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       const float kv = __shfl_sync(kFull, kk, src);
       if (lane < BB * TO) {
         const int b = lane / TO, o = lane % TO;
-        if (b0 + b < B && o0 + o < O) {
-          const size_t at = (size_t)(b0 + b) * O + o0 + o;
-          const float gy = g[at];
-          lv[at] = make_float4(z, zv, gy * (1.f / fmaxf(kk, 1.f)),
-                               gy * (1.f / fmaxf(kv, 1.f)));
-        }
-      }
-    }
-  } else {
-    if (warp == 0) {
-      const float z = (lo + hi) * 0.5f;
-      const float zv = __shfl_sync(kFull, z, (lane + BB * TO) & 31);
-      if (lane < BB * TO) {
-        const int b = lane / TO, o = lane % TO;
         if (b0 + b < B && o0 + o < O)
-          y[(size_t)(b0 + b) * O + o0 + o] = z - zv;
+          lv[(size_t)(b0 + b) * O + o0 + o] =
+              make_float4(z, zv, 1.f / fmaxf(kk, 1.f), 1.f / fmaxf(kv, 1.f));
       }
     }
   }
@@ -406,7 +429,7 @@ Plan plan_for(int B, int d, int O, int wbytes, int to_asked) {
 template <bool LEVELS, typename WT, int BB, int TO, bool RES>
 int launch(const Plan& p, const float* x, const WT* w, float* y, int B,
            int d, int O, float gamma, int iters, cudaStream_t stream,
-           int* per_sm, const float* g, float4* lv) {
+           int* per_sm, float4* lv) {
   auto kern = mp_linear_kernel<WT, BB, TO, RES, LEVELS>;
   size_t smem = 0;
   if constexpr (RES) {
@@ -421,17 +444,17 @@ int launch(const Plan& p, const float* x, const WT* w, float* y, int B,
   const dim3 grid(static_cast<unsigned>(ceil_div(O, TO)),
                   static_cast<unsigned>(ceil_div(B, BB)));
   kern<<<grid, kThreads, smem, stream>>>(x, w, y, B, d, p.dl, O, gamma,
-                                         iters, g, lv);
+                                         iters, lv);
   return static_cast<int>(cudaGetLastError());
 }
 
 #define MP_LINEAR_ARGS \
-  p, x, w, y, B, d, O, gamma, iters, stream, per_sm, g, lv
+  p, x, w, y, B, d, O, gamma, iters, stream, per_sm, lv
 
 template <bool LEVELS, typename WT, int BB>
 int by_tile(const Plan& p, const float* x, const WT* w, float* y, int B,
             int d, int O, float gamma, int iters, cudaStream_t stream,
-            int* per_sm, const float* g, float4* lv) {
+            int* per_sm, float4* lv) {
   if (!p.res)
     return launch<LEVELS, WT, BB, (BB == 4 ? 4 : 8), false>(MP_LINEAR_ARGS);
   switch (p.TO) {
@@ -448,7 +471,7 @@ int by_tile(const Plan& p, const float* x, const WT* w, float* y, int B,
 template <bool LEVELS, typename WT>
 int by_batch(const Plan& p, const float* x, const WT* w, float* y, int B,
              int d, int O, float gamma, int iters, cudaStream_t stream,
-             int* per_sm, const float* g, float4* lv) {
+             int* per_sm, float4* lv) {
   switch (p.BB) {
     case 1: return by_tile<LEVELS, WT, 1>(MP_LINEAR_ARGS);
     case 2: return by_tile<LEVELS, WT, 2>(MP_LINEAR_ARGS);
@@ -468,16 +491,16 @@ bool takes(int B, int d, int O, int w_bf16, int to, int iters) {
 template <bool LEVELS>
 int dispatch(const Plan& p, const void* x, const void* w, void* y, int B,
              int d, int O, int w_bf16, float gamma, int iters, void* stream,
-             int* per_sm, const float* g = nullptr, float4* lv = nullptr) {
+             int* per_sm, float4* lv = nullptr) {
   const float* xf = static_cast<const float*>(x);
   float* yf = static_cast<float*>(y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (w_bf16)
     return by_batch<LEVELS, uint16_t>(p, xf, static_cast<const uint16_t*>(w),
                                       yf, B, d, O, gamma, iters, s, per_sm,
-                                      g, lv);
+                                      lv);
   return by_batch<LEVELS, float>(p, xf, static_cast<const float*>(w), yf, B,
-                                 d, O, gamma, iters, s, per_sm, g, lv);
+                                 d, O, gamma, iters, s, per_sm, lv);
 }
 
 }  // namespace

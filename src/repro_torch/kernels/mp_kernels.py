@@ -3,8 +3,10 @@
 * ``mp_linear_kernel`` — ``csrc/mp_linear.cu``, the fused multiplierless
   matrix product of eq. 9 (replaces the reference's Pallas
   ``mp_linear_pallas``);
-* ``mp_linear_bwd_kernel`` — ``csrc/mp_linear_bwd.cu``, its gradients
-  (replaces the reference's custom VJP ``_mp_linear_vjp_bwd``, jnp);
+* ``mp_linear_grads_kernel`` — ``csrc/mp_linear_bwd.cu``, its gradients
+  from the exact levels that ``mp_linear_kernel(..., levels=True)`` writes
+  in the training forward (together, the reference's custom VJP
+  ``_mp_linear_vjp_bwd``, jnp); ``mp_linear_bwd_kernel`` runs both;
 * ``mp_waterfill_kernel`` — ``csrc/mp_waterfill.cu``, row-wise reverse
   water-filling (replaces ``mp_waterfill_pallas``).
 
@@ -27,12 +29,18 @@ from repro_torch.kernels._wrap import (_check, _expect, _f32, _on_cuda,
                                        _stream, count_launch)
 
 __all__ = ["LINEAR_W_DTYPES", "mp_linear_kernel", "mp_linear_bwd_kernel",
-           "mp_linear_plan",
+           "mp_linear_grads_kernel", "mp_linear_grads_plan", "mp_linear_plan",
            "mp_waterfill_kernel", "mp_waterfill_plan"]
 
 # the weight dtypes the mp_linear kernel reads as they are
 LINEAR_W_DTYPES = (torch.float32, torch.bfloat16)
 _TILE_WIDTHS = (0, 2, 4, 8)
+# csrc/mp_linear_bwd.cu's grads pass: positions per CTA, columns per chunk,
+# and the CTAs an SM holds (its launch bounds)
+GRADS_POSITIONS = 64
+GRADS_CHUNK_COLUMNS = 128
+GRADS_CTAS_PER_SM = 2
+GRADS_WAVES = 16   # CTAs wanted: this many times what the card holds
 
 
 def _linear_args(w_dtype: torch.dtype, tile_to: int) -> None:
@@ -45,16 +53,22 @@ def _linear_args(w_dtype: torch.dtype, tile_to: int) -> None:
 
 def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
                      iters: int = ref.DEFAULT_ITERS, *,
-                     tile_to: int = 0) -> torch.Tensor:
+                     tile_to: int = 0, levels: bool = False):
     """x (B, d) float32, w (d, O) float32 or bfloat16 -> y (B, O) float32,
     y[b, o] = mpabs(x[b] + w[:, o]) - mpabs(x[b] - w[:, o]) by joint
     bisection. The kernel reads a bf16 w as it is and widens it exactly,
     so the result is that of ``w.float()``. ``tile_to`` 2, 4 or 8 runs it
     in a shared-memory tile of that many columns instead of the one it
     would pick (``mp_linear_plan``), to time or test each tile; the result
-    is the same up to the sums' order."""
+    is the same up to the sums' order. ``levels=True`` (the forward of a
+    training step) returns (y, lv): y with the same bits, and lv (B, O, 4)
+    float32, [z_u, z_v, 1 / k_u, 1 / k_v], the exact water levels the same
+    launch solves from its bracket, for :func:`mp_linear_grads_kernel`
+    (plain version: ``ref.mp_linear_with_levels``)."""
     _linear_args(w.dtype, tile_to)
     if not _on_cuda(x, w):
+        if levels:
+            return ref.mp_linear_with_levels(x, w, gamma, iters)
         return ref.mp_linear(x, w, gamma, iters)
     from repro_torch.kernels._build import load
     if x.ndim != 2 or w.ndim != 2:
@@ -65,39 +79,60 @@ def mp_linear_kernel(x: torch.Tensor, w: torch.Tensor, gamma,
     _expect("w", w, (d, O))
     x, w = _f32(x, "x"), w.contiguous()
     y = torch.empty((B, O), dtype=torch.float32, device=x.device)
-    code = load("mp_linear")(x.data_ptr(), w.data_ptr(), y.data_ptr(), B, d,
-                             O, int(w.dtype == torch.bfloat16), tile_to,
+    lv = (torch.empty((B, O, 4), dtype=torch.float32, device=x.device)
+          if levels else None)
+    code = load("mp_linear")(x.data_ptr(), w.data_ptr(), y.data_ptr(),
+                             None if lv is None else lv.data_ptr(), B, d, O,
+                             int(w.dtype == torch.bfloat16), tile_to,
                              float(gamma), int(iters), _stream())
     _check(code, "mp_linear", f"B={B} d={d} O={O} tile_to={tile_to}")
     count_launch("mp_linear")
-    return y
+    return (y, lv) if levels else y
 
 
 def mp_linear_bwd_kernel(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
                          gamma, iters: int = ref.DEFAULT_ITERS) -> tuple:
-    """The gradients of :func:`mp_linear_kernel`: x (B, d) float32, w (d,
-    O) float32 or bfloat16, output gradient g (B, O) float32 -> (dx (B, d),
-    dw (d, O)), float32, with the masks of the exact water levels (the
-    reference's custom VJP). The kernel finds each level by ``iters``
-    bisection steps, then solves it exactly on the support found; the
-    plain version (``ref.mp_linear_bwd``) sorts."""
+    """The gradients of :func:`mp_linear_kernel` for a caller that holds
+    no levels: x (B, d) float32, w (d, O) float32 or bfloat16, output
+    gradient g (B, O) float32 -> (dx (B, d), dw (d, O)), float32, with the
+    masks of the exact water levels (the reference's custom VJP). On the
+    card: the levels-writing forward (its y dropped), then the grads pass;
+    the plain version (``ref.mp_linear_bwd``) sorts."""
     _linear_args(w.dtype, 0)
     if not _on_cuda(x, w, g):
         return ref.mp_linear_bwd(x, w, g, gamma)
-    dx, dw, _ = _mp_linear_bwd_launch(x, w, g, gamma, iters)
-    return dx, dw
+    _, lv = mp_linear_kernel(x, w, gamma, iters, levels=True)
+    return mp_linear_grads_kernel(x, w, g, lv)
 
 
-def _mp_linear_bwd_launch(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                          gamma, iters: int = ref.DEFAULT_ITERS) -> tuple:
-    """One launch of ``csrc/mp_linear_bwd.cu`` on CUDA tensors -> (dx, dw,
-    lv): the levels of every (b, o) go through a (B, O, 4) float32 scratch
-    tensor, [z_u, z_v, g / k_u, g / k_v] (``ref.mp_linear_levels``),
-    returned as well for the checks that hold each pass apart."""
-    from repro_torch.kernels._build import load
+@functools.lru_cache(maxsize=None)
+def mp_linear_grads_plan(d: int, O: int, sms: int):
+    """The grads pass's grid on a card of ``sms`` SMs: ``tiles`` of 64
+    positions x ``groups`` of ``chunks_per_group`` chunks of 128 columns,
+    the groups as many as give about ``GRADS_WAVES`` times the CTAs the
+    card holds (none beyond one chunk each). Each group leaves a dx
+    partial of B x d float32 when there is more than one. Cached,
+    read-only."""
+    tiles = -(-d // GRADS_POSITIONS)
+    chunks = -(-O // GRADS_CHUNK_COLUMNS)
+    want = -(-(GRADS_WAVES * GRADS_CTAS_PER_SM * sms) // tiles)
+    per_group = -(-chunks // max(1, min(chunks, want)))
+    groups = -(-chunks // per_group)
+    return types.MappingProxyType(dict(tiles=tiles, groups=groups,
+                                       chunks_per_group=per_group))
+
+
+def mp_linear_grads_kernel(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+                           lv: torch.Tensor) -> tuple:
+    """dx (B, d) and dw (d, O), float32, of ``mp_linear`` from the exact
+    levels ``lv`` (B, O, 4) that :func:`mp_linear_kernel` wrote with
+    ``levels=True`` (the backward's grads pass; no solve): x (B, d)
+    float32, w (d, O) float32 or bfloat16, output gradient g (B, O)
+    float32. Plain version: ``ref.mp_linear_bwd_from_levels``."""
     _linear_args(w.dtype, 0)
-    if not _on_cuda(x, w, g):
-        raise ValueError("mp_linear_bwd: the launch takes CUDA tensors")
+    if not _on_cuda(x, w, g, lv):
+        return ref.mp_linear_bwd_from_levels(x, w, g, lv)
+    from repro_torch.kernels._build import load
     if x.ndim != 2 or w.ndim != 2:
         raise ValueError(f"x must be (B, d) and w (d, O), got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")
@@ -105,18 +140,23 @@ def _mp_linear_bwd_launch(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     O = w.shape[1]
     _expect("w", w, (d, O))
     _expect("g", g, (B, O))
-    x, w, g = _f32(x, "x"), w.contiguous(), _f32(g, "g")
+    _expect("lv", lv, (B, O, 4))
+    x, w, g, lv = _f32(x, "x"), w.contiguous(), _f32(g, "g"), _f32(lv, "lv")
+    plan = mp_linear_grads_plan(d, O, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     f32 = dict(dtype=torch.float32, device=x.device)
-    lv = torch.empty((B, O, 4), **f32)
     dx = torch.empty((B, d), **f32)
     dw = torch.empty((d, O), **f32)
+    dxp = (torch.empty((plan["groups"], B, d), **f32)
+           if plan["groups"] > 1 else None)
     code = load("mp_linear_bwd")(
         x.data_ptr(), w.data_ptr(), g.data_ptr(), lv.data_ptr(),
-        dx.data_ptr(), dw.data_ptr(), B, d, O, int(w.dtype == torch.bfloat16),
-        float(gamma), int(iters), _stream())
+        None if dxp is None else dxp.data_ptr(), dx.data_ptr(),
+        dw.data_ptr(), B, d, O, int(w.dtype == torch.bfloat16),
+        plan["groups"], plan["chunks_per_group"], _stream())
     _check(code, "mp_linear_bwd", f"B={B} d={d} O={O}")
     count_launch("mp_linear_bwd")
-    return dx, dw, lv
+    return dx, dw
 
 
 def mp_linear_plan(B: int, d: int, O: int,

@@ -22,6 +22,7 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                          fir_mp_stream_cascade_q)
 from repro_torch.kernels.mp_kernels import (LINEAR_W_DTYPES,
                                             mp_linear_bwd_kernel,
+                                            mp_linear_grads_kernel,
                                             mp_linear_kernel,
                                             mp_waterfill_kernel)
 from repro_torch.kernels.ref import DEFAULT_ITERS
@@ -41,21 +42,36 @@ def mp_waterfill(L: torch.Tensor, gamma, *,
 
 
 class _MPLinear(torch.autograd.Function):
-    """The kernel's product with the reference's custom VJP: the backward
-    launches ``mp_linear_bwd_kernel`` on the card (the plain version on
-    the CPU). gamma and iters get no gradient."""
+    """The kernel's product with the reference's custom VJP. On the card
+    the forward, when x or w needs a gradient, is the levels-writing launch
+    (y with the same bits, and the exact levels kept for the backward), and
+    the backward launches only the grads pass (``mp_linear_grads_kernel``).
+    On the CPU the backward is the reference's sort-based rule
+    (``mp_linear_bwd_kernel``'s plain version), so that the CPU tests hold
+    the autograd path against the reference's VJP. gamma and iters get no
+    gradient."""
 
     @staticmethod
     def forward(ctx, x2, w, gamma, iters):
-        if ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            ctx.save_for_backward(x2, w)
         ctx.gamma, ctx.iters = gamma, iters
-        return mp_linear_kernel(x2, w, gamma, iters)
+        if not (ctx.needs_input_grad[0] or ctx.needs_input_grad[1]):
+            return mp_linear_kernel(x2, w, gamma, iters)
+        if x2.is_cuda:
+            y, lv = mp_linear_kernel(x2, w, gamma, iters, levels=True)
+            ctx.save_for_backward(x2, w, lv)
+        else:
+            y = mp_linear_kernel(x2, w, gamma, iters)
+            ctx.save_for_backward(x2, w)
+        return y
 
     @staticmethod
     def backward(ctx, g):
-        x2, w = ctx.saved_tensors
-        dx, dw = mp_linear_bwd_kernel(x2, w, g.float(), ctx.gamma, ctx.iters)
+        x2, w, *lv = ctx.saved_tensors
+        if lv:
+            dx, dw = mp_linear_grads_kernel(x2, w, g.float(), lv[0])
+        else:
+            dx, dw = mp_linear_bwd_kernel(x2, w, g.float(), ctx.gamma,
+                                          ctx.iters)
         return dx, dw.to(w.dtype), None, None
 
 
@@ -63,7 +79,7 @@ def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, *,
               iters: int = DEFAULT_ITERS) -> torch.Tensor:
     """Multiplierless (..., d) @ (d, O) through the fused kernel,
     differentiable in x and w (the reference's custom VJP: masks of the
-    exact water levels, ``mp_linear_bwd_kernel``). A w of a dtype the
+    exact water levels, ``_MPLinear``). A w of a dtype the
     kernel does not read (``LINEAR_W_DTYPES``) is widened to float32
     first; a bf16 w gets its gradient rounded to bf16."""
     if w.dtype not in LINEAR_W_DTYPES:

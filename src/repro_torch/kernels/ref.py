@@ -30,7 +30,8 @@ __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "fir_mp_oneshot_cascade_q",
            "fir_mp_stream_octave_q", "fir_mp_stream_q", "mp_waterfill",
            "mp_linear", "mp_linear_bwd", "mp_exact_masks",
-           "mp_linear_levels", "mp_linear_bwd_from_levels",
+           "mp_linear_with_levels", "mp_linear_levels",
+           "mp_linear_bwd_from_levels",
            "mp_linear_near_level"]
 
 DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
@@ -412,9 +413,10 @@ def mp_waterfill(L: torch.Tensor, gamma,
     return ((lo + hi) * 0.5).to(L.dtype)
 
 
-def _mpabs_bisect(u: torch.Tensor, gamma, iters: int) -> torch.Tensor:
-    """MP([u; -u], gamma) over the last axis as the mp_linear kernel
-    solves it: ``hi = max |u|``, then the two-sided hinge sum per step."""
+def _mpabs_bracket(u: torch.Tensor, gamma, iters: int) -> tuple:
+    """The bracket (lo, hi) of MP([u; -u], gamma) over the last axis as the
+    mp_linear kernel leaves it: ``hi = max |u|``, ``lo = hi - gamma``, then
+    ``iters`` steps of the two-sided hinge sum."""
     nu = -u
     hi = u.abs().amax(-1)
     lo = hi - gamma
@@ -426,6 +428,13 @@ def _mpabs_bisect(u: torch.Tensor, gamma, iters: int) -> torch.Tensor:
         too_low = h > gamma
         lo = torch.where(too_low, mid, lo)
         hi = torch.where(too_low, hi, mid)
+    return lo, hi
+
+
+def _mpabs_bisect(u: torch.Tensor, gamma, iters: int) -> torch.Tensor:
+    """MP([u; -u], gamma) over the last axis as the mp_linear kernel
+    solves it: the midpoint of :func:`_mpabs_bracket`."""
+    lo, hi = _mpabs_bracket(u, gamma, iters)
     return (lo + hi) * 0.5
 
 
@@ -436,18 +445,72 @@ def mp_linear(x: torch.Tensor, w: torch.Tensor, gamma,
     bisection. Blocked over O so the (B, O_blk, d) operands stay within
     ``LINEAR_BLOCK`` elements (the head's O = 152,064 included). A bf16 w
     is widened to float32 first (exact), as the kernel widens it."""
+    return _mp_linear(x, w, gamma, iters, levels=False)[0]
+
+
+EXACT_ROUNDS = 16   # the levels' Newton rounds at most, as the kernel's cap
+
+
+def _exact_from(t: torch.Tensor, zc: torch.Tensor, gamma) -> tuple:
+    """(z, k): the exact level z of [t; -t] over the last axis and the
+    count k of its operands above z, by Newton from zc (left of the root)
+    as the mp_linear kernel runs it: the count n and sum s of the operands
+    above zc, z = (s - gamma) / max(n, 1), a recount at z; while a count
+    moved, the sum at z and again (``EXACT_ROUNDS`` at most). A level
+    whose count stood already takes the same z again."""
+    def above(z):
+        zz = z[..., None]
+        return t > zz, -t > zz
+
+    pos, neg = above(zc)
+    n = (pos.sum(-1) + neg.sum(-1)).float()
+    s = torch.where(pos, t, 0.0).sum(-1) + torch.where(neg, -t, 0.0).sum(-1)
+    for r in range(1, EXACT_ROUNDS + 1):
+        z = (s - gamma) / torch.clamp_min(n, 1.0)
+        k = n
+        pos, neg = above(z)
+        n2 = (pos.sum(-1) + neg.sum(-1)).float()
+        if bool((n2 == n).all()) or r == EXACT_ROUNDS:
+            return z, k
+        n = n2
+        s = (torch.where(pos, t, 0.0).sum(-1)
+             + torch.where(neg, -t, 0.0).sum(-1))
+
+
+def mp_linear_with_levels(x: torch.Tensor, w: torch.Tensor, gamma,
+                          iters: int = DEFAULT_ITERS) -> tuple:
+    """(y, lv): :func:`mp_linear`'s y, and what the kernel's training
+    forward writes beside it, lv (B, O, 4) float32 = [z_u, z_v, 1 / k_u,
+    1 / k_v] per (b, o), each z the exact level of [t; -t] by Newton from
+    the left end of the bisection's bracket (:func:`_exact_from`) and k
+    the count of its operands above z (at least 1)."""
+    return _mp_linear(x, w, gamma, iters, levels=True)
+
+
+def _mp_linear(x: torch.Tensor, w: torch.Tensor, gamma, iters: int,
+               levels: bool) -> tuple:
+    """(y, lv or None), blocked over O as :func:`mp_linear` describes."""
     if w.dtype == torch.bfloat16:
         w = w.float()
     B, d = x.shape
     O = w.shape[1]
     ob = max(1, min(O, LINEAR_BLOCK // max(1, B * d)))
-    out = []
+    ys = []
+    lv = (torch.empty((B, O, 4), dtype=torch.float32, device=x.device)
+          if levels else None)
     for o in range(0, O, ob):
         wb = w[:, o:o + ob].T[None]                    # (1, ob, d)
         xb = x[:, None, :]
-        out.append(_mpabs_bisect(xb + wb, gamma, iters)
-                   - _mpabs_bisect(xb - wb, gamma, iters))
-    return torch.cat(out, dim=-1)
+        zs = []
+        for j, t in enumerate((xb + wb, xb - wb)):
+            lo, hi = _mpabs_bracket(t, gamma, iters)
+            zs.append((lo + hi) * 0.5)
+            if levels:
+                z, k = _exact_from(t, lo, gamma)
+                lv[:, o:o + ob, j] = z
+                lv[:, o:o + ob, 2 + j] = 1.0 / torch.clamp_min(k, 1.0)
+        ys.append(zs[0] - zs[1])
+    return torch.cat(ys, dim=-1), lv
 
 
 def mp_exact_masks(t: torch.Tensor, gamma) -> torch.Tensor:
@@ -497,11 +560,10 @@ def _blocks(B: int, d: int, O: int):
             yield slice(r, r + rb), slice(o, o + ob)
 
 
-def mp_linear_levels(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-                     gamma) -> torch.Tensor:
-    """What the backward kernel's first pass writes, by the sort-based
-    solve: (B, O, 4) float32, [z_u, z_v, g * (1 / k_u), g * (1 / k_v)]
-    per (b, o), z_t the exact level of [t; -t] and k_t the count of its
+def mp_linear_levels(x: torch.Tensor, w: torch.Tensor, gamma) -> torch.Tensor:
+    """The levels of :func:`mp_linear_with_levels` by the sort-based solve:
+    (B, O, 4) float32, [z_u, z_v, 1 / k_u, 1 / k_v] per (b, o), z_t the
+    exact level of [t; -t] (``core.mp.mp_exact``) and k_t the count of its
     operands above z_t (at least 1)."""
     if w.dtype == torch.bfloat16:
         w = w.float()
@@ -514,17 +576,17 @@ def mp_linear_levels(x: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
             z = mp_mod.mp_exact(torch.cat([t, -t], dim=-1), gamma)
             k = ((t > z[..., None]).sum(-1) + (-t > z[..., None]).sum(-1))
             out[rs, os_, j] = z
-            out[rs, os_, 2 + j] = g[rs, os_] * (
-                1.0 / torch.clamp_min(k.float(), 1.0))
+            out[rs, os_, 2 + j] = 1.0 / torch.clamp_min(k.float(), 1.0)
     return out
 
 
 def mp_linear_bwd_from_levels(x: torch.Tensor, w: torch.Tensor,
-                              lv: torch.Tensor) -> tuple:
-    """The backward kernel's dx and dw passes on given levels ``lv`` (B, O,
-    4) (:func:`mp_linear_levels`, or the kernel's own): with the sign
-    masks s_t = 1{t > z_t} - 1{-t > z_t}, dx = sum_o (g_u s_u - g_v s_v)
-    and dw = sum_b (g_u s_u + g_v s_v)."""
+                              g: torch.Tensor, lv: torch.Tensor) -> tuple:
+    """The backward kernel's grads pass on given levels ``lv`` (B, O, 4)
+    (:func:`mp_linear_with_levels`, :func:`mp_linear_levels`, or the
+    kernel's own) and the output gradient g (B, O): with g_t = g * (1 /
+    k_t) and the sign masks s_t = 1{t > z_t} - 1{-t > z_t}, dx = sum_o
+    (g_u s_u - g_v s_v) and dw = sum_b (g_u s_u + g_v s_v)."""
     if w.dtype == torch.bfloat16:
         w = w.float()
     B, d = x.shape
@@ -538,8 +600,9 @@ def mp_linear_bwd_from_levels(x: torch.Tensor, w: torch.Tensor,
     for rs, os_ in _blocks(B, d, O):
         xb, wb = x[rs, None, :], w[:, os_].T[None]
         l = lv[rs, os_, :, None]
-        cu = l[..., 2, :] * sign(xb + wb, l[..., 0, :])
-        cv = l[..., 3, :] * sign(xb - wb, l[..., 1, :])
+        gy = g[rs, os_, None]
+        cu = (gy * l[..., 2, :]) * sign(xb + wb, l[..., 0, :])
+        cv = (gy * l[..., 3, :]) * sign(xb - wb, l[..., 1, :])
         dx[rs] += (cu - cv).sum(1)
         dw[:, os_] += (cu + cv).sum(0).T
     return dx, dw

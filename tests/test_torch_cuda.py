@@ -27,7 +27,8 @@ from repro_torch.kernels.fir_mp import (fir_mp_bank_kernel,
                                         fir_mp_stream_cascade_q,
                                         fir_mp_stream_octave,
                                         fir_mp_stream_octave_q, stream_plan)
-from repro_torch.kernels.mp_kernels import (_mp_linear_bwd_launch,
+from repro_torch.kernels.mp_kernels import (mp_linear_bwd_kernel,
+                                            mp_linear_grads_kernel,
                                             mp_linear_kernel,
                                             mp_linear_plan,
                                             mp_waterfill_kernel)
@@ -578,34 +579,47 @@ def test_mp_linear_op_on_the_card(dev):
 
 
 # the backward's shapes: B = 1, O under one column tile, d off the
-# thread count and off the dx / dw position tiles, a ragged batch tile,
-# the k/v projection's and the down projection's d, and a d too wide for
-# the resident tiles of the levels pass
+# thread count and off the grads pass's position and column tiles, a
+# ragged batch tile, the k/v projection's and the down projection's d, a d
+# too wide for the resident tiles of the levels-writing forward, and more
+# rows than one row block of the grads pass
 MP_LINEAR_BWD_SHAPES = [(1, 300, 37), (3, 1000, 131), (5, 129, 3),
                         (7, 257, 300), (4, 4096, 1024), (4, 12288, 100),
-                        (2, 20000, 9)]
+                        (2, 20000, 9), (70, 200, 260)]
 
 
 LEVEL_TOL = 1e-6   # x (1 + |z|): two exact solves summing in other orders
 
 
-def _check_bwd(x, w, g, gamma):
-    """The backward kernel pass by pass: its levels against the sort's (z
-    within LEVEL_TOL; g / k bit for bit except on a branch with an operand
-    within LEVEL_TOL of z, where the two solves may take the operand on
-    either side), its dx and dw against the plain dx and dw on its own
-    levels (within TOL), and against the plain version, elementwise where
-    no operand of a row or column sits at a level."""
-    dx, dw, lv = _mp_linear_bwd_launch(x, w, g, gamma)
-    want = ref.mp_linear_levels(x, w, g, gamma)
-    torch.cuda.synchronize()
+def _same_levels(lv, want, near):
+    """z within LEVEL_TOL of ``want``'s, 1 / k bit for bit except on a
+    branch ``near`` a level, where two solves may take the operand on
+    either side."""
     zk, zp = lv[..., :2], want[..., :2]
     assert bool(((zk - zp).abs() <= LEVEL_TOL * (1 + zp.abs())).all())
-    near = ref.mp_linear_near_level(x, w, zp, LEVEL_TOL)
     assert bool(((lv[..., 2:] == want[..., 2:]) | near).all())
-    own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, w, lv)
+
+
+def _check_bwd(x, w, g, gamma):
+    """The backward pass by pass: the levels-writing forward's y bit for
+    bit the forward alone's; its levels against the sort's and against the
+    plain form of the kernel's solve (``_same_levels``); the grads pass
+    against the plain dx and dw on its own levels (within TOL), the same
+    bits twice, and against the plain version, elementwise where no
+    operand of a row or column sits at a level."""
+    y, lv = mp_linear_kernel(x, w, gamma, levels=True)
+    assert torch.equal(y, mp_linear_kernel(x, w, gamma))
+    dx, dw = mp_linear_grads_kernel(x, w, g, lv)
+    want = ref.mp_linear_levels(x, w, gamma)
+    torch.cuda.synchronize()
+    near = ref.mp_linear_near_level(x, w, want[..., :2], LEVEL_TOL)
+    _same_levels(lv, want, near)
+    _same_levels(lv, ref.mp_linear_with_levels(x, w, gamma)[1], near)
+    own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, w, g, lv)
     _close(dx, own_dx)
     _close(dw, own_dw)
+    again = mp_linear_grads_kernel(x, w, g, lv)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
     want_dx, want_dw = ref.mp_linear_bwd(x, w, g, gamma)
     tie = near.any(-1)                                  # (B, O)
     rows, cols = ~tie.any(1), ~tie.any(0)
@@ -616,24 +630,76 @@ def _check_bwd(x, w, g, gamma):
     return dx, dw, int(tie.sum())
 
 
-@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,d,O", MP_LINEAR_BWD_SHAPES)
-def test_mp_linear_bwd_kernel_matches_plain(dev, B, d, O, w_dtype):
-    """dx and dw of the backward kernel (bisection, then the exact solve
-    on its support) against the plain version (the sort-based solve), w
-    in float32 and in bf16 (the plain version gets w.float()), pass by
-    pass (``_check_bwd``). Tolerance: TOL x (1 + max |plain|), the sums'
-    order."""
-    rng = np.random.default_rng(7 * B + d + O)
+def _bwd_case(B, d, O, w_dtype, dev, seed):
+    rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((B, d)).astype(np.float32))
     w = torch.from_numpy((rng.standard_normal((d, O))
                           / np.sqrt(d)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((B, O)).astype(np.float32))
-    x, w, g = x.to(dev), w.to(dev).to(w_dtype), g.to(dev)
+    return x.to(dev), w.to(dev).to(w_dtype), g.to(dev)
+
+
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,d,O", MP_LINEAR_BWD_SHAPES)
+def test_mp_linear_bwd_kernel_matches_plain(dev, B, d, O, w_dtype):
+    """dx and dw of the backward (the levels-writing forward, then the
+    grads pass) against the plain version (the sort-based solve), w in
+    float32 and in bf16 (the plain version gets w.float()), pass by pass
+    (``_check_bwd``). Tolerance: TOL x (1 + max |plain|), the sums'
+    order."""
+    x, w, g = _bwd_case(B, d, O, w_dtype, dev, 7 * B + d + O)
     reset_launches()
+    got = mp_linear_bwd_kernel(x, w, g, 8.0)
+    assert LAUNCHES["mp_linear_bwd"] == 1 and LAUNCHES["mp_linear"] == 1
     dx, dw, _ = _check_bwd(x, w, g, 8.0)
-    assert LAUNCHES["mp_linear_bwd"] == 1
+    assert torch.equal(got[0], dx) and torch.equal(got[1], dw)
     assert tuple(dx.shape) == (B, d) and tuple(dw.shape) == (d, O)
+
+
+@pytest.mark.parametrize("B,d,O,w_dtype", [
+    (64, 12288, 4096, torch.bfloat16),    # the down projection, not resident
+    (64, 4096, 1024, torch.bfloat16),     # k / v
+    (62, 4096, 152064, torch.float32)])   # the head
+def test_mp_linear_levels_forward_at_train_shapes(dev, B, d, O, w_dtype):
+    """The train step's own plans (BB = 4; resident and not): the
+    levels-writing forward's y bit for bit the forward alone's; its levels
+    on a few columns (the first, and the ragged last chunk's) against the
+    plain form's and the sort's; the grads pass the same bits twice, and
+    its dw on those columns against the plain grads on its levels."""
+    x, w, g = _bwd_case(B, d, O, w_dtype, dev, B + d + O)
+    x = x.bfloat16().float()     # the model's activations are bf16-valued
+    plan = mp_linear_plan(B, d, O, w_dtype)
+    assert plan["BB"] == 4, plan
+    y, lv = mp_linear_kernel(x, w, 8.0, levels=True)
+    assert torch.equal(y, mp_linear_kernel(x, w, 8.0))
+    cols = torch.cat([torch.arange(8), torch.arange(O - 8, O)]).to(dev)
+    wc, lc, gc = w[:, cols].float(), lv[:, cols], g[:, cols]
+    near = ref.mp_linear_near_level(x, wc, lc[..., :2], LEVEL_TOL)
+    _same_levels(lc, ref.mp_linear_with_levels(x, wc, 8.0)[1], near)
+    _same_levels(lc, ref.mp_linear_levels(x, wc, 8.0), near)
+    dx, dw = mp_linear_grads_kernel(x, w, g, lv)
+    again = mp_linear_grads_kernel(x, w, g, lv)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    _close(dw[:, cols], ref.mp_linear_bwd_from_levels(x, wc, gc, lc)[1])
+    assert bool(torch.isfinite(dx).all())
+
+
+def test_mp_linear_bwd_kernel_levels_below_zero(dev):
+    """Small operands under gamma 8: every level below 0 (the count of
+    operands above it is 2 d less the pairs with one member above, and the
+    masks' threshold is the float below -z), with some operands outside
+    [z, -z], pass by pass (``_check_bwd``)."""
+    rng = np.random.default_rng(11)
+    x = torch.from_numpy((0.05 * rng.standard_normal((5, 48))).astype(
+        np.float32)).to(dev)
+    w = torch.from_numpy((0.05 * rng.standard_normal((48, 70))).astype(
+        np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((5, 70)).astype(
+        np.float32)).to(dev)
+    _, lv = mp_linear_kernel(x, w, 8.0, levels=True)
+    assert bool((lv[..., :2] < 0).all())
+    dx, dw, _ = _check_bwd(x, w, g, 8.0)
+    assert bool((dx != 0).any()) and bool((dw != 0).any())
 
 
 def test_mp_linear_bwd_kernel_solves_ties_exactly(dev):
@@ -646,8 +712,9 @@ def test_mp_linear_bwd_kernel_solves_ties_exactly(dev):
     w = torch.from_numpy(rng.integers(-3, 4, (50, 70)).astype(np.float32))
     g = torch.from_numpy(rng.standard_normal((6, 70)).astype(np.float32))
     x, w, g = x.to(dev), w.to(dev), g.to(dev)
-    dx, dw, lv = _mp_linear_bwd_launch(x, w, g, 3.0)
-    assert torch.equal(lv, ref.mp_linear_levels(x, w, g, 3.0))
+    _, lv = mp_linear_kernel(x, w, 3.0, levels=True)
+    dx, dw = mp_linear_grads_kernel(x, w, g, lv)
+    assert torch.equal(lv, ref.mp_linear_levels(x, w, 3.0))
     want_dx, want_dw = ref.mp_linear_bwd(x, w, g, 3.0)
     _close(dx, want_dx)
     _close(dw, want_dw)
@@ -655,7 +722,8 @@ def test_mp_linear_bwd_kernel_solves_ties_exactly(dev):
 
 def test_mp_linear_autograd_launches_the_backward_kernel(dev, monkeypatch):
     """Autograd through ``ops.mp_linear`` on CUDA tensors: one forward and
-    one backward launch per call, never the plain backward."""
+    one backward launch per call (the forward writes the levels, the
+    backward solves none), never the plain backward."""
     def no_plain(*a, **k):
         raise AssertionError("the plain backward ran on the card")
     monkeypatch.setattr(ref, "mp_linear_bwd", no_plain)
