@@ -130,25 +130,7 @@ nothing of the reference package). Phases, each failing loudly:
              (lanes per row, elements per lane). Gate: every output within
              1e-5 * (1 + max |plain|). Kernel ms per decode step (CUDA
              events), plain ms, bound.
-10. decode — qwen3-8b at full width and depth (36 layers, d_model 4096,
-             vocab 151,936) in MP mode (gamma 8, bf16 compute), f32 masters
-             from a seeded generator on the card, served by
-             ``serve_decode``: batch 2, 4 prompt tokens, 4 generated,
-             greedy. Gates: 253 mp_linear launches per step (7 x 36 + 1),
-             every logit finite, and f32-compute decode steps through the
-             kernel within 1e-3 * max |plain| of the same steps with
-             ``models.layers.mp_linear`` swapped for the plain version
-             (here only): one from an empty cache (pos 0), one at the
-             first generated position over the prompt's cache (pos 4), and
-             that one again with the layers' projections held as the bf16
-             tensors the served step casts them to, so that the kernel
-             reads bf16 w as when served. The gate's control: the same
-             steps with the kernel solving in 22 bisection steps instead
-             of 26 must miss it (24 and 20 are printed too). The bf16 served step's gap at pos 4 is printed,
-             not gated. Bounds count the cheapest exact form of the MP
-             step; the reference algorithm's count is printed beside.
-
-11. train — esc10-mp ``InFilterPipeline.fit`` at full width (30 bands)
+10. train — esc10-mp ``InFilterPipeline.fit`` at full width (30 bands)
              on 260 seeded synthetic 1 s clips at 16 kHz (26 per class)
              under ``configs.esc10_mp.TRAIN`` (600 SGD steps, gamma
              annealed from 4 over 200). Gates: the features in one
@@ -162,7 +144,7 @@ nothing of the reference package). Phases, each failing loudly:
              [-1, 1]. Printed: held-out accuracy (float and fixed), the
              features' ms, ms per step (host; device busy by the
              profiler), kernels per step, the 600 steps' seconds.
-12. LM train and MP backward — ``make_train_step`` at full width and
+11. LM train and MP backward — ``make_train_step`` at full width and
              depth 2 (1.63 G params, B = 2, S = 32 from ``TokenStream``,
              MP mode, AdamW): three steps on one batch, 15 forward and 15
              backward launches each, losses finite and falling, grad norms
@@ -193,6 +175,46 @@ nothing of the reference package). Phases, each failing loudly:
              bounds of a backward that solves its own levels (the
              sort-based form, and a levels pass in the old kernel's form)
              and the same work as the rule reads are printed beside.
+             The forward alone gets its own bound per call (and summed):
+             ``ops_mp_linear`` at the train shapes, x and w read once, y
+             written, beside its ms (``forward_x_bound``).
+12. decode — ``DECODE``'s configs in MP mode (gamma 8, bf16 compute,
+             seeded random f32 masters on the card) at full width, each
+             served by ``serve_decode`` (B = 2, 4 prompt + 4 generated,
+             greedy): qwen3-8b (36 layers, vocab 151,936),
+             deepseek-moe-16b (28 layers: a dense first layer, 2 shared +
+             64 routed experts top-6), mamba2-2.7b (64 layers, tied head),
+             jamba-v0.1-52b cut to one period of 8 layers (1 attention, 7
+             Mamba, 4 MoE of 16 experts: 52 G f32 masters do not fit one
+             card) and internvl2-2b (24 layers; first a ``forward`` over 16
+             patch embeddings, cut from 1,024, and the 4 prompt tokens,
+             held as the decode step is, its f32 forward gated the same
+             way). Gates: the mp_linear launches per step equal the layer
+             plan's count (``mp_launches_per_step``: 7 x 36 + 1 = 253 for
+             qwen3-8b), every logit finite; one served step's calls
+             recorded and each shape held against the plain version on its
+             own operands (KERNEL_TOL), its device time by the profiler
+             (mp_linear, the copies, the ten longest kernels) against the
+             bound at these shapes; f32-compute steps through the kernel at
+             pos 0 and pos 4 (over the prompt's cache), and at pos 4 with
+             each layer's weights cast to bf16 as the served step casts
+             them (the kernel then reads bf16 w as when served), at full
+             depth, within 1e-3 x max |plain| of the same steps with
+             ``models.layers.mp_linear`` swapped for the plain version
+             (mamba2: 2e-4, where a 22-step solve lands within 1e-3), the
+             kernel at 22 bisection steps outside it (24, 20, 18 printed),
+             and for MoE the same experts chosen by both paths (both
+             routers in f32 there, see ``gated_run``). The bf16 served
+             step's gap at pos 4 is printed, not gated. Bounds count the
+             cheapest exact form of the MP step.
+13. encoder — hubert-xlarge at full width and depth (48 layers,
+             LayerNorm, GELU, not causal): ``forward`` over B = 2 x 64
+             frames, 289 launches (6 per layer and the head; the frame
+             projection is a torch product, as in the reference), logits
+             finite; its calls held shape by shape; the f32 forward over
+             the first 4 layers within 3e-5 x max |plain| of the plain
+             version's, the kernel at 22 bisection steps outside it
+             (``HUBERT_GATE``: the f32 sums leave 26 steps little room).
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -224,7 +246,7 @@ SERVE_TOL = 1e-5
 ONESHOT_PHI_TOL = 1e-4
 ONESHOT_P_TOL = 5e-3
 DECODE_TOL = 1e-3         # x max |plain logit|: the f32 step, kernel vs plain
-CONTROL_ITERS = (24, 22, 20)   # coarser solves of the kernel, the controls
+CONTROL_ITERS = (24, 22, 20, 18)   # coarser solves: the controls
 CONTROL_GATE_ITERS = 22   # ... of which this one must miss the decode gate
 MP_GAMMA = 8.0            # qwen3-8b's mp_gamma
 WATERFILL_GAMMA = 4.0     # the esc10-mp bank's gamma_f
@@ -2299,14 +2321,6 @@ def fixed_oneshot_breakdown(pipe, prog, x) -> dict:
 # -- the transformer decode slice: qwen3-8b in MP mode -------------------------
 
 
-def qwen3_mp():
-    """qwen3-8b at full width and depth, MP mode, its bf16 compute."""
-    import dataclasses
-    from repro_torch.configs import get_arch
-    return dataclasses.replace(get_arch("qwen3-8b"), mp_mode=True,
-                               mp_gamma=MP_GAMMA)
-
-
 def decode_shapes(cfg) -> list:
     """(d, O, calls per decode step, weights bf16-rounded) for each
     distinct mp_linear shape of one decode step: the seven projections of
@@ -2437,170 +2451,6 @@ def phase_mp_kernels(cfg):
     wf["launches_here"] = launches
     log({"kernel_vs_plain": wf})
     return lin, wf
-
-
-def phase_decode(cfg):
-    """Serve qwen3-8b (MP mode) on the card, then hold decode steps
-    through the kernel against the plain version."""
-    import contextlib
-    import dataclasses
-    from unittest import mock
-
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.kernels import LAUNCHES, ops, ref, reset_launches
-    from repro_torch.launch.serve import serve_decode
-    from repro_torch.models import layers
-    from repro_torch.models import transformer as T
-    dev = torch.device("cuda")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
-                    device=dev)
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params = T.param_count(params)
-    per_step = 7 * cfg.num_layers + 1
-    B, prompt_len, gen = 2, 4, 4
-    serve_decode(cfg, params, B, 1, 0, seed=1)            # warm-up
-    reset_launches()
-    res = serve_decode(cfg, params, B, prompt_len, gen, seed=0)
-    launches = LAUNCHES["mp_linear"]
-    peak_bytes = torch.cuda.max_memory_allocated()
-    steps = prompt_len + gen
-    if launches != per_step * steps:
-        raise AssertionError(f"mp_linear launched {launches} times in "
-                             f"{steps} steps (want {per_step} per step)")
-    for i, lg in enumerate(res.logits):
-        if tuple(lg.shape) != (B, cfg.vocab_size) or \
-                not bool(torch.isfinite(lg).all()):
-            raise AssertionError(f"step {i}: logits {tuple(lg.shape)} not "
-                                 "finite / of the wrong shape")
-
-    prompts = torch.as_tensor(res.prompts, dtype=torch.int32, device=dev)
-    first = torch.as_tensor(res.tokens[:, :1], dtype=torch.int32, device=dev)
-
-    def at(i):
-        return torch.full((B,), i, dtype=torch.int32, device=dev)
-
-    def prompt_cache(c, n, p=params):
-        """A cache of prompt_len + 1 slots holding the first n prompt
-        tokens, decoded through the kernel."""
-        cache = T.init_cache(c, B, prompt_len + 1, device=dev)
-        with torch.no_grad():
-            for i in range(n):
-                _, cache = T.decode_step(p, c, prompts[:, i:i + 1],
-                                         cache, at(i))
-        return cache
-
-    def step_at(c, cache, tok, i, mp=None, p=params):
-        """Logits of one step at position i from a copy of ``cache``;
-        ``mp`` stands in for ``models.layers.mp_linear`` if given."""
-        cache = {"scan": [{k: v.clone() for k, v in lc.items()}
-                          for lc in cache["scan"]], "prefix": []}
-        swap = (mock.patch.object(layers, "mp_linear", mp) if mp
-                else contextlib.nullcontext())
-        with torch.no_grad(), swap:
-            logits, _ = T.decode_step(p, c, tok, cache, at(i))
-        torch.cuda.synchronize()
-        return logits.float()
-
-    # a served step at the first generated position, profiled
-    served = prompt_cache(cfg, prompt_len)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step_at(cfg, served, first, prompt_len)
-    by_name = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA), reverse=True)
-    kern_us = sum(t for t, k in by_name if "mp_linear_kernel" in k)
-    copy_us = sum(t for t, k in by_name if "copy" in k)
-    busy_us = sum(t for t, _ in by_name)
-    log({"decode_step_device_ms": {
-        "mp_linear": kern_us * 1e-3,
-        "copies (the per-step bf16 weight casts, the cache copy)":
-            copy_us * 1e-3,
-        "other": (busy_us - kern_us - copy_us) * 1e-3,
-        "top_kernels": [(k[:90], t * 1e-3) for t, k in by_name[:10]]}})
-
-    def plain(x, w, gamma):
-        y = ref.mp_linear(x.reshape(-1, x.shape[-1]), w, gamma)
-        return y.reshape(*x.shape[:-1], w.shape[1])
-
-    def coarse(iters):
-        def mp(x, w, gamma):
-            return ops.mp_linear(x, w, gamma, iters=iters)
-        return mp
-
-    def gap(got, want) -> float:
-        return float((got - want).abs().max() / want.abs().max())
-
-    # kernel vs plain: f32 compute from an empty cache (pos 0) and at the
-    # first generated position over the prompt's cache, each gated, with
-    # coarser solves of the kernel as the gate's controls; the f32 step at
-    # that position again with the layers' projections held as the bf16
-    # tensors the served step casts them to, so that the kernel reads bf16
-    # w there as it does when served, gated the same way; the bf16 served
-    # step at that position, reported
-    c32 = dataclasses.replace(cfg, compute_dtype="float32")
-    w16 = dict(params, layers=[T._constrain(lp, cfg)
-                               for lp in params["layers"]])
-    checks = []
-    for name, c, i, p in (("f32", c32, 0, params),
-                          ("f32", c32, prompt_len, params),
-                          ("f32, bf16 w", c32, prompt_len, w16),
-                          ("bf16", cfg, prompt_len, params)):
-        cache = prompt_cache(c, i, p)
-        tok = prompts[:, :1] if i == 0 else first
-        t0 = time.perf_counter()
-        got = step_at(c, cache, tok, i, p=p)
-        k_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        want = step_at(c, cache, tok, i, plain, p)
-        p_s = time.perf_counter() - t0
-        row = dict(compute=name, pos=i,
-                   max_abs_diff=float((got - want).abs().max()),
-                   max_abs_plain=float(want.abs().max()),
-                   rel=gap(got, want), kernel_step_s=k_s, plain_step_s=p_s)
-        if c is c32:
-            row["control_rel"] = {
-                it: gap(step_at(c, cache, tok, i, coarse(it), p), want)
-                for it in CONTROL_ITERS}
-        checks.append(row)
-    del w16
-    log({"decode_step_vs_plain": checks})
-    for row in checks:
-        if "control_rel" not in row:
-            continue
-        if not row["rel"] <= DECODE_TOL:
-            raise AssertionError(f"f32 decode step at pos {row['pos']}, "
-                                 f"kernel vs plain: {row['max_abs_diff']} > "
-                                 f"{DECODE_TOL} x {row['max_abs_plain']}")
-        if not row["control_rel"][CONTROL_GATE_ITERS] > DECODE_TOL:
-            raise AssertionError(
-                f"the decode gate cannot tell a {CONTROL_GATE_ITERS}-step "
-                f"solve from the kernel at pos {row['pos']}: "
-                f"{row['control_rel']}")
-    out = dict(phase="decode", arch=cfg.name, layers=cfg.num_layers,
-               d_model=cfg.d_model, vocab=cfg.vocab_size, mp_mode=True,
-               mp_gamma=cfg.mp_gamma, compute_dtype=cfg.compute_dtype,
-               batch=B, prompt_len=prompt_len, gen=gen,
-               params=n_params, param_bytes=4 * n_params, init_s=init_s,
-               prefill_ms=res.prefill_s * 1e3,
-               prefill_ms_per_step=res.prefill_s * 1e3 / prompt_len,
-               decode_ms_per_step=res.decode_s * 1e3 / gen,
-               tokens_per_s=B * gen / res.decode_s,
-               mp_linear_launches=launches,
-               mp_linear_launches_per_step=launches / steps,
-               mp_linear_device_ms_per_step=kern_us * 1e-3,
-               copy_device_ms_per_step=copy_us * 1e-3,
-               device_busy_ms_per_step=busy_us * 1e-3,
-               peak_memory_bytes=peak_bytes,
-               generated=res.tokens.tolist())
-    log(out)
-    # None: the profiler traced nothing on the device
-    return launches, kern_us * 1e-3 if kern_us else None
 
 
 # -- training: esc10-mp fit, the MP backward and the qwen3-8b train step -------
@@ -2951,6 +2801,7 @@ def phase_mp_backward(calls, layers: int, gamma: float):
                forward_with_levels_ms=0.0, plain_grads_ms=0.0,
                memory_allocated_at_start=torch.cuda.memory_allocated())
     ops = ops_read = ops_kernel = ops_ref = nbytes = 0.0
+    fwd_ops = fwd_nbytes = 0.0
     per_call = []
     for x, w, gy, lv in calls:
         t_call = time.perf_counter()
@@ -3033,6 +2884,11 @@ def phase_mp_backward(calls, layers: int, gamma: float):
                 f"{t_dw} / {tol_dw}")
         reps = 3 if O > 50000 else 5
         f_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma, iters), reps)
+        # the forward alone against its own bound at these train shapes:
+        # the cheapest exact bisection step, x and w read once, y written
+        f_ops = ops_mp_linear(B, d, O, iters)
+        f_nb = 4 * B * d + w.element_size() * d * O + 4 * B * O
+        f_b_ms, _ = bound_ms(f_ops, f_nb)
         fl_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma, iters,
                                                  levels=True), reps)
         g_ms = cuda_ms(lambda: mp_linear_grads_kernel(x, w, gy, lv), reps)
@@ -3047,7 +2903,8 @@ def phase_mp_backward(calls, layers: int, gamma: float):
                   float((dw - want_dw).abs().max()))
         per_call.append(dict(
             B=B, d=d, O=O, w=str(w.dtype).replace("torch.", ""), ms=k_ms,
-            grads_ms=g_ms, forward_ms=f_ms, forward_with_levels_ms=fl_ms,
+            grads_ms=g_ms, forward_ms=f_ms, forward_bound_ms=f_b_ms,
+            forward_x_bound=f_ms / f_b_ms, forward_with_levels_ms=fl_ms,
             plain_ms=p_ms, plain_grads_ms=pg_ms, bound_ms=b_ms,
             x_bound=k_ms / b_ms, bound_ms_as_read=bound_ms(c_read, nb)[0],
             newton_passes_from_bracket_mean=n_passes / passes.numel(),
@@ -3064,6 +2921,8 @@ def phase_mp_backward(calls, layers: int, gamma: float):
         row["grads_ms"] += g_ms
         row["levels_added_ms"] += fl_ms - f_ms
         row["forward_ms"] += f_ms
+        fwd_ops += f_ops
+        fwd_nbytes += f_nb
         row["forward_with_levels_ms"] += fl_ms
         row["plain_ms"] += p_ms
         row["plain_grads_ms"] += pg_ms
@@ -3079,10 +2938,579 @@ def phase_mp_backward(calls, layers: int, gamma: float):
     row["bound_ms_levels_pass_form"] = bound_ms(ops_kernel, nbytes)[0]
     row["bound_ms_reference_algorithm"] = bound_ms(ops_ref, nbytes)[0]
     row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["forward_bound_ms"], row["forward_bound_by"] = bound_ms(fwd_ops,
+                                                                fwd_nbytes)
+    row["forward_x_bound"] = row["forward_ms"] / row["forward_bound_ms"]
     row["calls"] = (f"one depth-{layers} train step's {len(calls)} "
                     f"backward calls: {per_call}")
     log({"kernel_vs_plain": row})
     torch.cuda.empty_cache()
+    return row
+
+
+# -- decode in MP mode: qwen3-8b and the rest of the zoo (MoE, Mamba-2, the
+# hybrid, the VLM), then the audio encoder, each at full width -------------
+
+
+DECODE = (
+    # arch, layers served (None: all), the f32 gate (x max |plain|), the
+    # control's bisection steps (it must miss the gate), why. The gate is
+    # 1e-3 with a 22-step control where that control misses it; mamba2's
+    # 22-step control lands within 1e-3 (5.3e-4 / 6.6e-4 at pos 0 / 4 on
+    # the H100), so its gate is the stricter 2e-4
+    ("qwen3-8b", None, DECODE_TOL, CONTROL_GATE_ITERS, "dense: 36 layers, "
+     "SwiGLU, the f32 head"),
+    ("deepseek-moe-16b", None, DECODE_TOL, CONTROL_GATE_ITERS, "MoE: a "
+     "peeled dense layer, 2 shared + 64 routed experts top-6"),
+    ("mamba2-2.7b", None, 2e-4, CONTROL_GATE_ITERS, "SSM: the SSD decode "
+     "state, a tied head"),
+    # 52 G f32 masters do not fit one card: one period (1 attention, 7
+    # Mamba, 4 MoE layers of 16 experts)
+    ("jamba-v0.1-52b", 8, DECODE_TOL, CONTROL_GATE_ITERS, "the periodic "
+     "plan"),
+    ("internvl2-2b", None, DECODE_TOL, CONTROL_GATE_ITERS, "the VLM prefix "
+     "(16 patches), then decode"),
+)
+VLM_PATCHES = 16          # cut from internvl2's 1,024: a length, not a shape
+HUBERT_FRAMES = 64
+HUBERT_GATE_LAYERS = 4    # the encoder's f32 gate runs the first 4 of 48
+# the encoder's gate, 3e-5 with a 22-step control: the f32 sums over d =
+# 1,280-5,120 bound how far 26 steps get ahead of fewer. On the H100, at 4
+# layers (and at 12), the kernel sits 1.9e-5 from the plain version and a
+# 22-step solve 5.1e-5, so 3e-5 leaves ~1.6x on either side
+HUBERT_GATE = (3e-5, CONTROL_GATE_ITERS)
+DECODE_B, DECODE_PROMPT, DECODE_GEN = 2, 4, 4
+
+
+def mp_cfg(arch: str, layers=None):
+    """``arch`` at full width in MP mode (gamma 8, its bf16 compute),
+    ``layers`` deep if given."""
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch), mp_mode=True,
+                              mp_gamma=MP_GAMMA)
+    return cfg if layers is None else dataclasses.replace(
+        cfg, num_layers=layers)
+
+
+def mp_launches_per_step(cfg) -> int:
+    """The mp_linear calls of one decode step (or one forward) as the
+    layer plan gives them: 4 per attention mixer, 2 per Mamba mixer, a
+    dense FFN's projections (3 SwiGLU, 2 GELU), a MoE FFN's shared
+    experts (one SwiGLU, 3; the router and the routed experts are torch
+    products), and the head."""
+    from repro_torch.models.transformer import _layer_plan
+    plan = _layer_plan(cfg)
+
+    def layer(mixer, is_moe):
+        n = 4 if mixer == "attn" else 2
+        if is_moe:
+            return n + (3 if cfg.num_shared_experts else 0)
+        return n + ((2 if cfg.norm == "ln" else 3) if cfg.d_ff > 0 else 0)
+
+    if plan["kind"] == "uniform":
+        n = (plan["n_prefix"] * layer("attn", False)
+             + plan["n_scan"] * layer(plan["mixer"], plan["is_moe"]))
+    else:
+        n = plan["n_groups"] * sum(layer(m, e) for m, e in plan["subs"])
+    return n + 1
+
+
+def clone_tree(t):
+    if isinstance(t, dict):
+        return {k: clone_tree(v) for k, v in t.items()}
+    if isinstance(t, list):
+        return [clone_tree(v) for v in t]
+    return t.clone()
+
+
+def mp_calls(fn) -> dict:
+    """Run ``fn()`` with ``models.layers.mp_linear`` recording its calls:
+    {(rows, d, O, w dtype): [x (rows, d), w, calls]}, the first call's
+    operands kept per shape."""
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import layers
+    real = layers.mp_linear
+    seen = {}
+
+    def rec(x, w, gamma, **kw):
+        x2 = x.reshape(-1, x.shape[-1])
+        key = (x2.shape[0], x2.shape[1], w.shape[1],
+               str(w.dtype).replace("torch.", ""))
+        ent = seen.setdefault(key, [x2.detach().clone(), w.detach(), 0])
+        ent[2] += 1
+        return real(x, w, gamma, **kw)
+
+    with torch.no_grad(), mock.patch.object(layers, "mp_linear", rec):
+        fn()
+    return seen
+
+
+def mp_shapes_row(seen: dict, gamma: float, what: str) -> dict:
+    """mp_linear against its plain version on each recorded shape's
+    operands (the main path's own x and w), gated at KERNEL_TOL; kernel
+    ms by CUDA events, plain ms, and the bound at these shapes
+    (``ops_mp_linear``: the cheapest exact step; x, w read once, y
+    written), each summed over the calls of one step."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mp_kernels import mp_linear_kernel
+    import torch
+    row = dict(name="mp_linear", at=what, max_abs_err=0.0, ms=0.0,
+               plain_ms=0.0)
+    ops = nbytes = 0.0
+    shapes = []
+    for (rows, d, O, wdt), (x, w, n) in seen.items():
+        got = mp_linear_kernel(x, w, gamma)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = ref.mp_linear(x, w.float(), gamma)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        err, tol = max_err(got, want)
+        if not err <= tol:
+            raise AssertionError(f"mp_linear {what} rows={rows} d={d} O={O} "
+                                 f"w={wdt}: max |diff| {err} > {tol}")
+        k_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma),
+                       3 if rows * d * O > 2e9 else 10)
+        nb = 4 * rows * d + w.element_size() * d * O + 4 * rows * O
+        b_ms, _ = bound_ms(ops_mp_linear(rows, d, O), nb)
+        shapes.append(dict(rows=rows, d=d, O=O, w=wdt, calls=n, ms=k_ms,
+                           plain_ms=p_ms, bound_ms=b_ms, x_bound=k_ms / b_ms,
+                           max_abs_err=err))
+        row["max_abs_err"] = max(row["max_abs_err"], err)
+        row["ms"] += n * k_ms
+        row["plain_ms"] += n * p_ms
+        ops += n * ops_mp_linear(rows, d, O)
+        nbytes += n * nb
+    row["bound_ms"], row["bound_by"] = bound_ms(ops, nbytes)
+    row["x_bound"] = row["ms"] / row["bound_ms"]
+    row["shapes"] = shapes
+    return row
+
+
+def mp_device_ms(fn) -> dict:
+    """``fn()`` once under torch.profiler: mp_linear's device ms, the
+    copies' (the per-step bf16 weight casts, the cache copies), every
+    kernel's, and the ten longest (None where nothing was traced)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = sorted(((getattr(e, "self_device_time_total", 0.0), e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA), reverse=True)
+    busy = sum(t for t, _ in by_name)
+    if not busy:
+        return dict(mp_linear=None, copies=None, busy=None, top=None)
+    return dict(mp_linear=sum(t for t, k in by_name
+                              if "mp_linear_kernel" in k) * 1e-3,
+                copies=sum(t for t, k in by_name if "copy" in k) * 1e-3,
+                busy=busy * 1e-3,
+                top=[(k[:90], t * 1e-3) for t, k in by_name[:10]])
+
+
+def routes_of(scores: list, k: int) -> list:
+    """The expert ids picked from each recorded (T, E) score tensor."""
+    import torch
+    return [torch.sort(s, dim=-1, descending=True, stable=True)
+            .indices[:, :k].cpu() for s in scores]
+
+
+def gated_run(fn, moe_routes: bool):
+    """``fn(mp)`` under no_grad with ``models.layers.mp_linear`` swapped
+    for ``mp`` (the kernel when None): (result as float32, scores). With
+    ``moe_routes`` the MoE layers' own selection scores are recorded, and
+    every run but the plain version's selects by the last plain run's
+    scores (the same experts; its gates, from its own logits, stay its
+    own): a gap then measures the products, and a selection of its own
+    that differs (~1e-6 of sum order moving a score across the 2^-10
+    grid) shows in its scores. The MoE router runs in float32 here: as
+    the reference's, it is a bf16 product whatever the compute dtype,
+    which rounds its input to bf16, so those ~1e-6 differences would move
+    a router logit by a bf16 step now and then."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.models import layers, moe
+    plain_scores = []
+
+    def run(mp=None):
+        scores = []
+        real = moe._route_scores
+
+        def rec(logits):
+            s = real(logits)
+            scores.append(s.detach().clone())
+            if mp is plain_mp or len(plain_scores) < len(scores):
+                return s
+            return plain_scores[len(scores) - 1]
+
+        swap = (mock.patch.object(layers, "mp_linear", mp) if mp
+                else contextlib.nullcontext())
+        keep = (mock.patch.object(moe, "_route_scores", rec)
+                if moe_routes else contextlib.nullcontext())
+        f32_router = mock.patch.dict(layers.linear.__kwdefaults__,
+                                     {"compute_dtype": torch.float32})
+        with torch.no_grad(), swap, keep, f32_router:
+            out = fn().float()
+        torch.cuda.synchronize()
+        if mp is plain_mp:
+            plain_scores[:] = scores
+        return out, scores
+
+    return run
+
+
+def plain_mp(x, w, gamma):
+    from repro_torch.kernels import ref
+    y = ref.mp_linear(x.reshape(-1, x.shape[-1]), w, gamma)
+    return y.reshape(*x.shape[:-1], w.shape[1])
+
+
+def coarse_mp(iters: int):
+    from repro_torch.kernels import ops
+
+    def mp(x, w, gamma):
+        return ops.mp_linear(x, w, gamma, iters=iters)
+    return mp
+
+
+def gap_row(run) -> tuple:
+    """The kernel against the plain version through ``run`` (from
+    ``gated_run``; the plain version first, whose routes the kernel's run
+    takes), timed on the host: (the row, both outputs, both scores)."""
+    t0 = time.perf_counter()
+    want, s_p = run(plain_mp)
+    p_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got, s_k = run()
+    k_s = time.perf_counter() - t0
+    top = float(want.abs().max())
+    diff = float((got - want).abs().max())
+    return dict(max_abs_diff=diff, max_abs_plain=top, rel=diff / top,
+                kernel_s=k_s, plain_s=p_s), got, want, s_k, s_p
+
+
+def gate_row(run, k: int | None, name: str, tol: float, control: int,
+             experts_gated: bool = True) -> dict:
+    """``gap_row`` gated: within ``tol`` x max |plain|, the control (the
+    kernel at ``control`` bisection steps) outside it, the outputs finite
+    and, for MoE (``k`` experts per token), the same expert ids chosen by
+    both on their own scores (printed only, if not ``experts_gated``);
+    the controls of CONTROL_ITERS printed. Returns the row with its
+    ``fails``."""
+    import torch
+    row, got, want, s_k, s_p = gap_row(run)
+    top = row["max_abs_plain"]
+    controls = {it: float((run(coarse_mp(it))[0] - want).abs().max())
+                / top for it in sorted({*CONTROL_ITERS, control},
+                                       reverse=True)}
+    row = dict(check=name, **row, gate=tol, control_iters=control,
+               control_rel=controls)
+    fails = []
+    if not bool(torch.isfinite(got).all()):
+        fails.append("not finite")
+    if not row["rel"] <= tol:
+        fails.append(f"kernel vs plain {row['max_abs_diff']} > {tol} x "
+                     f"{top}")
+    if not controls[control] > tol:
+        fails.append(f"the gate cannot tell a {control}-step solve from "
+                     f"the kernel: {controls}")
+    if k is not None:
+        ids_k, ids_p = routes_of(s_k, k), routes_of(s_p, k)
+        row["moe_calls"] = len(ids_k)
+        row["experts_identical"] = (len(ids_k) == len(ids_p) > 0 and all(
+            torch.equal(a, b) for a, b in zip(ids_k, ids_p)))
+        row["experts_gated"] = experts_gated
+        row["routes_differing"] = sum(
+            int((a != b).any(-1).sum()) for a, b in zip(ids_k, ids_p))
+        if experts_gated and not row["experts_identical"]:
+            fails.append("the kernel path and the plain path chose other "
+                         "experts")
+    row["fails"] = fails
+    return row
+
+
+def free_card() -> int:
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def init_params(cfg):
+    """``cfg``'s seeded random f32 masters on the card, and the seconds."""
+    import torch
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    torch.cuda.synchronize()
+    return params, time.perf_counter() - t0
+
+
+def held_forward(params, cfg, batch: dict, positions: int) -> tuple:
+    """``forward`` over ``batch``, warm, then timed: its launches against
+    the layer plan, the logits finite and (B, positions, padded vocab);
+    its mp_linear calls recorded and each shape held against the plain
+    version, its device time by the profiler. Returns (the phase's
+    fields, the kernels-line row)."""
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import transformer as T
+    per_fwd = mp_launches_per_step(cfg)
+    B = next(iter(batch.values())).shape[0]
+
+    def fwd():
+        return T.forward(params, cfg, batch)
+
+    with torch.no_grad():
+        fwd()                                               # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        lg = fwd()
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    launches = LAUNCHES["mp_linear"]
+    finite = bool(torch.isfinite(lg.float()).all())
+    if launches != per_fwd or not finite or tuple(lg.shape) != (
+            B, positions, cfg.padded_vocab):
+        raise AssertionError(f"{cfg.name} forward: {launches} launches "
+                             f"(want {per_fwd}), logits {tuple(lg.shape)}, "
+                             f"finite {finite}")
+    del lg
+    seen = mp_calls(fwd)
+    row = mp_shapes_row(seen, cfg.mp_gamma, f"{cfg.name} forward")
+    del seen
+    dev_ms = mp_device_ms(fwd)
+    row.update(launches=launches, device_ms=dev_ms["mp_linear"],
+               device_timed_by="profiler" if dev_ms["mp_linear"] else None)
+    fields = dict(forward_ms=fwd_ms, forward_positions=positions,
+                  forward_mp_linear_launches=launches,
+                  forward_mp_linear_launches_by_plan=per_fwd,
+                  forward_mp_linear_device_ms=dev_ms["mp_linear"],
+                  forward_device_busy_ms=dev_ms["busy"],
+                  forward_mp_linear_ms=row["ms"],
+                  forward_mp_linear_bound_ms=row["bound_ms"],
+                  forward_mp_linear_x_bound=(
+                      dev_ms["mp_linear"] / row["bound_ms"]
+                      if dev_ms["mp_linear"] else None),
+                  forward_mp_linear_plain_ms=row["plain_ms"])
+    return fields, row
+
+
+def phase_decode(arch: str, layers, tol: float, control: int, why: str,
+                 card: str) -> tuple:
+    """One config (``DECODE``) served by ``serve_decode`` (B = 2, 4 prompt
+    + 4 generated, greedy, MP mode, bf16 compute, seeded random f32
+    masters on the card): launches per step against the layer plan,
+    every logit finite; one served step's mp_linear calls recorded and
+    each shape held against the plain version, its device time by the
+    profiler. The gate: f32-compute steps through the kernel at pos 0 and
+    pos 4 (over the prompt's cache), and at pos 4 again with each layer's
+    weights cast to bf16 as the served step casts them (so that the
+    kernel reads bf16 w as when served), within ``tol`` x max |plain| of
+    the plain version's, the ``control``-step solve outside, the same
+    experts chosen; the bf16 served step's gap at pos 4 printed, not
+    gated. For the VLM, first a ``forward`` over 16 patches and the
+    prompt, held the same way (``held_forward``, its f32 forward gated).
+    Returns (the phase's line, its kernels-line rows)."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.serve import serve_decode
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    resident = free_card()
+    cfg = mp_cfg(arch, layers)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params, init_s = init_params(cfg)
+    per_step = mp_launches_per_step(cfg)
+    k = cfg.num_experts_per_tok if cfg.num_experts else None
+    B, prompt_len, gen = DECODE_B, DECODE_PROMPT, DECODE_GEN
+    out = dict(phase="decode", arch=cfg.name, family=cfg.family, why=why,
+               layers=cfg.num_layers, layers_full=mp_cfg(arch).num_layers,
+               d_model=cfg.d_model, vocab=cfg.vocab_size,
+               mp_gamma=cfg.mp_gamma, compute_dtype=cfg.compute_dtype,
+               batch=B, prompt_len=prompt_len, gen=gen,
+               params=T.param_count(params),
+               active_params=T.active_param_count(cfg, params),
+               param_bytes=4 * T.param_count(params),
+               memory_resident_before=resident, init_s=init_s, card=card)
+    rows, gates = [], []
+    if cfg.vlm_patches:
+        # the VLM's prefix: 16 patch embeddings before the prompt's tokens
+        toks = torch.as_tensor(np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (B, prompt_len)), dtype=torch.int32,
+            device=dev)
+        batch = {"tokens": toks, "patches": torch.randn(
+            B, VLM_PATCHES, cfg.d_model, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(1))}
+        fields, row = held_forward(params, cfg, batch,
+                                   VLM_PATCHES + prompt_len)
+        out.update(fields)
+        rows.append(row)
+        gates.append(gate_row(
+            gated_run(lambda: T.forward(params, c32, batch), False), None,
+            f"{arch} f32 forward over {VLM_PATCHES} patches", tol, control))
+        del batch
+    serve_decode(cfg, params, B, 1, 0, seed=1)             # warm-up
+    reset_launches()
+    res = serve_decode(cfg, params, B, prompt_len, gen, seed=0)
+    launches = LAUNCHES["mp_linear"]
+    steps = prompt_len + gen
+    if launches != per_step * steps:
+        raise AssertionError(f"{arch}: mp_linear launched {launches} times "
+                             f"in {steps} steps (want {per_step} per step)")
+    for i, lg in enumerate(res.logits):
+        if tuple(lg.shape) != (B, cfg.vocab_size) or \
+                not bool(torch.isfinite(lg).all()):
+            raise AssertionError(f"{arch} step {i}: logits "
+                                 f"{tuple(lg.shape)} not finite / of the "
+                                 "wrong shape")
+    out.update(prefill_ms=res.prefill_s * 1e3,
+               prefill_ms_per_step=res.prefill_s * 1e3 / prompt_len,
+               decode_ms_per_step=res.decode_s * 1e3 / gen,
+               tokens_per_s=B * gen / res.decode_s,
+               mp_linear_launches=launches, mp_linear_launches_per_step=
+               launches / steps, mp_linear_launches_per_step_by_plan=per_step,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               generated=res.tokens.tolist())
+
+    prompts = torch.as_tensor(res.prompts, dtype=torch.int32, device=dev)
+    first = torch.as_tensor(res.tokens[:, :1], dtype=torch.int32,
+                            device=dev)
+
+    def at(i):
+        return torch.full((B,), i, dtype=torch.int32, device=dev)
+
+    def casts(bf16_w: bool):
+        """Each layer's weights cast to bf16 whatever the compute dtype
+        (``_constrain`` as the served step runs it), if ``bf16_w``."""
+        if not bf16_w:
+            return contextlib.nullcontext()
+        real = T._constrain
+        return mock.patch.object(T, "_constrain", lambda p, c: real(
+            p, dataclasses.replace(c, compute_dtype="bfloat16")))
+
+    def prompt_cache(c, n, bf16_w=False):
+        cache = T.init_cache(c, B, prompt_len + 1, device=dev)
+        with torch.no_grad(), casts(bf16_w):
+            for i in range(n):
+                _, cache = T.decode_step(params, c, prompts[:, i:i + 1],
+                                         cache, at(i))
+        return cache
+
+    def stepper(c, cache, i, bf16_w=False):
+        tok = prompts[:, :1] if i == 0 else first
+
+        def step():
+            with casts(bf16_w):
+                return T.decode_step(params, c, tok, clone_tree(cache),
+                                     at(i))[0]
+        return step
+
+    # one served step at the first generated position: its calls, each
+    # shape against the plain version on its own operands, its device
+    # time by the profiler, and its gap from the plain version's step
+    served = stepper(cfg, prompt_cache(cfg, prompt_len), prompt_len)
+    seen = mp_calls(served)
+    if sum(n for _, _, n in seen.values()) != per_step:
+        raise AssertionError(f"{arch}: recorded {seen.keys()} calls")
+    row = mp_shapes_row(seen, cfg.mp_gamma, f"{cfg.name} decode step")
+    del seen
+    dev_ms = mp_device_ms(served)
+    row.update(launches=launches, device_ms=dev_ms["mp_linear"],
+               device_timed_by="profiler" if dev_ms["mp_linear"] else None)
+    rows.insert(0, row)
+    out.update(mp_linear_device_ms_per_step=dev_ms["mp_linear"],
+               copy_device_ms_per_step=dev_ms["copies"],
+               device_busy_ms_per_step=dev_ms["busy"],
+               top_kernels_per_step=dev_ms["top"],
+               mp_linear_ms_per_step=row["ms"],
+               mp_linear_bound_ms_per_step=row["bound_ms"],
+               mp_linear_x_bound=(dev_ms["mp_linear"] / row["bound_ms"]
+                                  if dev_ms["mp_linear"] else None),
+               mp_linear_plain_ms_per_step=row["plain_ms"],
+               bf16_step_vs_plain=gap_row(gated_run(served,
+                                                    k is not None))[0])
+    del served
+
+    # the gate: f32-compute steps at pos 0 and pos 4, full depth, and at
+    # pos 4 with the served step's bf16 weights (its experts printed: a
+    # route flipped there by the sum order is no fault of the product)
+    for name, i, bf16_w in (("f32", 0, False), ("f32", prompt_len, False),
+                            ("f32, bf16 w", prompt_len, True)):
+        step = stepper(c32, prompt_cache(c32, i, bf16_w), i, bf16_w)
+        gates.append(dict(gate_row(gated_run(step, k is not None), k,
+                                   f"{arch} {name} step at pos {i}", tol,
+                                   control, experts_gated=not bf16_w),
+                          pos=i))
+        del step
+    out["gate"] = gates
+    log(out)
+    for r in rows:
+        log({"kernel_vs_plain": r})
+    del params, res
+    free_card()
+    fails = [f"{c['check']}: {'; '.join(c['fails'])}" for c in gates
+             if c["fails"]]
+    if fails:
+        raise AssertionError(" | ".join(fails))
+    return out, rows
+
+
+def phase_encoder(card: str) -> dict:
+    """hubert-xlarge at full width and depth (48 layers) in MP mode:
+    ``forward`` over B = 2 x 64 frames (bf16 compute, seeded f32 masters)
+    through ``held_forward`` (289 launches: 6 per layer and the head; the
+    frame projection is a torch product); and, on the first 4 layers,
+    the f32-compute forward through the kernel within ``HUBERT_GATE``'s
+    3e-5 x max |plain| of the plain version's, the 22-step control
+    outside. Returns the kernels-line row."""
+    import torch
+    from repro_torch.models import transformer as T
+    dev = torch.device("cuda")
+    resident = free_card()
+    cfg = mp_cfg("hubert-xlarge")
+    params, init_s = init_params(cfg)
+    B = DECODE_B
+    frames = torch.randn(B, HUBERT_FRAMES, cfg.d_model, device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(1))
+    batch = {"frames": frames}
+    fields, row = held_forward(params, cfg, batch, HUBERT_FRAMES)
+    c32 = dataclasses.replace(cfg, compute_dtype="float32",
+                              num_layers=HUBERT_GATE_LAYERS)
+    cut = dict(params, layers=params["layers"][:HUBERT_GATE_LAYERS])
+    gate = gate_row(gated_run(lambda: T.forward(cut, c32, batch), False),
+                    None, f"hubert f32 forward, first {HUBERT_GATE_LAYERS} "
+                    "layers", *HUBERT_GATE)
+    out = dict(phase="encoder", arch=cfg.name, family=cfg.family,
+               layers=cfg.num_layers, d_model=cfg.d_model,
+               vocab=cfg.vocab_size, mp_gamma=cfg.mp_gamma,
+               compute_dtype=cfg.compute_dtype, batch=B,
+               frames=HUBERT_FRAMES, params=T.param_count(params),
+               memory_resident_before=resident, init_s=init_s, **fields,
+               frames_per_s=B * HUBERT_FRAMES / (fields["forward_ms"] * 1e-3),
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               gate=dict(gate, layers=HUBERT_GATE_LAYERS), card=card)
+    log(out)
+    log({"kernel_vs_plain": row})
+    del params, cut, batch, frames
+    free_card()
+    if gate["fails"]:
+        raise AssertionError(f"{gate['check']}: " + "; ".join(gate["fails"]))
     return row
 
 
@@ -3128,15 +3556,19 @@ def main() -> int:
     fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
 
-    qwen = qwen3_mp()
+    qwen = mp_cfg("qwen3-8b")
     lin_row, wf_row = phase_mp_kernels(qwen)
-    decode_launches, decode_device_ms = phase_decode(qwen)
 
     phase_train()
     qwen2 = dataclasses.replace(qwen, num_layers=2)
     bwd_launches, bwd_device_ms, bwd_calls = phase_train_lm(qwen2)
     bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers, qwen2.mp_gamma)
     del bwd_calls
+
+    decoded = [phase_decode(*d, card) for d in DECODE]
+    qwen_out = decoded[0][0]
+    decode_rows = [r for _, rows in decoded for r in rows]
+    decode_rows.append(phase_encoder(card))
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
@@ -3173,8 +3605,11 @@ def main() -> int:
              launches=fixed_serve_launches, library_ms=None),
         dict(lin_row, route="cuda", source=src + "mp_linear.cu",
              replaces="src/repro/kernels/mp_linear.py:89",
-             launches=decode_launches, device_ms=decode_device_ms,
-             device_timed_by="profiler" if decode_device_ms else None,
+             launches=qwen_out["mp_linear_launches"],
+             device_ms=qwen_out["mp_linear_device_ms_per_step"],
+             device_timed_by=("profiler"
+                              if qwen_out["mp_linear_device_ms_per_step"]
+                              else None),
              library_ms=None),
         dict(bwd_row, route="cuda", source=src + "mp_linear_bwd.cu",
              replaces="src/repro/kernels/ops.py:73",
@@ -3184,8 +3619,10 @@ def main() -> int:
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
              replaces="src/repro/kernels/mp_waterfill.py:46",
              launches=wf_row["launches_here"], library_ms=None),
-    ]
-    keys = ("name", "route", "source", "replaces", "also_replaces",
+    ] + [dict(r, route="cuda", source=src + "mp_linear.cu",
+              replaces="src/repro/kernels/mp_linear.py:89", library_ms=None)
+         for r in decode_rows]
+    keys = ("name", "at", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "max_abs_err", "ms",
             "device_ms", "device_timed_by", "plain_ms", "bound_ms",
             "bound_by", "x_bound", "library_ms")

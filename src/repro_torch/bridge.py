@@ -21,11 +21,13 @@ port's objects from them; it imports no JAX.
   reference's program as well as the port's;
 * :func:`arch_params_from_numpy` / :func:`arch_params_to_numpy` — a
   transformer's params: the reference's nested dict, whose ``layers``
-  leaves are stacked on a leading axis (``jax.vmap`` over layers), against
-  the port's list of per-layer dicts;
+  leaves (and each entry of a hybrid's ``period_layers``) are stacked on a
+  leading axis (``jax.vmap`` over layers), against the port's lists of
+  per-layer dicts; ``prefix_layers`` is a list in both;
 * :func:`attn_cache_from_numpy` / :func:`attn_cache_to_numpy` — the decode
-  cache ``{"scan": {"k", "v", "pos"}, "prefix": [...]}``, stacked there,
-  per layer here.
+  cache, stacked there, per layer here: ``{"scan": ..., "prefix": [...]}``
+  (attention ``{"k", "v", "pos"}`` or SSM ``{"h", "conv"}`` per layer) or
+  a hybrid's ``{"periodic": [...]}``.
 
 bfloat16 arrays (``ml_dtypes.bfloat16``, as ``np.asarray`` gives them for
 a bf16 JAX array) cross bit for bit.
@@ -201,18 +203,26 @@ def _stacked_len(tree) -> int:
 
 
 def arch_params_from_numpy(tree: dict, cfg, device=None) -> dict:
-    """The reference's transformer params (numpy leaves, ``layers`` stacked
-    on axis 0) as the port's: ``layers`` a list of ``cfg``'s per-layer
-    dicts, everything else as is, on ``device``."""
+    """The reference's transformer params (numpy leaves, ``layers`` and
+    each ``period_layers`` entry stacked on axis 0) as the port's:
+    ``layers`` a list of ``cfg``'s per-layer dicts, ``period_layers[i]`` a
+    list over the hybrid's groups, everything else (``prefix_layers``
+    included) as is, on ``device``."""
+    from repro_torch.models.transformer import _layer_plan
     dev = resolve_device(device)
+    plan = _layer_plan(cfg)
     out = {}
     for k, v in tree.items():
-        if k == "layers":
-            n = _stacked_len(v)
-            want = cfg.num_layers - cfg.first_dense_layers
-            if n != want:
-                raise ValueError(f"{n} stacked layers, {cfg.name} has {want}")
-            out[k] = _unstack(v, n, dev)
+        if k in ("layers", "period_layers"):
+            want = plan["n_scan"] if k == "layers" else plan.get("n_groups")
+            stacks = [v] if k == "layers" else list(v)
+            for st in stacks:
+                n = _stacked_len(st)
+                if n != want:
+                    raise ValueError(f"{n} stacked {k}, {cfg.name} has "
+                                     f"{want}")
+            got = [_unstack(st, want, dev) for st in stacks]
+            out[k] = got[0] if k == "layers" else got
         else:
             out[k] = _tree_map(lambda a: _to_tensor(a, dev), v)
     return out
@@ -220,14 +230,26 @@ def arch_params_from_numpy(tree: dict, cfg, device=None) -> dict:
 
 def arch_params_to_numpy(params: dict) -> dict:
     """The inverse of :func:`arch_params_from_numpy`."""
-    return {k: (_stack(v) if k == "layers" else _tree_map(_to_numpy, v))
-            for k, v in params.items()}
+    out = {}
+    for k, v in params.items():
+        if k == "layers":
+            out[k] = _stack(v)
+        elif k == "period_layers":
+            out[k] = [_stack(sub) for sub in v]
+        else:
+            out[k] = _tree_map(_to_numpy, v)
+    return out
 
 
 def attn_cache_from_numpy(tree: dict, device=None) -> dict:
-    """The reference's decode cache ``{"scan": {"k", "v", "pos"} stacked on
-    axis 0, "prefix": [...]}`` as the port's (``scan`` a list per layer)."""
+    """The reference's decode cache as the port's: ``{"scan": stacked on
+    axis 0, "prefix": [...]}`` -> ``scan`` a list per layer (attention or
+    SSM caches alike); ``{"periodic": [stacked per sublayer]}`` -> a list
+    over the groups for each sublayer."""
     dev = resolve_device(device)
+    if "periodic" in tree:
+        return {"periodic": [_unstack(c, _stacked_len(c), dev)
+                             for c in tree["periodic"]]}
     return {"scan": _unstack(tree["scan"], _stacked_len(tree["scan"]), dev),
             "prefix": [_tree_map(lambda a: _to_tensor(a, dev), c)
                        for c in tree.get("prefix", [])]}
@@ -235,5 +257,7 @@ def attn_cache_from_numpy(tree: dict, device=None) -> dict:
 
 def attn_cache_to_numpy(cache: dict) -> dict:
     """The inverse of :func:`attn_cache_from_numpy`."""
+    if "periodic" in cache:
+        return {"periodic": [_stack(c) for c in cache["periodic"]]}
     return {"scan": _stack(cache["scan"]),
             "prefix": [_tree_map(_to_numpy, c) for c in cache["prefix"]]}

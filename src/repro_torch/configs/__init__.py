@@ -1,25 +1,35 @@
 """Model configurations of the port.
 
-``esc10_mp``: the paper's acoustic classifier. The transformer zoo's
-configs ported so far are reached by name through :func:`get_arch` (full
-size) and :func:`get_smoke` (the reduced same-family config of the CPU
-tests); the reference's other architectures are queued in ROADMAP.md.
+``esc10_mp``: the paper's acoustic classifier. The transformer zoo's ten
+architectures (the reference's ``repro.configs.ARCH_NAMES``) are reached
+by name through :func:`get_arch` (full size) and :func:`get_smoke` (the
+reduced same-family config of the CPU tests).
 """
 
 from __future__ import annotations
 
 import importlib
 
-# canonical ids (dash form) -> module name, for the configs ported so far
-ARCH_IDS = {"qwen3-8b": "qwen3_8b"}
+# canonical ids (dash form) -> module name
+ARCH_IDS = {
+    "deepseek-moe-16b": "deepseek_moe_16b",
+    "mixtral-8x22b": "mixtral_8x22b",
+    "mamba2-2.7b": "mamba2_2p7b",
+    "jamba-v0.1-52b": "jamba_v0p1_52b",
+    "internvl2-2b": "internvl2_2b",
+    "hubert-xlarge": "hubert_xlarge",
+    "glm4-9b": "glm4_9b",
+    "qwen3-8b": "qwen3_8b",
+    "qwen2-72b": "qwen2_72b",
+    "command-r-35b": "command_r_35b",
+}
 
 
 def _module(name: str):
     mod = ARCH_IDS.get(name, name if name in ARCH_IDS.values() else None)
     if mod is None:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to PyTorch yet (ported: "
-            f"{sorted(ARCH_IDS)}); the rest are queued in ROADMAP.md")
+        raise KeyError(f"unknown architecture {name!r}; known: "
+                       f"{sorted(ARCH_IDS)}")
     return importlib.import_module(f"repro_torch.configs.{mod}")
 
 

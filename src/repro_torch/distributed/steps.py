@@ -39,8 +39,7 @@ def make_loss_fn(cfg, seq_chunk: int = 1024):
     def loss_fn(params, batch):
         h = T.forward(params, cfg, batch, return_hidden=True)[:, :-1]
         labels = batch["tokens"][:, 1:].long()
-        head = (params["tok_embed"].T if cfg.tie_embeddings
-                else params["lm_head"])
+        head = T.head(params, cfg)
         S2 = h.shape[1]
         C = min(seq_chunk, S2)
         tot = torch.zeros((), dtype=torch.float32, device=h.device)

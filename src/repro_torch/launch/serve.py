@@ -11,11 +11,14 @@ Every sensor stream is a session of one ``StreamServer`` (or of a
 stream, and all resident streams advance in one session step per wave (on
 the card one CUDA graph replay).
 
-LLM decode (greedy; the prompt goes through decode slots one token at a
-time, then each step feeds back the token it chose):
+LLM decode, for every decoder of the zoo (the prompt goes through decode
+slots one token at a time, then each step feeds back the token it chose:
+greedy, or with ``--temperature`` > 0 drawn from a generator seeded with
+``--seed``; a VLM decodes text-only prompts; the encoder is refused):
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-8b \\
-        --smoke --batch 4 --prompt-len 16 --gen 32 [--device cpu]
+        --smoke --batch 4 --prompt-len 16 --gen 32 [--temperature 0.8] \\
+        [--device cpu]
 
 :func:`serve_decode` is that loop as a function.
 """
@@ -47,15 +50,19 @@ class DecodeResult(NamedTuple):
 
 
 def serve_decode(cfg, params: dict, batch: int, prompt_len: int, gen: int,
-                 seed: int = 0, device=None) -> DecodeResult:
+                 seed: int = 0, device=None,
+                 temperature: float = 0.0) -> DecodeResult:
     """Serve ``batch`` random prompts of ``prompt_len`` tokens, drawn with
     numpy from ``seed`` as the reference draws them, and generate ``gen``
-    more, greedily.
+    more: greedily, or at ``temperature`` > 0 each drawn from
+    ``softmax(logits / temperature)`` by a ``torch.Generator`` seeded with
+    ``seed`` (the same seed, the same tokens; JAX's PRNG draws others).
 
     The prompt goes through decode slots one token at a time (teacher
-    forcing), as in the reference; then each step feeds back the token it
-    chose. The cache holds ``prompt_len + gen`` positions (a sliding window
-    caps it). ``params`` must live on ``device`` (``cuda`` unless given).
+    forcing), as in the reference, and the token after it is greedy there
+    as here; then each step feeds back the token it chose. The cache holds
+    ``prompt_len + gen`` positions (a sliding window caps it). ``params``
+    must live on ``device`` (``cuda`` unless given).
     """
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
@@ -68,6 +75,10 @@ def serve_decode(cfg, params: dict, batch: int, prompt_len: int, gen: int,
         else min(total, cfg.sliding_window)
     cache = T.init_cache(cfg, B, cache_len, device=dev)
     step = make_serve_step(cfg)
+    draw, gen_rng = step, None
+    if temperature > 0:
+        draw = make_serve_step(cfg, temperature)
+        gen_rng = torch.Generator(device=dev).manual_seed(seed)
     prompts = np.random.default_rng(seed).integers(
         0, cfg.vocab_size, (B, prompt_len))
     toks = torch.as_tensor(prompts, dtype=torch.int32, device=dev)
@@ -92,7 +103,7 @@ def serve_decode(cfg, params: dict, batch: int, prompt_len: int, gen: int,
         for i in range(gen):
             pos = torch.full((B,), prompt_len + i, dtype=torch.int32,
                              device=dev)
-            tok, logits, cache = step(params, tok, cache, pos)
+            tok, logits, cache = draw(params, tok, cache, pos, gen_rng)
             logits_kept.append(logits)
             generated.append(tok.cpu().numpy())
         sync()
@@ -168,19 +179,15 @@ def serve_acoustic(args) -> list:
 def _decode(args) -> np.ndarray:
     from repro_torch.configs import get_arch, get_smoke
 
-    if args.temperature > 0:
-        raise NotImplementedError(
-            "--temperature > 0: the port decodes greedily; sampling in the "
-            "serve CLI is queued in ROADMAP.md §1 ('Serving, the "
-            "distributed rest')")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     dev = resolve_device(args.device)
     params = T.init(cfg, torch.Generator(device=dev).manual_seed(args.seed),
                     device=dev)
     res = serve_decode(cfg, params, args.batch, args.prompt_len, args.gen,
-                       seed=args.seed, device=dev)
+                       seed=args.seed, device=dev,
+                       temperature=args.temperature)
     print(f"arch={cfg.name} batch={args.batch} prompt={args.prompt_len} "
-          f"gen={args.gen} device={dev}")
+          f"gen={args.gen} temperature={args.temperature} device={dev}")
     print(f"prefill {res.prefill_s * 1e3:.0f} ms, decode "
           f"{res.decode_s * 1e3:.0f} ms "
           f"({args.gen * args.batch / max(res.decode_s, 1e-9):.1f} tok/s)")
@@ -204,7 +211,8 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen", type=int, default=32)
     ap.add_argument("--temperature", type=float, default=0.0,
-                    help="greedy only (0); sampling is not ported yet")
+                    help="0: greedy; above: sampled from softmax(logits / "
+                         "temperature) by a generator seeded with --seed")
     # acoustic stream knobs
     ap.add_argument("--streams", type=int, default=16,
                     help="esc10-mp: concurrent sensor sessions (slots)")

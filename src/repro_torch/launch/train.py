@@ -14,8 +14,10 @@ of the reference's ``repro.launch.train``, with its arguments.
 
 On the card unless ``--device cpu``. A mesh (``--mesh-data`` /
 ``--mesh-model`` above 1) raises ``NotImplementedError``: sharded training
-waits for ROADMAP.md §1 item 2. Architectures other than the dense
-RMSNorm/SwiGLU decoder raise as ``models.transformer`` does (item 7).
+waits for ROADMAP.md §1 item 2. Families other than dense raise
+``NotImplementedError`` too: ``models.transformer`` serves them, and
+their training, held against the reference's gradients, is queued in
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -72,6 +74,11 @@ def main(argv=None):
             "ported yet; it is queued in ROADMAP.md (section 1, 'Modules "
             "still to port', item 2)")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
+            "yet; it is queued in ROADMAP.md (section 1, 'Modules still to "
+            "port', item 7)")
     if args.mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=True)
     dev = resolve_device(args.device)

@@ -1,6 +1,5 @@
 """Layers of the transformer zoo in PyTorch: the reference's
-``repro.models.layers`` for the dense RMSNorm/SwiGLU family, decode and
-full sequence (training, prefill).
+``repro.models.layers``, decode and full sequence (training, prefill).
 
 Conventions, as there:
   * params are plain nested dicts of tensors, float32 masters;
@@ -18,7 +17,7 @@ Conventions, as there:
 ops: online softmax over kv chunks, GQA, causal and sliding-window masks,
 and as its backward the reference's rule (``_bwd_rule``: p recomputed per
 block from the saved log-sum-exp), so memory stays O(S). LayerNorm and the
-GELU MLP (the ``norm="ln"`` archs) are queued in ROADMAP.md.
+biased GELU MLP serve the ``norm="ln"`` archs (the encoder).
 """
 
 from __future__ import annotations
@@ -29,10 +28,10 @@ import torch
 
 from repro_torch.kernels.ops import mp_linear
 
-__all__ = ["cdt", "dense_init", "linear", "rms_norm", "rope_freqs",
-           "apply_rope", "chunked_attention", "init_attention",
+__all__ = ["cdt", "dense_init", "linear", "rms_norm", "layer_norm",
+           "rope_freqs", "apply_rope", "chunked_attention", "init_attention",
            "attention_block", "attention_decode", "init_attn_cache",
-           "init_swiglu", "swiglu"]
+           "init_swiglu", "swiglu", "init_gelu_mlp", "gelu_mlp"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -69,6 +68,14 @@ def rms_norm(x, scale, eps=1e-5):
     var = xf.square().mean(-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * scale.float()).to(x.dtype)
+
+
+def layer_norm(x, scale, bias, eps=1e-5):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale + bias).to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float = 1e4, device=None):
@@ -336,7 +343,7 @@ def init_attn_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
 
 
 # ---------------------------------------------------------------------------
-# MLP
+# MLPs
 # ---------------------------------------------------------------------------
 
 
@@ -346,8 +353,47 @@ def init_swiglu(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
             "wo": dense_init(gen, d_ff, d_model)}
 
 
+class _Sigmoid(torch.autograd.Function):
+    """sigmoid(x) as the reference's ``jax.nn.sigmoid`` is evaluated
+    (lowered to 1 / (1 + exp(-x)), each op rounded to x's dtype: at bf16
+    torch.sigmoid's single rounding differs in about a third of the
+    values), with its derivative s (1 - s), finite where exp(-x)
+    overflows."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = 1 / (1 + torch.exp(-x))
+        ctx.save_for_backward(s)
+        return s
+
+    @staticmethod
+    def backward(ctx, g):
+        s, = ctx.saved_tensors
+        return g * (s * (1 - s))
+
+
+def silu(x):
+    """x * sigmoid(x), as the reference's ``jax.nn.silu``."""
+    return x * _Sigmoid.apply(x)
+
+
 def swiglu(p, x, cfg):
     g = _lin(cfg, x, p["wi_gate"])
     u = _lin(cfg, x, p["wi_up"])
-    # silu(g) = g * sigmoid(g), each op rounded to the compute dtype
-    return _lin(cfg, g * torch.sigmoid(g) * u, p["wo"])
+    return _lin(cfg, silu(g) * u, p["wo"])
+
+
+def init_gelu_mlp(gen: torch.Generator, d_model: int, d_ff: int) -> dict:
+    dev = gen.device
+    return {"wi": dense_init(gen, d_model, d_ff),
+            "bi": torch.zeros(d_ff, device=dev),
+            "wo": dense_init(gen, d_ff, d_model),
+            "bo": torch.zeros(d_model, device=dev)}
+
+
+def gelu_mlp(p, x, cfg):
+    """The encoder's biased GELU MLP. ``jax.nn.gelu`` defaults to the tanh
+    form, so this is torch's ``approximate="tanh"``, not its erf default."""
+    h = torch.nn.functional.gelu(_lin(cfg, x, p["wi"], p["bi"]),
+                                 approximate="tanh")
+    return _lin(cfg, h, p["wo"], p["bo"])

@@ -2,26 +2,31 @@
 decode path, in PyTorch.
 
 The counterpart of the reference's ``repro.models.transformer``:
-``ArchConfig`` (a copy, field for field), ``init``, ``forward`` (training
-and prefill), ``init_cache``, ``decode_step`` and ``param_count``.
+``ArchConfig`` (a copy, field for field), ``init``, ``forward`` (training,
+prefill, and the encoder's only path), ``init_cache``, ``decode_step``,
+``param_count`` and ``active_param_count``, for every family the
+reference has (dense, moe, ssm, hybrid, vlm, audio):
 
     params = init(cfg, generator)               # nested dict, f32 masters
     logits = forward(params, cfg, {"tokens": tokens})
     logits, cache = decode_step(params, cfg, tokens, cache, cur_pos)
 
-Where the reference stacks per-layer params on a leading axis for
-``lax.scan``, the port keeps a list of per-layer dicts (``params["layers"]``
-and ``cache["scan"]``) and loops over it; ``bridge`` converts between the
-two layouts.
+The layer plan is the reference's (``_layer_plan``): "uniform" (every
+layer alike, attention or Mamba mixer, dense or MoE FFN, with a peeled
+dense prefix, ``prefix_layers``, for DeepSeek's first layer) or "periodic"
+(Jamba: groups of ``attn_every`` sublayers, attention first, MoE on every
+``moe_every``-th FFN, ``period_layers``). Where the reference stacks
+per-layer params on a leading axis for ``lax.scan``, the port keeps lists
+of per-layer dicts (``layers``; ``period_layers[i]``, sublayer i of every
+group) and loops; ``bridge`` converts between the two layouts.
 
-What runs here: the dense decoder family with RMSNorm and SwiGLU (the
-reference's "uniform" layer plan, attention mixer, no MoE), in float or in
-the paper's MP mode (``mp_mode``), where every projection and the LM head
-go through the CUDA ``mp_linear`` kernel (and, training, its backward
-kernel). The other families (moe, ssm, hybrid, vlm, audio) and
-LayerNorm/GELU blocks raise ``NotImplementedError``: they are queued in
-ROADMAP.md. ``cfg.remat`` is not taken: the forward keeps every block's
-activations (the reference recomputes them in its backward).
+In float or in the paper's MP mode (``mp_mode``): there every product the
+reference sends through ``L.linear(..., mp_mode=...)`` (the projections,
+Mamba's in/out projections, the shared experts, the LM head) runs the CUDA
+``mp_linear`` kernel (and, training, its backward kernel); the router, the
+routed experts and the audio frame projection stay torch products, as the
+reference computes them. ``cfg.remat`` is not taken: the forward keeps
+every block's activations (the reference recomputes them in its backward).
 """
 
 from __future__ import annotations
@@ -33,9 +38,11 @@ import torch
 
 from repro_torch.device import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 
 __all__ = ["ArchConfig", "init", "forward", "decode_step", "init_cache",
-           "param_count"]
+           "param_count", "active_param_count", "head"]
 
 
 # ---------------------------------------------------------------------------
@@ -116,67 +123,109 @@ class ArchConfig:
         return self.family in ("ssm", "hybrid") or self.sliding_window is not None
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet; it is queued in ROADMAP.md "
-        "(section 1, 'Modules still to port', item 7)")
-
-
-def _check_ported(cfg: ArchConfig) -> None:
-    """The port runs the dense RMSNorm/SwiGLU decoder; raise for the rest."""
-    if cfg.family != "dense":
-        raise _not_ported(f"the {cfg.family!r} family ({cfg.name})")
-    if cfg.norm != "rms":
-        raise _not_ported(f"{cfg.norm!r} norm blocks ({cfg.name})")
-    if cfg.num_experts or cfg.first_dense_layers:
-        raise _not_ported(f"MoE layers ({cfg.name})")
-
-
 # ---------------------------------------------------------------------------
 # blocks
 # ---------------------------------------------------------------------------
 
 
-# Blocks of the one ported plan: the reference's "uniform" layer plan with
-# the attention mixer and no MoE (every layer alike, no peeled prefix).
-
-
 def _init_norm(cfg, device):
-    return {"scale": torch.ones(cfg.d_model, device=device)}
-
-
-def _norm(p, x, cfg):
-    return L.rms_norm(x, p["scale"], cfg.norm_eps)
-
-
-def _init_block(gen, cfg) -> dict:
-    """One residual block: norm -> attention [-> norm -> SwiGLU]."""
-    p = {"norm1": _init_norm(cfg, gen.device),
-         "attn": L.init_attention(gen, cfg)}
-    if cfg.d_ff > 0:
-        p["norm2"] = _init_norm(cfg, gen.device)
-        p["ffn"] = L.init_swiglu(gen, cfg.d_model, cfg.d_ff)
+    p = {"scale": torch.ones(cfg.d_model, device=device)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros(cfg.d_model, device=device)
     return p
 
 
-def _block(p, x, cfg, positions):
+def _norm(p, x, cfg):
+    if cfg.norm == "ln":
+        return L.layer_norm(x, p["scale"], p["bias"], cfg.norm_eps)
+    return L.rms_norm(x, p["scale"], cfg.norm_eps)
+
+
+def _init_ffn(gen, cfg, layer_is_moe: bool):
+    if layer_is_moe:
+        return moe_mod.init_moe(gen, cfg)
+    if cfg.norm == "ln":   # the encoder family's biased GELU MLP
+        return L.init_gelu_mlp(gen, cfg.d_model, cfg.d_ff)
+    return L.init_swiglu(gen, cfg.d_model, cfg.d_ff)
+
+
+def _ffn(p, x, cfg, layer_is_moe: bool):
+    if layer_is_moe:
+        return moe_mod.moe_block(p, x, cfg)
+    if cfg.norm == "ln":
+        return L.gelu_mlp(p, x, cfg)
+    return L.swiglu(p, x, cfg)
+
+
+def _has_ffn(cfg, layer_is_moe: bool) -> bool:
+    return layer_is_moe or cfg.d_ff > 0
+
+
+def _init_block(gen, cfg, *, mixer: str, layer_is_moe: bool) -> dict:
+    """One residual block: norm -> mixer [-> norm -> FFN] (pre-norm). The
+    pure SSM (Mamba-2) has no FFN: the mixer is the block."""
+    p = {"norm1": _init_norm(cfg, gen.device)}
+    if mixer == "attn":
+        p["attn"] = L.init_attention(gen, cfg)
+    else:
+        p["mamba"] = ssm_mod.init_mamba(gen, cfg)
+    if _has_ffn(cfg, layer_is_moe):
+        p["norm2"] = _init_norm(cfg, gen.device)
+        p["ffn"] = _init_ffn(gen, cfg, layer_is_moe)
+    return p
+
+
+def _block(p, x, cfg, positions, *, mixer: str, layer_is_moe: bool):
     h = _norm(p["norm1"], x, cfg)
-    x = x + L.attention_block(p["attn"], h, cfg, positions,
+    if mixer == "attn":
+        h = L.attention_block(p["attn"], h, cfg, positions,
                               q_chunk=cfg.q_chunk, kv_chunk=cfg.kv_chunk)
-    if cfg.d_ff > 0:
-        h = _norm(p["norm2"], x, cfg)
-        x = x + L.swiglu(p["ffn"], h, cfg)
+    else:
+        h = ssm_mod.mamba_block(p["mamba"], h, cfg, chunk=cfg.ssm_chunk)
+    x = x + h
+    if _has_ffn(cfg, layer_is_moe):
+        x = x + _ffn(p["ffn"], _norm(p["norm2"], x, cfg), cfg, layer_is_moe)
     return x
 
 
-def _block_decode(p, x, cfg, cache, cur_pos):
+def _block_decode(p, x, cfg, cache, cur_pos, *, mixer: str,
+                  layer_is_moe: bool):
     h = _norm(p["norm1"], x, cfg)
-    h, cache = L.attention_decode(p["attn"], h, cfg, cache, cur_pos)
+    if mixer == "attn":
+        h, cache = L.attention_decode(p["attn"], h, cfg, cache, cur_pos)
+    else:
+        h, cache = ssm_mod.mamba_decode(p["mamba"], h, cfg, cache)
     x = x + h
-    if cfg.d_ff > 0:
-        h = _norm(p["norm2"], x, cfg)
-        x = x + L.swiglu(p["ffn"], h, cfg)
+    if _has_ffn(cfg, layer_is_moe):
+        x = x + _ffn(p["ffn"], _norm(p["norm2"], x, cfg), cfg, layer_is_moe)
     return x, cache
+
+
+def _layer_plan(cfg: ArchConfig) -> dict:
+    """Which (mixer, is_moe) each layer uses: "periodic" for the hybrid
+    (sublayer 0 attention, the rest Mamba, MoE where i % moe_every == 1),
+    else "uniform" with ``n_prefix`` peeled dense layers first."""
+    if cfg.family == "hybrid":
+        period = cfg.attn_every
+        if cfg.num_layers % period:
+            raise ValueError(f"{cfg.name}: {cfg.num_layers} layers are not "
+                             f"whole periods of {period}")
+        subs = [("attn" if i == 0 else "mamba",
+                 cfg.num_experts > 0 and i % cfg.moe_every == 1)
+                for i in range(period)]
+        return {"kind": "periodic", "period": period, "subs": subs,
+                "n_groups": cfg.num_layers // period}
+    if cfg.family == "ssm":
+        return {"kind": "uniform", "mixer": "mamba", "is_moe": False,
+                "n_scan": cfg.num_layers, "n_prefix": 0}
+    return {"kind": "uniform", "mixer": "attn", "is_moe": cfg.num_experts > 0,
+            "n_scan": cfg.num_layers - cfg.first_dense_layers,
+            "n_prefix": cfg.first_dense_layers}
+
+
+def _dense(cfg: ArchConfig) -> ArchConfig:
+    """The peeled prefix layers' config: a full-d_ff dense FFN."""
+    return dataclasses.replace(cfg, num_experts=0)
 
 
 # the reference casts every float32 leaf of a layer to the compute dtype
@@ -187,10 +236,12 @@ _KEEP_F32 = {"scale", "bias", "a_log", "dt_bias", "D", "conv_b",
 
 
 def _constrain(p_layer: dict, cfg: ArchConfig) -> dict:
-    """A layer's params as the reference's steps use them: with a
+    """A layer's params as the reference's scanned steps use them: with a
     compute dtype other than float32, every float32 leaf not named in
-    ``_KEEP_F32`` (the projections, and ``q_norm``/``k_norm``) cast to it.
-    The masters stay float32: the cast is made on use, per step."""
+    ``_KEEP_F32`` cast to it (the projections, the experts and router,
+    Mamba's conv and norm, ``q_norm``/``k_norm``). The masters stay
+    float32: the cast is made on use, per step. The peeled prefix layers
+    are not cast, as in the reference."""
     if cfg.compute_dtype == "float32":
         return p_layer
     dt = L.cdt(cfg)
@@ -209,80 +260,158 @@ def _constrain(p_layer: dict, cfg: ArchConfig) -> dict:
     return cast(p_layer)
 
 
+def head(params: dict, cfg: ArchConfig) -> torch.Tensor:
+    """The LM head (D, padded_vocab), float32: ``lm_head``, or for tied
+    embeddings ``tok_embed`` transposed, made contiguous here once per
+    step (the kernel reads w row-major; left to it, each call would copy
+    it unseen)."""
+    if cfg.tie_embeddings:
+        return params["tok_embed"].T.contiguous()
+    return params["lm_head"]
+
+
 # ---------------------------------------------------------------------------
-# init / decode
+# init / forward / decode
 # ---------------------------------------------------------------------------
 
 
 def init(cfg: ArchConfig, generator: torch.Generator, device=None) -> dict:
     """Float32 master params drawn from ``generator``, which must live on
     ``device`` (``cuda`` unless given; raises without a card)."""
-    _check_ported(cfg)
     dev = resolve_device(device)
     if torch.device(generator.device).type != dev.type:
         raise ValueError(f"the generator lives on {generator.device}, the "
                          f"params go to {dev}: make the generator there")
     g = generator
-    params: dict = {"tok_embed": torch.randn(
-        cfg.padded_vocab, cfg.d_model, generator=g, device=dev).mul_(0.02)}
-    params["layers"] = [_init_block(g, cfg) for _ in range(cfg.num_layers)]
+    plan = _layer_plan(cfg)
+    params: dict = {}
+    if cfg.audio_frontend:   # stub frontend: a projection of given frames
+        params["frame_proj"] = L.dense_init(g, cfg.d_model, cfg.d_model)
+    else:
+        params["tok_embed"] = torch.randn(
+            cfg.padded_vocab, cfg.d_model, generator=g, device=dev).mul_(0.02)
+    if plan["kind"] == "uniform":
+        if plan["n_prefix"]:
+            params["prefix_layers"] = [
+                _init_block(g, _dense(cfg), mixer=plan["mixer"],
+                            layer_is_moe=False)
+                for _ in range(plan["n_prefix"])]
+        params["layers"] = [
+            _init_block(g, cfg, mixer=plan["mixer"],
+                        layer_is_moe=plan["is_moe"])
+            for _ in range(plan["n_scan"])]
+    else:
+        params["period_layers"] = [
+            [_init_block(g, cfg, mixer=mixer, layer_is_moe=is_moe)
+             for _ in range(plan["n_groups"])]
+            for mixer, is_moe in plan["subs"]]
     params["final_norm"] = _init_norm(cfg, dev)
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(g, cfg.d_model, cfg.padded_vocab)
     return params
 
 
+def _embed(params, cfg, batch):
+    """(x (B, S, D) in the compute dtype, positions (S,)): audio frames
+    through the frame projection (a torch product, as in the reference),
+    else tokens, with a VLM's patch embeddings prepended."""
+    if cfg.audio_frontend:
+        x = L.linear(batch["frames"], params["frame_proj"],
+                     compute_dtype=L.cdt(cfg))
+    else:
+        x = params["tok_embed"][batch["tokens"].long()].to(L.cdt(cfg))
+        if cfg.vlm_patches:
+            x = torch.cat([batch["patches"].to(L.cdt(cfg)), x], dim=1)
+    return x, torch.arange(x.shape[1], device=x.device)
+
+
 def forward(params: dict, cfg: ArchConfig, batch: dict,
             return_hidden: bool = False) -> torch.Tensor:
-    """Full-sequence forward: ``batch["tokens"]`` (B, S) int -> logits
-    (B, S, padded_vocab) in the compute dtype, or with ``return_hidden``
-    the final-norm hidden states (B, S, D) (the chunked loss applies the
-    head itself). Each layer's weights are cast to the compute dtype on
-    use, as the reference's ``_constrain`` casts them."""
-    _check_ported(cfg)
-    tokens = batch["tokens"]
-    x = params["tok_embed"][tokens.long()].to(L.cdt(cfg))
-    positions = torch.arange(x.shape[1], device=x.device)
-    for p_layer in params["layers"]:
-        x = _block(_constrain(p_layer, cfg), x, cfg, positions)
+    """Full-sequence forward -> logits (B, S_total, padded_vocab) in the
+    compute dtype, or with ``return_hidden`` the final-norm hidden states
+    (B, S_total, D) (the chunked loss applies the head itself). ``batch``
+    holds ``tokens`` (B, S) int, or ``frames`` (B, S, D) for the audio
+    encoder, plus ``patches`` (B, P, D) for a VLM (prepended: S_total = P
+    + S). Causal, except for the encoder."""
+    plan = _layer_plan(cfg)
+    x, positions = _embed(params, cfg, batch)
+    if plan["kind"] == "uniform":
+        for p in params.get("prefix_layers", []):
+            x = _block(p, x, _dense(cfg), positions, mixer=plan["mixer"],
+                       layer_is_moe=False)
+        for p in params["layers"]:
+            x = _block(_constrain(p, cfg), x, cfg, positions,
+                       mixer=plan["mixer"], layer_is_moe=plan["is_moe"])
+    else:
+        for group in zip(*params["period_layers"]):
+            for p, (mixer, is_moe) in zip(group, plan["subs"]):
+                x = _block(_constrain(p, cfg), x, cfg, positions,
+                           mixer=mixer, layer_is_moe=is_moe)
     x = _norm(params["final_norm"], x, cfg)
     if return_hidden:
         return x
-    head = (params["tok_embed"].T if cfg.tie_embeddings
-            else params["lm_head"])
-    return L.linear(x, head, mp_mode=cfg.mp_mode, mp_gamma=cfg.mp_gamma,
-                    compute_dtype=L.cdt(cfg))
+    return L.linear(x, head(params, cfg), mp_mode=cfg.mp_mode,
+                    mp_gamma=cfg.mp_gamma, compute_dtype=L.cdt(cfg))
+
+
+def _init_layer_cache(cfg, mixer, batch, cache_len, dtype, dev):
+    if mixer == "attn":
+        return L.init_attn_cache(cfg, batch, cache_len, dtype, dev)
+    return ssm_mod.init_ssm_cache(cfg, batch, device=dev)
 
 
 def init_cache(cfg: ArchConfig, batch: int, cache_len: int, dtype=None,
                device=None) -> dict:
-    """Per-layer attention caches ``{"scan": [...], "prefix": []}``, on
-    ``device`` (``cuda`` unless given)."""
-    _check_ported(cfg)
+    """Per-layer decode caches on ``device`` (``cuda`` unless given):
+    ``{"scan": [...], "prefix": [...]}`` for the uniform plan (attention
+    ``{"k", "v", "pos"}`` or SSM ``{"h", "conv"}`` per layer), and
+    ``{"periodic": [...]}`` for the hybrid, entry i sublayer i's caches,
+    one per group."""
     dev = resolve_device(device)
     dtype = L.cdt(cfg) if dtype is None else dtype
-    return {"scan": [L.init_attn_cache(cfg, batch, cache_len, dtype, dev)
-                     for _ in range(cfg.num_layers)],
-            "prefix": []}
+    plan = _layer_plan(cfg)
+    if plan["kind"] == "uniform":
+        return {"scan": [_init_layer_cache(cfg, plan["mixer"], batch,
+                                           cache_len, dtype, dev)
+                         for _ in range(plan["n_scan"])],
+                "prefix": [L.init_attn_cache(cfg, batch, cache_len, dtype,
+                                             dev)
+                           for _ in range(plan["n_prefix"])]}
+    return {"periodic": [[_init_layer_cache(cfg, mixer, batch, cache_len,
+                                            dtype, dev)
+                          for _ in range(plan["n_groups"])]
+                         for mixer, _ in plan["subs"]]}
 
 
 def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
                 cache: dict, cur_pos: torch.Tensor):
     """One decode step. tokens (B, 1) int; cur_pos (B,) int32. Returns
     (logits (B, 1, padded_vocab) in the compute dtype, cache); the cache is
-    updated in place."""
+    updated in place. MoE layers use ``moe_decode_capacity_factor``
+    (default no-drop), as the reference's decode does."""
     if not cfg.supports_decode:
         raise ValueError(f"{cfg.name} is encoder-only")
-    _check_ported(cfg)
+    cfg = dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.moe_decode_capacity_factor)
+    plan = _layer_plan(cfg)
     x = params["tok_embed"][tokens.long()].to(L.cdt(cfg))
-    for p_layer, c_layer in zip(params["layers"], cache["scan"]):
-        x, _ = _block_decode(_constrain(p_layer, cfg), x, cfg, c_layer,
-                             cur_pos)
+    if plan["kind"] == "uniform":
+        for p, c in zip(params.get("prefix_layers", []), cache["prefix"]):
+            x, _ = _block_decode(p, x, _dense(cfg), c, cur_pos,
+                                 mixer=plan["mixer"], layer_is_moe=False)
+        for p, c in zip(params["layers"], cache["scan"]):
+            x, _ = _block_decode(_constrain(p, cfg), x, cfg, c, cur_pos,
+                                 mixer=plan["mixer"],
+                                 layer_is_moe=plan["is_moe"])
+    else:
+        for group, caches in zip(zip(*params["period_layers"]),
+                                 zip(*cache["periodic"])):
+            for p, c, (mixer, is_moe) in zip(group, caches, plan["subs"]):
+                x, _ = _block_decode(_constrain(p, cfg), x, cfg, c, cur_pos,
+                                     mixer=mixer, layer_is_moe=is_moe)
     x = _norm(params["final_norm"], x, cfg)
-    head = (params["tok_embed"].T if cfg.tie_embeddings
-            else params["lm_head"])
-    logits = L.linear(x, head, mp_mode=cfg.mp_mode, mp_gamma=cfg.mp_gamma,
-                      compute_dtype=L.cdt(cfg))
+    logits = L.linear(x, head(params, cfg), mp_mode=cfg.mp_mode,
+                      mp_gamma=cfg.mp_gamma, compute_dtype=L.cdt(cfg))
     return logits, cache
 
 
@@ -304,3 +433,19 @@ def _leaves(tree):
 
 def param_count(params) -> int:
     return sum(t.numel() for t in _leaves(params))
+
+
+def active_param_count(cfg: ArchConfig, params) -> int:
+    """Parameters touched per token (MoE: the top K of the routed
+    experts), as the reference counts them."""
+    total = param_count(params)
+    if not cfg.num_experts:
+        return total
+    plan = _layer_plan(cfg)
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff
+    if plan["kind"] == "uniform":
+        n_moe = plan["n_scan"] if plan["is_moe"] else 0
+    else:
+        n_moe = plan["n_groups"] * sum(1 for _, m in plan["subs"] if m)
+    return total - n_moe * per_expert * (cfg.num_experts
+                                         - cfg.num_experts_per_tok)

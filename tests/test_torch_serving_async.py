@@ -544,6 +544,10 @@ def test_serve_cli_esc10_on_cpu(capsys):
     assert [r.samples_seen for r in sync] == [200] * 3
     assert sorted(key_of(async_)) == sorted(key_of(sync))
     assert "device=cpu" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        serve_main(["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
-                    "--temperature", "0.7"])
+    # the LLM side samples at a temperature (seeded: the same tokens twice)
+    llm = ["--arch", "qwen3-8b", "--smoke", "--device", "cpu",
+           "--temperature", "0.7", "--batch", "2", "--prompt-len", "2",
+           "--gen", "3"]
+    tokens = serve_main(llm)
+    assert tokens.shape == (2, 3)
+    np.testing.assert_array_equal(serve_main(llm), tokens)

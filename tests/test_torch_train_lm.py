@@ -1,8 +1,8 @@
 """Port vs reference: the MP-mode LM train step, on the CPU.
 
 Inputs are drawn with numpy from a seed (params from the reference's
-``init`` at the qwen3-8b smoke width, 2 layers, crossing into the port
-through ``bridge``) and go through both packages:
+``init`` at the qwen3-8b smoke width, 1 layer, 5 positions, crossing
+into the port through ``bridge``) and go through both packages:
 
 * the plain ``mp_linear`` backward (``kernels.ref.mp_linear_bwd``, what
   ``ops.mp_linear``'s autograd runs on CPU tensors) against ``jax.vjp``
@@ -29,8 +29,9 @@ Tolerances, each as a multiple of (1 + max |reference|) unless said:
     its level flips a mask of the backward);
   * the gradients, leaf by leaf, as a multiple of that leaf's max
     |reference|: 1e-5 with mp_mode off; 1e-2 with it on (measured up to
-    4.7e-3, in the smallest leaves, the FFN's input projections, where
-    one flipped mask weighs most against the leaf's scale);
+    1.4e-3 here, 4.7e-3 at 2 layers and 8 positions, in the smallest
+    leaves, the FFN's input projections, where one flipped mask weighs
+    most against the leaf's scale);
   * both moments, leaf by leaf: within 1e-2 x the leaf's max |reference|
     (mu is 0.1 g, nu 0.05 g^2 after one step) and never looser than the
     1e-4 x (1 + max) they were held to before;
@@ -71,7 +72,7 @@ from repro_torch.optim import adamw
 TOL = 1e-5
 STEP_TOL = 1e-4
 MP_GRAD_TOL = 1e-2   # x a leaf's max |reference|, mp_mode on
-B, S = 2, 8
+B, S = 2, 5
 
 
 def _close(got, want, tol=TOL):
@@ -251,7 +252,7 @@ def test_chunked_attention_matches_reference(Sq, H, Hk, window, causal, qc,
 # -- forward, loss and the train step ------------------------------------------------
 
 
-def _setup(mp_mode: bool, layers_n: int = 2):
+def _setup(mp_mode: bool, layers_n: int = 1):
     kw = dict(mp_mode=mp_mode, compute_dtype="float32", num_layers=layers_n)
     rc = dataclasses.replace(ref_get_smoke("qwen3-8b"), **kw)
     pc = dataclasses.replace(get_smoke("qwen3-8b"), **kw)
