@@ -215,6 +215,40 @@ nothing of the reference package). Phases, each failing loudly:
              the first 4 layers within 3e-5 x max |plain| of the plain
              version's, the kernel at 22 bisection steps outside it
              (``HUBERT_GATE``: the f32 sums leave 26 steps little room).
+14. IR — the fixed-point IR and static-analysis tier
+             (``repro_torch.analysis``, ``repro_torch.ir``) on the port's
+             programs at the full esc10-mp config: the five targets traced
+             (``oneshot_q``, ``session_step_q``, the plain kernel versions
+             ``oneshot_q_cascade`` and ``stream_cascade_q``, and
+             ``float_oneshot`` for the lint) and the four fixed ones
+             lowered, with nodes, instructions, registers and seconds per
+             target. Gates: legality and determinism clean on the four
+             fixed targets; the session envelope (``meta``) equal to the
+             committed ``ANALYSIS.json``'s, and ``oneshot_q``'s and
+             ``session_step_q``'s out intervals each inside the committed
+             one (the tighter ones named) with the same
+             ``max_required_bits`` and no overflow. Each census is printed
+             beside the committed ``artifacts/ir/<t>/ir.json``'s, with the
+             difference split into what ``tests/ir_reference.py`` names
+             (the reference's padded bank blocks, its data-dependent
+             index normalization) and the rest, which must equal that
+             module's ``COMMITTED_INPUT_FREE`` (the reference's input-free
+             index arithmetic and loop counters, which the port folds,
+             pinned against the live reference by
+             ``tests/test_torch_ir_full.py``). Then on the card:
+             ``oneshot_q``'s program re-emitted to torch
+             (``ir.emit_torch``) on 8 seeded 1 s clips, one per call,
+             exactly equal to ``infer_q`` through the int one-shot
+             cascade kernel and to the plain path; ``session_step_q``'s
+             program over 100 chunks of 160 of one clip, every register
+             and output exactly equal at every step to the card's session
+             step through the int stream cascade kernel, the last p_q
+             equal to one-shot ``infer_q`` of the same second. The C of
+             an ``esc_mp_bisect``-shaped program and of the smoke config
+             compiled with ``gcc -std=c99 -O1``, run, exactly equal to the
+             interpreter; at the full config the C and Verilog emission
+             timed, their bytes printed. The re-emitter's ms per clip and
+             per step are printed beside the card line (not a metric).
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -3514,6 +3548,328 @@ def phase_encoder(card: str) -> dict:
     return row
 
 
+# -- the fixed-point IR and static-analysis tier --------------------------------
+
+IR_COMMITTED = {"oneshot_q": "oneshot_q", "session_step_q": "session_step_q",
+                "oneshot_q_cascade": "oneshot_q_pallas",
+                "stream_cascade_q": "stream_pallas"}
+IR_CLIPS = 8
+IR_STEPS = 100            # chunks of CHUNK_LEN: one second of one clip
+
+
+def ir_committed(target: str) -> dict:
+    path = ROOT / "artifacts" / "ir" / IR_COMMITTED[target] / "ir.json"
+    doc = json.loads(path.read_text())
+    return {k: doc[k] for k in ("census", "num_instrs", "num_registers")}
+
+
+def ir_gate_intervals(name: str, got: dict, want: dict) -> dict:
+    """Out intervals inside the committed ones (tighter ones named), the
+    same max_required_bits, no overflow."""
+    if not got["ok"] or got["violations"]:
+        raise AssertionError(f"IR {name}: interval proof failed: "
+                             f"{got['violations'][:3]}")
+    if len(got["out_intervals"]) != len(want["out_intervals"]):
+        raise AssertionError(f"IR {name}: {len(got['out_intervals'])} "
+                             f"outputs, committed {len(want['out_intervals'])}")
+    tighter = []
+    for i, (g, w) in enumerate(zip(got["out_intervals"],
+                                   want["out_intervals"])):
+        if g[0] < w[0] or g[1] > w[1]:
+            raise AssertionError(f"IR {name}: out interval {i} {g} wider "
+                                 f"than the committed {w}")
+        if g != w:
+            tighter.append(dict(output=i, port=g, committed=w))
+    if got["max_required_bits"] != want["max_required_bits"]:
+        raise AssertionError(
+            f"IR {name}: max_required_bits {got['max_required_bits']}, "
+            f"committed {want['max_required_bits']}")
+    return dict(out_intervals=got["out_intervals"],
+                max_required_bits=got["max_required_bits"],
+                min_headroom_bits=got["min_headroom_bits"], tighter=tighter)
+
+
+def golden_like_program():
+    """A program of the golden ``esc_mp_bisect`` case's shape (fs 4 kHz, 2
+    octaves, 2 filters, bisection; 600 samples), its weights drawn by the
+    port from seeds (the golden weights come from JAX's PRNG)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fixed as fx
+    from repro_torch.core import kernel_machine as km
+    from repro_torch.core.filterbank import FilterBank, FilterBankConfig
+    from repro_torch.core.pipeline import InFilterPipeline
+    cfg = FilterBankConfig(fs=4000.0, num_octaves=2, filters_per_octave=2,
+                           mode="mp", gamma_f=4.0, solver="bisect")
+    fb = FilterBank(cfg, device="cpu")
+    P = cfg.num_filters
+    rng = np.random.default_rng(13)
+    clf = km.init_params(torch.Generator().manual_seed(13), P, 5)
+    mu = torch.from_numpy((rng.standard_normal(P) * 0.1).astype(np.float32))
+    sigma = torch.from_numpy(
+        (np.abs(rng.standard_normal(P)) + 0.5).astype(np.float32))
+    pipe = InFilterPipeline.from_filterbank(fb, clf, mu, sigma)
+    x = rng.standard_normal((1, 600)).astype(np.float32)
+    x[:, 0] = 2.5
+    return fx.compile_pipeline(pipe, calibration_audio=x)
+
+
+def c_matches_interp(cases, tmp: Path) -> list:
+    """For each ``(tag, prog, in_intervals)``: emit the C, compile it with
+    ``gcc -std=c99 -O1`` (all cases at once, one gcc each), run it on
+    seeded inputs and hold its outputs exactly to the interpreter's."""
+    import numpy as np
+    from repro_torch.ir import interp as ir_interp
+    from repro_torch.ir.cgen import emit_c
+    from repro_torch.ir.emit import seeded_inputs
+    jobs = []
+    for tag, prog, _ in cases:
+        d = tmp / tag
+        d.mkdir(parents=True, exist_ok=True)
+        (d / "program.c").write_text(emit_c(prog))
+        jobs.append(subprocess.Popen(
+            ["gcc", "-std=c99", "-O1", "-o", str(d / "program"),
+             str(d / "program.c")]))
+    t0 = time.perf_counter()
+    for job in jobs:
+        if job.wait(timeout=600) != 0:
+            raise AssertionError(f"IR C: gcc exited {job.returncode}")
+    compile_s = time.perf_counter() - t0
+    rows = []
+    for tag, prog, in_intervals in cases:
+        d = tmp / tag
+        inputs = seeded_inputs(prog, in_intervals)
+        blob = b""
+        for r, v in zip((prog.regs[i] for i in prog.inputs), inputs):
+            blob += (np.asarray(v).astype(np.uint8) if r.dtype == "i1"
+                     else np.asarray(v).astype("<i4")).tobytes()
+        (d / "in.bin").write_bytes(blob)
+        subprocess.run([str(d / "program"), str(d / "in.bin"),
+                        str(d / "out.bin")], check=True, timeout=600)
+        raw, off = (d / "out.bin").read_bytes(), 0
+        for i, want in zip(prog.outputs, ir_interp.run(prog, inputs)):
+            r = prog.regs[i]
+            dt, w = (np.uint8, 1) if r.dtype == "i1" else ("<i4", 4)
+            got = np.frombuffer(raw, dt, r.size, off).reshape(r.shape)
+            off += w * r.size
+            if not np.array_equal(got.astype(np.asarray(want).dtype), want):
+                raise AssertionError(f"IR C {tag}: output {i} differs from "
+                                     "the interpreter")
+        if off != len(raw):
+            raise AssertionError(f"IR C {tag}: {len(raw)} output bytes, "
+                                 f"expected {off}")
+        rows.append(dict(case=tag, instrs=prog.num_instrs(),
+                         c_bytes=len((d / "program.c").read_bytes()),
+                         equal_interpreter=True))
+    return dict(cases=rows, gcc_parallel_s=compile_s)
+
+
+def phase_ir(card: str, clips) -> dict:
+    """The IR and static-analysis tier at the full config, then its torch
+    re-emission on the card against the int kernels (see the module
+    docstring, phase 14)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch.analysis import report as rp
+    from repro_torch.analysis import targets as tg
+    from repro_torch.analysis.legality import census
+    from repro_torch.configs.esc10_mp import make_pipeline
+    from repro_torch.core import fixed as fx
+    from repro_torch.core.pipeline import SessionState
+    from repro_torch.ir import build_program, census_program, emit_torch
+    from repro_torch.ir.alloc import allocate
+    from repro_torch.ir.cgen import emit_c
+    from repro_torch.ir.verilog import emit_verilog
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    sys.path.insert(0, str(ROOT / "tests"))
+    import ir_reference as ir_ref
+    from ir_reference import census_diff
+
+    committed = json.loads((ROOT / "ANALYSIS.json").read_text())
+    t0 = time.perf_counter()
+    targets, meta = tg.build_targets(smoke=False, device="cuda")
+    by = {t.name: t for t in targets}
+    for k in ("acc_envelope", "max_safe_session_samples",
+              "envelope_samples", "session_bound_counter", "chunk_len"):
+        if meta[k] != committed["meta"][k]:
+            raise AssertionError(f"IR meta {k}: {meta[k]}, committed "
+                                 f"{committed['meta'][k]}")
+    rows, progs = [], {}
+    for t in targets:
+        t1 = time.perf_counter()
+        sec = rp.analyze_target(t)
+        row = dict(target=t.name, numerics=t.numerics,
+                   nodes=t.traced.num_nodes(), trace_s=t.seconds,
+                   legality_ok=sec["legality"]["ok"],
+                   determinism_ok=sec["determinism"]["ok"],
+                   determinism_findings=sec["determinism"]["num_findings"])
+        if t.numerics == "fixed":
+            if not (sec["legality"]["ok"] and sec["determinism"]["ok"]):
+                raise AssertionError(
+                    f"IR {t.name}: legality {sec['legality']['violations'][:3]}"
+                    f" determinism {sec['determinism']['findings'][:3]}")
+            prog = build_program(t.traced, name=t.name,
+                                 in_intervals=t.in_intervals)
+            progs[t.name] = prog
+            c = {k: int(v) for k, v in sorted(census_program(prog).items())}
+            if c != {k: int(v) for k, v in sorted(census(t.traced).items())}:
+                raise AssertionError(f"IR {t.name}: IR census != graph "
+                                     "census")
+            if c.get("multiply") or c.get("transcendental_or_div"):
+                raise AssertionError(f"IR {t.name}: not multiplierless {c}")
+            ref = ir_committed(t.name)
+            row.update(instrs=prog.num_instrs(), registers=len(prog.regs),
+                       roms=len(prog.roms), rom_bytes=prog.rom_bytes(),
+                       census=c, committed=IR_COMMITTED[t.name],
+                       committed_census=ref["census"],
+                       committed_instrs=ref["num_instrs"],
+                       committed_registers=ref["num_registers"],
+                       committed_minus_port=census_diff(ref["census"], c))
+            if t.name in ("oneshot_q", "session_step_q"):
+                want = committed["targets"][t.name]["intervals"]
+                row["intervals"] = ir_gate_intervals(t.name,
+                                                     sec["intervals"], want)
+                if t.name == "oneshot_q":
+                    named = ir_ref.reference_block_padding(t.program,
+                                                           t.n_samples)
+                    row["reference_block_padding"] = dict(named)
+                else:
+                    S, L = t.example[-2].shape
+                    named = ir_ref.reference_index_overhead(
+                        t.program, S, L, t.example[0].shape[1])
+                    row["reference_index_overhead"] = dict(named)
+                rest = census_diff(census_diff(ref["census"], c), named)
+                row["rest_input_free"] = rest
+                pinned = ir_ref.COMMITTED_INPUT_FREE[t.name]
+                if {k: v for k, v in rest.items() if v} != pinned:
+                    raise AssertionError(
+                        f"IR {t.name}: committed census - port census - "
+                        f"named work = {rest}, want the reference's "
+                        f"input-free census {pinned}")
+            else:
+                iv = sec["intervals"]
+                if not iv["ok"]:
+                    raise AssertionError(f"IR {t.name}: interval proof "
+                                         f"failed {iv['violations'][:3]}")
+                row["intervals"] = dict(
+                    out_intervals=iv["out_intervals"],
+                    max_required_bits=iv["max_required_bits"],
+                    committed=committed["targets"][IR_COMMITTED[t.name]]
+                    ["intervals"]["out_intervals"])
+        else:
+            row["legality_violations"] = [
+                v["primitive"] + "@" + v["source"]
+                for v in sec["legality"]["violations"][:3]]
+        row["analysis_s"] = time.perf_counter() - t1
+        log(dict(phase="ir_target", **row))
+        rows.append(row)
+    build_s = time.perf_counter() - t0
+
+    # emission at the full config: timed, sizes printed
+    emitted = []
+    for name in ("oneshot_q", "session_step_q"):
+        prog = progs[name]
+        t1 = time.perf_counter()
+        c_text = emit_c(prog)
+        c_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        v_text = emit_verilog(prog, allocate(prog))
+        v_s = time.perf_counter() - t1
+        emitted.append(dict(target=name, c_bytes=len(c_text), c_emit_s=c_s,
+                            verilog_bytes=len(v_text), verilog_emit_s=v_s))
+        del c_text, v_text
+    log(dict(phase="ir_emission_full", targets=emitted))
+
+    # 2. oneshot_q re-emitted on the card vs row 4's kernel and the plain path
+    t = by["oneshot_q"]
+    prog_q = t.program
+    fn1 = emit_torch.emit(progs["oneshot_q"])
+    dev = torch.device("cuda")
+    clip_ms = []
+    reset_launches()
+    for i in range(IR_CLIPS):
+        x = torch.from_numpy(np.ascontiguousarray(clips[i:i + 1])).to(dev)
+        xq = fx.quantize_signal(prog_q, x)
+        got = fn1(xq)
+        for want, what in ((fx.infer_q(prog_q, xq, use_pallas=True),
+                            "int cascade kernel"),
+                           (fx.infer_q(prog_q, xq, use_pallas=False),
+                            "plain path")):
+            for g, w, leaf in zip(got, want, ("p_q", "phi_q", "s_q")):
+                exact(g, w, f"IR oneshot_q clip {i} {leaf} vs the {what}")
+        clip_ms.append(cuda_ms(lambda: fn1(xq), 1))
+    if LAUNCHES["fir_mp_oneshot_cascade_q"] != IR_CLIPS:
+        raise AssertionError(f"IR: {dict(LAUNCHES)}: want one int cascade "
+                             "launch per clip")
+
+    # 3. session_step_q re-emitted on the card vs row 5's kernel, 100 steps
+    pipe = make_pipeline(numerics="fixed", device=dev)
+    fn2 = emit_torch.emit(progs["session_step_q"])
+    o = len(prog_q.bank.octaves)
+    state = pipe.init_session(1)
+    leaves = [*state.delays, *state.consumed, state.acc, state.amax,
+              state.count, state.active]
+    x = torch.from_numpy(np.ascontiguousarray(clips[0:1])).to(dev)
+    xq_all = fx.quantize_signal(prog_q, x)
+    n = torch.full((1,), tg.CHUNK_LEN, dtype=torch.int32, device=dev)
+    step_ms = []
+    reset_launches()
+    for k in range(IR_STEPS):
+        chunk = xq_all[:, k * tg.CHUNK_LEN:(k + 1) * tg.CHUNK_LEN]
+        chunk = chunk.contiguous()
+        got = fn2(*leaves, chunk, n)
+        st = SessionState(tuple(leaves[:o]), tuple(leaves[o:2 * o]),
+                          *leaves[2 * o:2 * o + 4])
+        st2, p_q, phi_q = pipe._cascade_pallas_fixed(prog_q, st, chunk, n)
+        want = [*st2.delays, *st2.consumed, st2.acc, st2.amax, st2.count,
+                st2.active, p_q, phi_q]
+        if len(got) != len(want):
+            raise AssertionError(f"IR session: {len(got)} outputs, want "
+                                 f"{len(want)}")
+        for j, (g, w) in enumerate(zip(got, want)):
+            if g.dtype == torch.bool:
+                if not torch.equal(g, w):
+                    raise AssertionError(f"IR session step {k} leaf {j}")
+            else:
+                exact(g, w, f"IR session step {k} leaf {j} vs the int "
+                            "stream cascade kernel")
+        if k % 25 == 0:
+            step_ms.append(cuda_ms(lambda: fn2(*leaves, chunk, n), 1))
+        leaves = list(got[:len(leaves)])
+    if LAUNCHES["fir_mp_stream_cascade_q"] != IR_STEPS:
+        raise AssertionError(f"IR: {dict(LAUNCHES)}: want one int stream "
+                             "cascade launch per step")
+    exact(got[-2], fx.infer_q(prog_q, xq_all[:, :IR_STEPS * tg.CHUNK_LEN])[0],
+          "IR session: last p_q vs one-shot infer_q of the same second")
+
+    # 4. C of a golden-shaped program and of the smoke config, compiled
+    from repro_torch.analysis.intervals import Interval
+    from repro_torch.analysis.traverse import trace
+    gold = golden_like_program()
+    sig = Interval(int(gold.signal.qmin), int(gold.signal.qmax))
+    xg = torch.zeros((1, 600), dtype=torch.int32)
+    cases = [("esc_mp_bisect", build_program(
+        trace(fx.infer_q, xg, program=gold), name="oneshot_q",
+        in_intervals=[sig]), [sig])]
+    smoke, _ = tg.build_targets(smoke=True, device="cuda",
+                                names=("oneshot_q", "session_step_q"))
+    for st_ in smoke:
+        cases.append((f"smoke_{st_.name}", build_program(
+            st_.traced, name=st_.name, in_intervals=st_.in_intervals),
+            st_.in_intervals))
+    with tempfile.TemporaryDirectory() as tmp:
+        log(dict(phase="ir_c", **c_matches_interp(cases, Path(tmp))))
+    out = dict(phase="ir", build_s=build_s, card=card,
+               emit_torch_ms_per_clip=clip_ms,
+               emit_torch_ms_per_step=step_ms, clips=IR_CLIPS,
+               steps=IR_STEPS, exact_vs_kernels=True,
+               total_s=time.perf_counter() - t0)
+    log(out)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3569,6 +3925,7 @@ def main() -> int:
     qwen_out = decoded[0][0]
     decode_rows = [r for _, rows in decoded for r in rows]
     decode_rows.append(phase_encoder(card))
+    phase_ir(card, clips)
 
     src = "src/repro_torch/kernels/csrc/"
     kernels = [
