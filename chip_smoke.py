@@ -249,6 +249,35 @@ nothing of the reference package). Phases, each failing loudly:
              interpreter; at the full config the C and Verilog emission
              timed, their bytes printed. The re-emitter's ms per clip and
              per step are printed beside the card line (not a metric).
+15. mesh — the distributed tier (``repro_torch.distributed.sharding``,
+             ``launch.mesh``) on a one-rank nccl mesh, ("data", "model")
+             (1, 1), after phase 11's LM state is freed. Serving: phase 4's
+             pipeline (float, then fixed) behind ``StreamServer(mesh=)``,
+             256 slots, 10 waves of 160-sample packets: every decision
+             and register bit for bit a server's without a mesh on the
+             same waves, one graph replay per wave and no eager step
+             (phase 4's step-count gate, the stream cascade's launches
+             counted from 0 around this run), one session parked under
+             the mesh and resumed by a server without one deciding its
+             next packet as the unparked session does; feed() host ms,
+             median, with and without the mesh (not gated). Training:
+             phase 11's qwen3-8b step (MP mode, full width, depth 2) with
+             params and moments DTensors placed by ``param_specs`` (each
+             checked), three steps from the same seed and batch, each
+             loss and fixed slices of the params (``MESH_SLICES``) within
+             ``MESH_TRAIN_TOL`` of phase 11's own run (kept on the host
+             there); saved under the mesh (every manifest spec the rule
+             table's, in the reference's format), restored onto a mesh
+             with the axes named the other way round (placements checked),
+             one more step within the gate of phase 11's fourth; 15
+             mp_linear and 15 mp_linear_bwd launches per step, counted
+             from 0. The kernel rows of 1, 5, 6 and 6b carry these
+             counts as ``mesh_path_launches``. Then two ranks on the one
+             card: the float serve again on a (2, 1) gloo mesh of two
+             processes of this script (``--mesh-rank``; nccl takes one
+             rank per device, so the decisions are gathered on the host),
+             each rank's decisions bit for bit the server's without a
+             mesh, each replaying its own graph over its 128 slots.
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -1319,13 +1348,15 @@ def slot_of(sid: str, S: int) -> int:
     return S - 1 if sid.startswith("v") else int(sid[1:])
 
 
-def serve(pipe, sched, S: int):
+def serve(pipe, sched, S: int, **server_kw):
     """Serve ``sched`` through a fresh StreamServer of S slots (on the card:
-    one captured graph per bucket, one replay per wave). Returns (server,
-    per-round results, per-round feed() seconds)."""
+    one captured graph per bucket, one replay per wave; ``server_kw`` to
+    its constructor). Returns (server, per-round results, per-round feed()
+    seconds)."""
     import torch
     from repro_torch.serving import StreamServer
-    server = StreamServer(pipe, capacity=S, max_chunk=SERVE_MAX_CHUNK)
+    server = StreamServer(pipe, capacity=S, max_chunk=SERVE_MAX_CHUNK,
+                          **server_kw)
     for i in range(S - 1):
         server.open(f"s{i:03d}")
     secs, results = [], []
@@ -2730,6 +2761,9 @@ def phase_train_lm(cfg):
         norms.append(float(m["grad_norm"]))
         step_ms.append((time.perf_counter() - t0) * 1e3)
     launches = dict(LAUNCHES)
+    # what phase_mesh's sharded run is held to: the losses, and fixed
+    # slices of the params after step 3 and after step 4 (the profiled)
+    mesh_ref = dict(losses=list(losses), slices=[param_slices(state.params)])
     want = per_step * LM_STEPS
     if (launches["mp_linear"], launches["mp_linear_bwd"]) != (want, want):
         raise AssertionError(f"train step launches {launches}: want "
@@ -2749,8 +2783,11 @@ def phase_train_lm(cfg):
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             state, m = step(state, batch)
-            float(m["loss"])
+            loss = float(m["loss"])
             prof_ms = (time.perf_counter() - t0) * 1e3
+        if len(mesh_ref["losses"]) == LM_STEPS:
+            mesh_ref["losses"].append(loss)
+            mesh_ref["slices"].append(param_slices(state.params))
         parts = {"forward_with_levels": 0.0, "forward_alone": 0.0,
                  "backward_grads": 0.0, "other": 0.0}
         for e in prof.key_averages():
@@ -2816,7 +2853,310 @@ def phase_train_lm(cfg):
     gc.collect()
     torch.cuda.empty_cache()
     return (launches["mp_linear_bwd"], parts and parts["backward_grads"],
-            calls)
+            calls, mesh_ref)
+
+
+MESH_SLICES = (("tok_embed",), ("lm_head",), ("layers", 0, "attn", "wq"),
+               ("layers", 1, "ffn", "wo"), ("final_norm", "scale"))
+MESH_TRAIN_TOL = 1e-5     # x max |phase 11's|: the mesh run's losses, params
+
+
+def param_slices(params) -> dict:
+    """Fixed corners of some params (``MESH_SLICES``) on the host; of a
+    ``DTensor`` its own shard (the mesh phase runs one rank, whose shard
+    is the whole)."""
+    import torch
+    out = {}
+    for path in MESH_SLICES:
+        t = params
+        for k in path:
+            t = t[k]
+        if type(t) is not torch.Tensor:
+            t = t.to_local()
+        t = t[:4, :8] if t.ndim == 2 else t[:8]
+        out["/".join(map(str, path))] = t.detach().float().cpu()
+    return out
+
+
+def slices_gap(got: dict, want: dict) -> float:
+    """max |got - want| over max |want|, across every slice."""
+    return max(float((got[k] - want[k]).abs().max())
+               / max(float(want[k].abs().max()), 1e-30) for k in want)
+
+
+def tree_items(tree, path=()):
+    """``(path, leaf)`` of a tree of dicts, lists and NamedTuples."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from tree_items(v, path + (k,))
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            yield from tree_items(getattr(tree, f), path + (f,))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from tree_items(v, path + (i,))
+    elif tree is not None:
+        yield "/".join(map(str, path)), tree
+
+
+def check_placed(state, specs, mesh, what: str) -> int:
+    """Gate: every leaf but the 0-d counters is a DTensor placed by its
+    spec on ``mesh``. Returns how many."""
+    import torch
+    from repro_torch.distributed import sharding as sh
+    by_path = sh.tree_specs_by_path(specs)
+    n = 0
+    for path, leaf in tree_items(state):
+        if leaf.ndim == 0:
+            if type(leaf) is not torch.Tensor:
+                raise AssertionError(f"{what}: {path} should be a plain "
+                                     "0-d tensor")
+            continue
+        want = tuple(sh.to_placements(by_path[path], mesh))
+        if not sh.is_dtensor(leaf) or leaf.placements != want:
+            raise AssertionError(f"{what}: {path} is "
+                                 f"{getattr(leaf, 'placements', 'plain')}, "
+                                 f"want {want}")
+        n += 1
+    return n
+
+
+def two_rank_serve(audio, sched, want, directory: Path) -> dict:
+    """Phase 15's float serve on a (2, 1) gloo mesh of two processes
+    sharing the card (``mesh_rank_main``; nccl takes one rank per device,
+    so the decisions are gathered on the host): every rank's results
+    equal ``want``, the server's without a mesh; each rank replays its own
+    graph over its 128 slots once per wave."""
+    import pickle
+    directory.mkdir(parents=True)
+    with open(directory / "audio.pkl", "wb") as f:
+        pickle.dump(audio, f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank",
+                               str(r), str(directory)],
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"mesh rank {r} failed:\n{text[-4000:]}")
+    key = lambda res: [(r.session_id, r.label, r.confidence,  # noqa: E731
+                        r.samples_seen) for r in res]
+    out = dict(ranks=2, backend="gloo", wall_s=time.perf_counter() - t0)
+    for r in range(2):
+        with open(directory / f"rank{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        if got["results"] != [key(res) for res in want]:
+            raise AssertionError(f"two ranks on one card: rank {r}'s "
+                                 "decisions differ from the server's "
+                                 "without a mesh")
+        c = got["counts"]
+        if not (c["replays"] == len(sched) and c["eager_runs"] == 0
+                and got["launches"] == c["replays"] + c["captures"]):
+            raise AssertionError(f"rank {r}: step counts {c}, launches "
+                                 f"{got['launches']}")
+        out[f"rank{r}"] = dict(slots=got["slots"], step_counts=c,
+                               stream_kernel_launches=got["launches"],
+                               feed_ms_median=got["feed_ms_median"])
+    return out
+
+
+def mesh_rank_main(rank: int, directory: str) -> int:
+    """One rank of ``two_rank_serve``: gloo over a ``file://`` store in
+    ``directory``, the card shared, phase 4's float pipeline behind
+    ``StreamServer(mesh=)`` on a ("data", "model") (2, 1) CPU mesh."""
+    import pickle
+    import statistics
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.esc10_mp import make_pipeline
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("gloo", init_method=f"file://{directory}/pg",
+                            rank=rank, world_size=2)
+    try:
+        torch.cuda.set_device(0)
+        with open(Path(directory) / "audio.pkl", "rb") as f:
+            audio = pickle.load(f)
+        pipe = make_pipeline()
+        mesh = make_host_mesh(2, 1, device="cpu")
+        sched = serve_schedule(audio, 10, 160)
+        reset_launches()
+        server, results, secs = serve(pipe, sched, audio.shape[0],
+                                      mesh=mesh)
+        got = dict(results=[[(r.session_id, r.label, r.confidence,
+                              r.samples_seen) for r in res]
+                            for res in results],
+                   counts=server.step_counts(),
+                   launches=LAUNCHES["fir_mp_stream_cascade"],
+                   slots=list(server.local_slots),
+                   feed_ms_median=statistics.median(secs) * 1e3)
+        with open(Path(directory) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(got, f)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(audio, cal, cfg, ref, card) -> dict:
+    """The distributed tier on a one-rank nccl mesh (("data", "model"),
+    (1, 1), by ``launch.mesh.make_host_mesh``): the served esc10-mp step
+    under ``StreamServer(mesh=)``, float and fixed, and the qwen3-8b MP
+    train step with params and moments as DTensors, saved under the mesh
+    and restored onto its axes named the other way round. Returns the
+    kernels' launches in its main-path runs."""
+    import shutil
+    import statistics
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.esc10_mp import make_pipeline
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.serving import StreamServer
+    t_phase = time.perf_counter()
+    mesh = make_host_mesh(1, 1)
+    if (dist.get_backend() != "nccl" or mesh.device_type != "cuda"
+            or tuple(mesh.shape) != (1, 1)):
+        raise AssertionError(f"want a (1, 1) nccl mesh on cuda, got "
+                             f"{dist.get_backend()} {mesh}")
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    launches = {}
+    out = dict(phase="mesh", mesh=list(mesh.shape),
+               axes=list(mesh.mesh_dim_names), backend=dist.get_backend(),
+               card=card)
+    S = audio.shape[0]
+    sched = serve_schedule(audio[:, :10 * 160], 10, 160)
+    for numerics in ("float", "fixed"):
+        pipe = make_pipeline() if numerics == "float" else \
+            fixed_pipeline(cal)[0]
+        key = "fir_mp_stream_cascade" + ("_q" if numerics == "fixed" else "")
+        plain, want, secs_plain = serve(pipe, sched, S)
+        reset_launches()
+        meshed, got, secs = serve(pipe, sched, S, mesh=mesh,
+                                  checkpoint_dir=str(tmp / numerics))
+        launches[key] = LAUNCHES[key]
+        counts = check_step_counts(meshed, sched, launches[key], key)
+        for r, (g, w) in enumerate(zip(got, want)):
+            same_results(g, w, f"{numerics} mesh serve, round {r}")
+        same_rows(meshed, plain, [f"s{i:03d}" for i in range(S - 1)],
+                  f"{numerics} mesh serve")
+        # one session parked under the mesh, resumed by a server without
+        sid = "s001"
+        meshed.close(sid, checkpoint=True)
+        solo = StreamServer(pipe, capacity=S, max_chunk=SERVE_MAX_CHUNK,
+                            checkpoint_dir=str(tmp / numerics))
+        solo.open(sid)
+        nxt = [(sid, audio[1, 10 * 160:11 * 160])]
+        same_results(solo.feed(nxt), plain.feed(nxt),
+                     f"{numerics}: {sid} parked under the mesh, resumed "
+                     "without one")
+        out[numerics] = dict(
+            waves=len(sched), step_counts=counts,
+            stream_kernel_launches=launches[key],
+            decisions_equal_unmeshed=True, parked_and_resumed=sid,
+            feed_ms_median_mesh=statistics.median(secs) * 1e3,
+            feed_ms_median_plain=statistics.median(secs_plain) * 1e3)
+        if numerics == "float":
+            out["two_ranks_on_one_card"] = two_rank_serve(
+                audio[:, :10 * 160], sched, want, tmp / "ranks")
+        del meshed, plain, solo, pipe
+    # qwen3-8b MP training, params and moments DTensors
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    opt = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=10)
+    init_state, step = make_train_step(cfg, opt, mesh=mesh)
+    state = init_state(torch.Generator(device="cuda").manual_seed(0),
+                       device="cuda")
+    specs = sh.param_specs(state, mesh)
+    placed = check_placed(state, specs, mesh, "init under the mesh")
+    toks = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch(0)
+    batch = {"tokens": torch.as_tensor(toks).cuda()}
+    per_step = 7 * cfg.num_layers + 1
+    reset_launches()
+    losses, step_ms = [], []
+    for _ in range(LM_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    check_placed(state, specs, mesh, "after three steps")
+    gaps = dict(losses=max(abs(a - b) / abs(b) for a, b in
+                           zip(losses, ref["losses"])),
+                slices=slices_gap(param_slices(state.params),
+                                  ref["slices"][0]))
+    ckpt = CheckpointManager(str(tmp / "lm"), async_save=False)
+    t0 = time.perf_counter()
+    ckpt.save(LM_STEPS, state, mesh=mesh, specs=specs)
+    save_s = time.perf_counter() - t0
+    with open(tmp / "lm" / f"step_{LM_STEPS:08d}" / "manifest.json") as f:
+        manifest = json.load(f)
+    want_specs = {p: str(v) for p, v in sh.tree_specs_by_path(specs).items()}
+    if {leaf["path"]: leaf["spec"] for leaf in manifest["leaves"]} \
+            != want_specs or manifest["mesh_axes"] != ["data", "model"]:
+        raise AssertionError("the manifest's specs are not the rule "
+                             "table's in the reference's format")
+    swapped = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.int64),
+                         mesh_dim_names=("model", "data"))
+    specs_b = sh.param_specs(state, swapped)
+    t0 = time.perf_counter()
+    restored, at = ckpt.restore(state, mesh=swapped, specs=specs_b)
+    restore_s = time.perf_counter() - t0
+    del state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    check_placed(restored, specs_b, swapped, "restored, axes swapped")
+    lm_head = restored.params["lm_head"].placements
+    _, step_b = make_train_step(cfg, opt, mesh=swapped)
+    restored, m = step_b(restored, batch)
+    loss4 = float(m["loss"])
+    gaps["loss_after_restore"] = abs(loss4 - ref["losses"][3]) \
+        / abs(ref["losses"][3])
+    gaps["slices_after_restore"] = slices_gap(param_slices(restored.params),
+                                              ref["slices"][1])
+    launches.update(mp_linear=LAUNCHES["mp_linear"],
+                    mp_linear_bwd=LAUNCHES["mp_linear_bwd"])
+    want = per_step * (LM_STEPS + 1)
+    if (launches["mp_linear"], launches["mp_linear_bwd"]) != (want, want):
+        raise AssertionError(f"mesh train launches {launches}: want {want} "
+                             "forward and backward")
+    bad = {k: v for k, v in gaps.items() if not v <= MESH_TRAIN_TOL}
+    if bad or at != LM_STEPS:
+        raise AssertionError(f"mesh train vs phase 11: {gaps} (gate "
+                             f"{MESH_TRAIN_TOL}), restored step {at}")
+    out["train"] = dict(
+        arch=cfg.name, layers=cfg.num_layers, steps=LM_STEPS + 1,
+        dtensor_leaves=placed, losses=losses + [loss4],
+        phase11_losses=ref["losses"], gaps=gaps, gate=MESH_TRAIN_TOL,
+        ms_per_step=step_ms, save_s=save_s, restore_s=restore_s,
+        checkpoint_bytes=sum(f.stat().st_size
+                             for f in (tmp / "lm").rglob("*.npy")),
+        lm_head_placements_swapped=[str(p) for p in lm_head],
+        mp_linear_launches=launches["mp_linear"],
+        mp_linear_bwd_launches=launches["mp_linear_bwd"],
+        peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del restored, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    dist.destroy_process_group()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(out)
+    return launches
 
 
 def phase_mp_backward(calls, layers: int, gamma: float):
@@ -3917,9 +4257,11 @@ def main() -> int:
 
     phase_train()
     qwen2 = dataclasses.replace(qwen, num_layers=2)
-    bwd_launches, bwd_device_ms, bwd_calls = phase_train_lm(qwen2)
+    bwd_launches, bwd_device_ms, bwd_calls, mesh_ref = phase_train_lm(qwen2)
     bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers, qwen2.mp_gamma)
     del bwd_calls
+    mesh_launches = phase_mesh(clips[:256, :11 * 160], cal, qwen2, mesh_ref,
+                               card)
 
     decoded = [phase_decode(*d, card) for d in DECODE]
     qwen_out = decoded[0][0]
@@ -3931,7 +4273,9 @@ def main() -> int:
     kernels = [
         dict(stream_row, route="cuda", source=src + "fir_mp_stream.cu",
              replaces="src/repro/kernels/fir_mp.py:279",
-             launches=serve_launches, library_ms=None),
+             launches=serve_launches,
+             mesh_path_launches=mesh_launches["fir_mp_stream_cascade"],
+             library_ms=None),
         dict(cascade_row, route="cuda", source=src + "fir_mp_bank.cu",
              replaces="src/repro/kernels/fir_mp.py:112",
              also_replaces="src/repro/kernels/fir_mp.py:382",
@@ -3959,10 +4303,13 @@ def main() -> int:
              library_ms=None),
         dict(int_stream_row, route="cuda", source=src + "fir_mp_stream_q.cu",
              replaces="src/repro/kernels/fir_mp.py:682",
-             launches=fixed_serve_launches, library_ms=None),
+             launches=fixed_serve_launches,
+             mesh_path_launches=mesh_launches["fir_mp_stream_cascade_q"],
+             library_ms=None),
         dict(lin_row, route="cuda", source=src + "mp_linear.cu",
              replaces="src/repro/kernels/mp_linear.py:89",
              launches=qwen_out["mp_linear_launches"],
+             mesh_path_launches=mesh_launches["mp_linear"],
              device_ms=qwen_out["mp_linear_device_ms_per_step"],
              device_timed_by=("profiler"
                               if qwen_out["mp_linear_device_ms_per_step"]
@@ -3970,7 +4317,9 @@ def main() -> int:
              library_ms=None),
         dict(bwd_row, route="cuda", source=src + "mp_linear_bwd.cu",
              replaces="src/repro/kernels/ops.py:73",
-             launches=bwd_launches, device_ms=bwd_device_ms,
+             launches=bwd_launches,
+             mesh_path_launches=mesh_launches["mp_linear_bwd"],
+             device_ms=bwd_device_ms,
              device_timed_by="profiler" if bwd_device_ms else None,
              library_ms=None),
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
@@ -3980,7 +4329,8 @@ def main() -> int:
               replaces="src/repro/kernels/mp_linear.py:89", library_ms=None)
          for r in decode_rows]
     keys = ("name", "at", "route", "source", "replaces", "also_replaces",
-            "launches", "main_path_launches", "max_abs_err", "ms",
+            "launches", "main_path_launches", "mesh_path_launches",
+            "max_abs_err", "ms",
             "device_ms", "device_timed_by", "plain_ms", "bound_ms",
             "bound_by", "x_bound", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
@@ -3993,4 +4343,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+        sys.exit(mesh_rank_main(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -21,9 +21,14 @@ as ``jax.tree_util`` names them. So either package restores what the
 other saved. ``restore_named`` refuses a shape or dtype mismatch (a named
 object promises a bit-exact resume).
 
-The manifest keeps the reference's ``mesh_shape``, ``mesh_axes`` and
-per-leaf ``spec`` fields, always null here: saving under a mesh and
-resharding on restore come with the distributed slice (ROADMAP.md §1).
+Under a mesh (``save(..., mesh=, specs=)``, one process per rank) every
+rank gathers the ``DTensor`` leaves whole and rank 0 alone writes; the
+manifest records ``mesh_shape``, ``mesh_axes`` and each leaf's ``spec`` as
+the reference's ``str(PartitionSpec(...))``. ``restore(..., mesh=,
+specs=)`` places each leaf with ``distribute_tensor`` under the given
+mesh's placements, whatever mesh wrote it (elastic resume). ``wait()``
+after a save under a mesh holds every rank until rank 0's files are
+published.
 """
 
 from __future__ import annotations
@@ -37,6 +42,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.distributed import sharding as sh
 
 __all__ = ["CheckpointManager"]
 
@@ -83,6 +91,7 @@ def _path_str(path) -> str:
 
 
 def _to_host(x) -> np.ndarray:
+    x = sh.full_tensor(x)
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError("checkpoint leaves must have a numpy dtype; "
@@ -109,12 +118,19 @@ def _host_leaves(state) -> list:
     return [(_path_str(p), _to_host(x)) for p, x in _flatten(state)]
 
 
-def _no_mesh(mesh, specs) -> None:
-    if mesh is not None or specs is not None:
-        raise NotImplementedError(
-            "saving under a mesh and resharding on restore come with the "
-            "distributed slice (ROADMAP.md §1, 'Serving, the distributed "
-            "rest')")
+def _check_mesh(mesh, specs) -> None:
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a torch DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+    if (mesh is None) != (specs is None):
+        raise ValueError("pass mesh= and specs= together")
+
+
+def _writer() -> bool:
+    """Whether this process writes: rank 0, or the only process."""
+    return not dist.is_initialized() or dist.get_rank() == 0
 
 
 class CheckpointManager:
@@ -126,6 +142,7 @@ class CheckpointManager:
         self.keep_last = keep_last
         self.async_save = async_save
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False        # a save under a mesh not yet awaited
         os.makedirs(directory, exist_ok=True)
 
     # -- save -----------------------------------------------------------------
@@ -133,19 +150,28 @@ class CheckpointManager:
     def save(self, step: int, state: Any, mesh=None, specs=None) -> str:
         """Copy ``state``'s leaves to the host (the only blocking part),
         then write them, on a background thread unless ``async_save`` is
-        off. One save is in flight at a time."""
-        _no_mesh(mesh, specs)
+        off. One save is in flight at a time. Under ``mesh`` (with its
+        ``specs``, a tree of ``sharding.PartitionSpec``) every rank calls
+        it: ``DTensor`` leaves are gathered whole and rank 0 writes."""
+        _check_mesh(mesh, specs)
         host_leaves = _host_leaves(state)
+        spec_of = sh.tree_specs_by_path(specs) if specs is not None else {}
         manifest = {
             "step": int(step),
             "time": time.time(),
-            "mesh_shape": None,
-            "mesh_axes": None,
+            "mesh_shape": list(mesh.shape) if mesh is not None else None,
+            "mesh_axes": (list(mesh.mesh_dim_names) if mesh is not None
+                          else None),
             "leaves": [{"path": p, "shape": list(a.shape),
-                        "dtype": str(a.dtype), "spec": None}
+                        "dtype": str(a.dtype),
+                        "spec": (str(spec_of[p]) if p in spec_of
+                                 else None)}
                        for p, a in host_leaves],
         }
         self.wait()
+        self._barrier = mesh is not None and dist.is_initialized()
+        if not _writer():
+            return self._step_dir(step)
         if self.async_save:
             self._thread = threading.Thread(
                 target=self._write, args=(step, host_leaves, manifest),
@@ -178,10 +204,14 @@ class CheckpointManager:
         self._gc()
 
     def wait(self) -> None:
-        """Block until the save in flight (if any) is on disk."""
+        """Block until the save in flight (if any) is on disk; after a
+        save under a mesh, on every rank (a barrier)."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -236,11 +266,13 @@ class CheckpointManager:
             shutil.rmtree(old)
         return final
 
-    def _load(self, d: str, state_like, what: str, check_dtype: bool):
+    def _load(self, d: str, state_like, what: str, check_dtype: bool,
+              mesh=None, specs=None):
         with open(os.path.join(d, "manifest.json")) as f:
             manifest = json.load(f)
         by_path = {leaf["path"]: i
                    for i, leaf in enumerate(manifest["leaves"])}
+        spec_of = sh.tree_specs_by_path(specs) if specs is not None else {}
         new_leaves = []
         for p, like in _flatten(state_like):
             key = _path_str(p)
@@ -256,7 +288,13 @@ class CheckpointManager:
                 raise ValueError(f"dtype mismatch for {key}: ckpt "
                                  f"{arr.dtype} vs expected "
                                  f"{_np_dtype(like)}")
-            new_leaves.append(_place(arr, like))
+            if mesh is None:
+                new_leaves.append(_place(arr, like))
+                continue
+            dev = (like.device if isinstance(like, torch.Tensor)
+                   else mesh.device_type)
+            new_leaves.append(sh.distribute(torch.from_numpy(arr).to(dev),
+                                            spec_of.get(key), mesh))
         return _unflatten(state_like, iter(new_leaves)), manifest
 
     def restore_named(self, name: str, state_like: Any):
@@ -294,13 +332,17 @@ class CheckpointManager:
                 mesh=None, specs=None) -> tuple:
         """Restore into the structure of ``state_like``: the latest step
         unless ``step`` is given. Leaves keep the checkpoint's dtype, as in
-        the reference. Returns ``(state, step)``."""
-        _no_mesh(mesh, specs)
+        the reference. With ``mesh`` and ``specs`` every tensor leaf but a
+        0-d one becomes a ``DTensor`` placed by its spec on that mesh,
+        whatever mesh wrote the checkpoint (every rank reads the files).
+        Returns ``(state, step)``."""
+        _check_mesh(mesh, specs)
         self.wait()
         if step is None:
             step = self.latest_step()
             if step is None:
                 raise FileNotFoundError(f"no checkpoints in {self.dir}")
         d = self._step_dir(step)
-        state, _ = self._load(d, state_like, f"checkpoint {d}", False)
+        state, _ = self._load(d, state_like, f"checkpoint {d}", False,
+                              mesh, specs)
         return state, step

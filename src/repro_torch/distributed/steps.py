@@ -1,10 +1,21 @@
 """Train and serve step builders: the counterpart of the reference's
-``repro.distributed.steps`` on one device.
+``repro.distributed.steps``.
 
-``make_train_step(cfg, opt)`` -> (init_state, train_step): the chunked
-cross-entropy loss (``make_loss_fn``), its gradients by torch autograd
-(through ``kernels.ops.mp_linear``'s backward kernel in MP mode), averaged
-over ``accum`` microbatches, and one AdamW update.
+``make_train_step(cfg, opt, mesh=None)`` -> (init_state, train_step): the
+chunked cross-entropy loss (``make_loss_fn``), its gradients by torch
+autograd (through ``kernels.ops.mp_linear``'s backward kernel in MP mode),
+averaged over ``accum`` microbatches, and one AdamW update.
+
+Under a mesh (a ``DeviceMesh``, one process per rank) the params and the
+AdamW moments are ``DTensor``s placed by ``sharding.param_specs``; each
+step takes the global batch and keeps its rows of it (``batch_specs``:
+split over the DP axes). Every layer's weights are gathered on use
+(``models.transformer._constrain``), so each MP product sees its whole
+``d`` on local tensors; the gradient of a gathered weight is each rank's
+partial sum over its rows, reduced onto the weight's shards. The loss is
+the mean over the global batch: each rank divides its sum by the global
+count of labelled positions, and the reported loss is summed over the DP
+axes. No compute is split over 'model' (ROADMAP.md).
 
 ``make_serve_step(cfg)`` -> the decode step producing next-token ids.
 """
@@ -15,6 +26,7 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.distributed import sharding as sh
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.optim.adamw import (AdamWConfig, AdamWState, adamw_init,
@@ -30,11 +42,47 @@ class TrainState(NamedTuple):
     step: torch.Tensor   # 0-d int32
 
 
-def make_loss_fn(cfg, seq_chunk: int = 1024):
+def _dp_sum(x: torch.Tensor, mesh) -> torch.Tensor:
+    """``x`` summed over the mesh's DP axes (the same on every rank);
+    ``x`` itself without a mesh."""
+    if mesh is None:
+        return x
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    dp = sh.data_axes(mesh)
+    return DTensor.from_local(
+        x, mesh, [Partial() if a in dp else Replicate()
+                  for a in sh.axis_sizes(mesh)]).full_tensor()
+
+
+def _local_rows(batch: dict, mesh, accum: int) -> dict:
+    """This rank's rows of the global batch, as ``batch_specs`` splits
+    them (all of them where the DP axes do not divide the batch). With
+    ``accum`` > 1 the global batch is cut into its microbatches first and
+    each is split, so microbatch a holds the same rows as on one device."""
+    if mesh is None:
+        return batch
+    index, count = sh.data_shard(mesh)
+    specs = sh.batch_specs(batch, mesh)
+    out = {}
+    for k, v in batch.items():
+        if not (specs[k] and specs[k][0]):
+            out[k] = v
+            continue
+        if v.shape[0] % (accum * count):
+            raise ValueError(f"batch {v.shape[0]} does not split into "
+                             f"{accum} microbatches over {count} shards")
+        micro = v.reshape(accum, count, -1, *v.shape[1:])[:, index]
+        out[k] = micro.reshape(-1, *v.shape[1:])
+    return out
+
+
+def make_loss_fn(cfg, seq_chunk: int = 1024, mesh=None):
     """Chunked cross entropy of next-token prediction: the head (through
     ``layers.linear``, so an MP product in ``mp_mode``) and the softmax run
     one sequence chunk of ``seq_chunk`` positions at a time, so the (B, S,
-    V) logits never exist at once. Mean over the labelled positions."""
+    V) logits never exist at once. Mean over the labelled positions; under
+    ``mesh``, this rank's share of the mean over the global batch (its sum
+    over the global count)."""
 
     def loss_fn(params, batch):
         h = T.forward(params, cfg, batch, return_hidden=True)[:, :-1]
@@ -54,20 +102,29 @@ def make_loss_fn(cfg, seq_chunk: int = 1024):
             gold = torch.where(valid, logits.gather(
                 -1, lc.clamp_min(0)[..., None])[..., 0], 0.0)
             tot = tot + ((logz - gold) * valid.float()).sum()
-        n = torch.clamp_min((labels >= 0).sum().float(), 1.0)
+        n = torch.clamp_min(_dp_sum((labels >= 0).sum().float(), mesh), 1.0)
         return tot / n
 
     return loss_fn
 
 
-def make_train_step(cfg, opt: AdamWConfig, accum: int = 1):
-    """``accum`` > 1 splits the batch into that many microbatches whose
-    gradients are averaged before the one AdamW update."""
-    loss_fn = make_loss_fn(cfg)
+def make_train_step(cfg, opt: AdamWConfig, accum: int = 1, mesh=None):
+    """``accum`` > 1 splits the batch (this rank's rows of it, under
+    ``mesh``) into that many microbatches whose gradients are averaged
+    before the one AdamW update."""
+    if mesh is not None:
+        from torch.distributed.device_mesh import DeviceMesh
+        if not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh= takes a torch DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+    loss_fn = make_loss_fn(cfg, mesh=mesh)
 
     def init_state(generator: torch.Generator, device=None) -> TrainState:
         params = T.init(cfg, generator, device=device)
         dev = tree_leaves(params)[0].device
+        if mesh is not None:
+            params = sh.shard_tree(params, sh.param_specs(params, mesh),
+                                   mesh)
         return TrainState(params=params, opt=adamw_init(params),
                           step=torch.zeros((), dtype=torch.int32, device=dev))
 
@@ -75,7 +132,8 @@ def make_train_step(cfg, opt: AdamWConfig, accum: int = 1):
         leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
         loss = loss_fn(leaves, batch)
         loss.backward()
-        return loss.detach(), tree_map(lambda p: p.grad, leaves)
+        return (_dp_sum(loss.detach(), mesh),
+                tree_map(lambda p: p.grad, leaves))
 
     def grads_of(params, batch):
         if accum == 1:
@@ -87,8 +145,8 @@ def make_train_step(cfg, opt: AdamWConfig, accum: int = 1):
         mb = B // accum
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=batch["tokens"].device)
-        gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                              device=p.device), params)
+        gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                        params)
         for a in range(accum):
             micro = {k: v[a * mb:(a + 1) * mb] for k, v in batch.items()}
             loss, g = value_and_grad(params, micro)
@@ -98,7 +156,8 @@ def make_train_step(cfg, opt: AdamWConfig, accum: int = 1):
         return loss_sum * scale, tree_map(lambda g: g * scale, gsum)
 
     def train_step(state: TrainState, batch):
-        loss, grads = grads_of(state.params, batch)
+        loss, grads = grads_of(state.params,
+                               _local_rows(batch, mesh, accum))
         new_params, new_opt, om = adamw_update(opt, grads, state.opt,
                                                state.params)
         metrics = {"loss": loss, **om}

@@ -1,9 +1,11 @@
-"""Training launcher for the transformer zoo, on one card: the counterpart
-of the reference's ``repro.launch.train``, with its arguments.
+"""Training launcher for the transformer zoo: the counterpart of the
+reference's ``repro.launch.train``, with its arguments.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-8b \\
         --smoke --steps 100 --batch 8 --seq 128 --ckpt-dir /tmp/ckpt \\
         --resume auto [--mp-mode] [--device cpu]
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+        --arch qwen3-8b --smoke --mesh-data 2 --device cpu
 
 * deterministic token batches addressed by step (``data.tokens``), so a
   restart needs only the step counter;
@@ -12,12 +14,15 @@ of the reference's ``repro.launch.train``, with its arguments.
 * ``StragglerMonitor`` EWMA on step times;
 * gradient accumulation over ``--accum`` microbatches.
 
-On the card unless ``--device cpu``. A mesh (``--mesh-data`` /
-``--mesh-model`` above 1) raises ``NotImplementedError``: sharded training
-waits for ROADMAP.md §1 item 2. Families other than dense raise
-``NotImplementedError`` too: ``models.transformer`` serves them, and
-their training, held against the reference's gradients, is queued in
-ROADMAP.md.
+On the card unless ``--device cpu``. ``--mesh-data`` / ``--mesh-model``
+above 1 train on a ``("data", "model")`` mesh (``launch.mesh.make_host_mesh``,
+its sizes clamped to the ranks there are; one process per rank, under
+``torchrun``): params and moments sharded by ``sharding.param_specs``, the
+batch split over 'data', checkpoints saved and restored under the mesh
+(a checkpoint written on one mesh resumes on another). Families other
+than dense raise ``NotImplementedError``: ``models.transformer`` serves
+them, and their training, held against the reference's gradients, is
+queued in ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -27,13 +32,16 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import ARCH_IDS, get_arch, get_smoke
 from repro_torch.data.tokens import TokenStream
 from repro_torch.device import resolve_device
+from repro_torch.distributed import sharding as sh
 from repro_torch.distributed.monitor import StragglerMonitor
 from repro_torch.distributed.steps import make_train_step
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import AdamWConfig
 
 __all__ = ["build_argparser", "main"]
@@ -68,11 +76,6 @@ def build_argparser():
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.mesh_data > 1 or args.mesh_model > 1:
-        raise NotImplementedError(
-            "sharded training (--mesh-data / --mesh-model above 1) is not "
-            "ported yet; it is queued in ROADMAP.md (section 1, 'Modules "
-            "still to port', item 2)")
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
     if cfg.family != "dense":
         raise NotImplementedError(
@@ -82,17 +85,23 @@ def main(argv=None):
     if args.mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=True)
     dev = resolve_device(args.device)
+    mesh = (make_host_mesh(args.mesh_data, args.mesh_model, device=dev)
+            if args.mesh_data > 1 or args.mesh_model > 1 else None)
+    say = print if not dist.is_initialized() or dist.get_rank() == 0 \
+        else (lambda *a, **k: None)
     opt = AdamWConfig(lr=args.lr, warmup_steps=args.warmup,
                       total_steps=args.steps)
-    init_state, train_step = make_train_step(cfg, opt, accum=args.accum)
+    init_state, train_step = make_train_step(cfg, opt, accum=args.accum,
+                                             mesh=mesh)
     state = init_state(torch.Generator(device=dev).manual_seed(args.seed),
                        device=dev)
+    specs = sh.param_specs(state, mesh) if mesh is not None else None
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt and args.resume == "auto" and ckpt.latest_step() is not None:
-        state, start_step = ckpt.restore(state)
-        print(f"resumed from step {start_step}")
+        state, start_step = ckpt.restore(state, mesh=mesh, specs=specs)
+        say(f"resumed from step {start_step}")
 
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch * args.accum,
                          seed=args.seed)
@@ -107,17 +116,17 @@ def main(argv=None):
         monitor.record("host0", dt)
         losses.append(loss)
         if step % args.log_every == 0 or step == args.steps - 1:
-            print(f"step {step:5d} loss {loss:.4f} "
+            say(f"step {step:5d} loss {loss:.4f} "
                   f"gnorm {float(metrics['grad_norm']):.3f} "
                   f"lr {float(metrics['lr']):.2e} {dt * 1e3:.0f} ms "
                   f"stragglers={monitor.stragglers()}")
         if ckpt and (step + 1) % args.ckpt_every == 0:
-            ckpt.save(step + 1, state)
+            ckpt.save(step + 1, state, mesh=mesh, specs=specs)
     if ckpt:
-        ckpt.save(args.steps, state)
+        ckpt.save(args.steps, state, mesh=mesh, specs=specs)
         ckpt.wait()
     if losses:
-        print(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
+        say(f"final loss {losses[-1]:.4f} (first {losses[0]:.4f})")
     return losses
 
 

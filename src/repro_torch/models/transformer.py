@@ -37,6 +37,7 @@ from typing import Optional
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import gather_on_use
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
@@ -241,9 +242,12 @@ def _constrain(p_layer: dict, cfg: ArchConfig) -> dict:
     ``_KEEP_F32`` cast to it (the projections, the experts and router,
     Mamba's conv and norm, ``q_norm``/``k_norm``). The masters stay
     float32: the cast is made on use, per step. The peeled prefix layers
-    are not cast, as in the reference."""
+    are not cast, as in the reference. Under a mesh (``DTensor`` leaves,
+    sharded training) each leaf is then gathered whole (``gather_on_use``),
+    after the cast, so the gather moves bf16; its gradient lands on the
+    master's shards."""
     if cfg.compute_dtype == "float32":
-        return p_layer
+        return _on_use(p_layer)
     dt = L.cdt(cfg)
 
     def cast(tree):
@@ -252,12 +256,20 @@ def _constrain(p_layer: dict, cfg: ArchConfig) -> dict:
             if isinstance(v, dict):
                 out[k] = cast(v)
             elif k in _KEEP_F32 or v.dtype != torch.float32:
-                out[k] = v
+                out[k] = gather_on_use(v)
             else:
-                out[k] = v.to(dt)
+                out[k] = gather_on_use(v.to(dt))
         return out
 
     return cast(p_layer)
+
+
+def _on_use(tree):
+    """``tree`` with its ``DTensor`` leaves gathered whole (see
+    ``_constrain``); without a mesh, the same leaves."""
+    if isinstance(tree, dict):
+        return {k: _on_use(v) for k, v in tree.items()}
+    return gather_on_use(tree)
 
 
 def head(params: dict, cfg: ArchConfig) -> torch.Tensor:
@@ -266,8 +278,8 @@ def head(params: dict, cfg: ArchConfig) -> torch.Tensor:
     step (the kernel reads w row-major; left to it, each call would copy
     it unseen)."""
     if cfg.tie_embeddings:
-        return params["tok_embed"].T.contiguous()
-    return params["lm_head"]
+        return gather_on_use(params["tok_embed"]).T.contiguous()
+    return gather_on_use(params["lm_head"])
 
 
 # ---------------------------------------------------------------------------
@@ -316,10 +328,11 @@ def _embed(params, cfg, batch):
     through the frame projection (a torch product, as in the reference),
     else tokens, with a VLM's patch embeddings prepended."""
     if cfg.audio_frontend:
-        x = L.linear(batch["frames"], params["frame_proj"],
+        x = L.linear(batch["frames"], gather_on_use(params["frame_proj"]),
                      compute_dtype=L.cdt(cfg))
     else:
-        x = params["tok_embed"][batch["tokens"].long()].to(L.cdt(cfg))
+        x = gather_on_use(params["tok_embed"])[
+            batch["tokens"].long()].to(L.cdt(cfg))
         if cfg.vlm_patches:
             x = torch.cat([batch["patches"].to(L.cdt(cfg)), x], dim=1)
     return x, torch.arange(x.shape[1], device=x.device)
@@ -337,8 +350,8 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
     x, positions = _embed(params, cfg, batch)
     if plan["kind"] == "uniform":
         for p in params.get("prefix_layers", []):
-            x = _block(p, x, _dense(cfg), positions, mixer=plan["mixer"],
-                       layer_is_moe=False)
+            x = _block(_on_use(p), x, _dense(cfg), positions,
+                       mixer=plan["mixer"], layer_is_moe=False)
         for p in params["layers"]:
             x = _block(_constrain(p, cfg), x, cfg, positions,
                        mixer=plan["mixer"], layer_is_moe=plan["is_moe"])
@@ -347,7 +360,7 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
             for p, (mixer, is_moe) in zip(group, plan["subs"]):
                 x = _block(_constrain(p, cfg), x, cfg, positions,
                            mixer=mixer, layer_is_moe=is_moe)
-    x = _norm(params["final_norm"], x, cfg)
+    x = _norm(_on_use(params["final_norm"]), x, cfg)
     if return_hidden:
         return x
     return L.linear(x, head(params, cfg), mp_mode=cfg.mp_mode,
@@ -394,10 +407,10 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
     cfg = dataclasses.replace(
         cfg, moe_capacity_factor=cfg.moe_decode_capacity_factor)
     plan = _layer_plan(cfg)
-    x = params["tok_embed"][tokens.long()].to(L.cdt(cfg))
+    x = gather_on_use(params["tok_embed"])[tokens.long()].to(L.cdt(cfg))
     if plan["kind"] == "uniform":
         for p, c in zip(params.get("prefix_layers", []), cache["prefix"]):
-            x, _ = _block_decode(p, x, _dense(cfg), c, cur_pos,
+            x, _ = _block_decode(_on_use(p), x, _dense(cfg), c, cur_pos,
                                  mixer=plan["mixer"], layer_is_moe=False)
         for p, c in zip(params["layers"], cache["scan"]):
             x, _ = _block_decode(_constrain(p, cfg), x, cfg, c, cur_pos,
@@ -409,7 +422,7 @@ def decode_step(params: dict, cfg: ArchConfig, tokens: torch.Tensor,
             for p, c, (mixer, is_moe) in zip(group, caches, plan["subs"]):
                 x, _ = _block_decode(_constrain(p, cfg), x, cfg, c, cur_pos,
                                      mixer=mixer, layer_is_moe=is_moe)
-    x = _norm(params["final_norm"], x, cfg)
+    x = _norm(_on_use(params["final_norm"]), x, cfg)
     logits = L.linear(x, head(params, cfg), mp_mode=cfg.mp_mode,
                       mp_gamma=cfg.mp_gamma, compute_dtype=L.cdt(cfg))
     return logits, cache

@@ -5,7 +5,9 @@ tensors: the counterpart of ``repro.optim.adamw``, not ``torch.optim.AdamW``
 Params, gradients and moments are trees (nested dicts, lists and tuples of
 tensors); the moments are float32 trees congruent with the params. The
 update is functional, as in the reference: it returns new trees and
-leaves its inputs as they are. Its scalars (the step count, the learning
+leaves its inputs as they are. Leaves may be ``DTensor``s (sharded
+training): the update is elementwise on each shard, and the clipping norm
+is the norm over the whole mesh. Its scalars (the step count, the learning
 rate, the bias corrections) are 0-d tensors on the params' device, so an
 update never waits for the host.
 """
@@ -62,8 +64,7 @@ def tree_leaves(tree) -> list:
 
 
 def adamw_init(params) -> AdamWState:
-    zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                  device=p.device)
+    zeros = lambda p: torch.zeros_like(p, dtype=torch.float32)  # noqa: E731
     dev = tree_leaves(params)[0].device
     return AdamWState(mu=tree_map(zeros, params), nu=tree_map(zeros, params),
                       count=torch.zeros((), dtype=torch.int32, device=dev))
@@ -81,11 +82,54 @@ def cosine_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * torch.where(step < cfg.warmup_steps, warm, cos)
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
 def global_norm(tree) -> torch.Tensor:
+    """The L2 norm of every leaf together, a plain 0-d tensor, the leaves'
+    squares added in tree order. A ``DTensor`` leaf counts over the whole
+    mesh, not over this rank's shard: the local sums of squares of the
+    leaves of one placement are summed over the mesh dims they are sharded
+    on in one all-reduce."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    sqs, groups = [], {}
+    for i, g in enumerate(tree_leaves(tree)):
+        if _is_dtensor(g):
+            key = (id(g.device_mesh), tuple(g.placements))
+            groups.setdefault(key, (g, []))[1].append(i)
+            g = g.to_local()
+        sqs.append(torch.sum(torch.square(g.to(torch.float32))))
+    for g, idx in groups.values():
+        full = DTensor.from_local(
+            torch.stack([sqs[i] for i in idx]), g.device_mesh,
+            [Partial() if p.is_shard() else Replicate()
+             for p in g.placements]).full_tensor()
+        for j, i in enumerate(idx):
+            sqs[i] = full[j]
     total = 0
-    for g in tree_leaves(tree):
-        total = total + torch.sum(torch.square(g.to(torch.float32)))
+    for sq in sqs:
+        total = total + sq
     return torch.sqrt(total)
+
+
+def _shardwise(fn):
+    """``fn`` on plain tensors, applied to ``DTensor`` leaves shard by
+    shard (the update is elementwise): the result is placed as the first
+    argument. A leaf placed otherwise is redistributed to it first."""
+    def apply(first, *rest):
+        if not _is_dtensor(first):
+            return fn(first, *rest)
+        from torch.distributed.tensor import DTensor
+        local = [first.to_local()] + [
+            (r if r.placements == first.placements else
+             r.redistribute(first.device_mesh, first.placements)).to_local()
+            for r in rest]
+        return DTensor.from_local(fn(*local), first.device_mesh,
+                                  first.placements, run_check=False,
+                                  shape=first.shape, stride=first.stride())
+    return apply
 
 
 def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
@@ -95,7 +139,6 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
     bias-corrected moments; metrics ``grad_norm`` and ``lr`` (0-d)."""
     gnorm = global_norm(grads)
     scale = torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
-    grads = tree_map(lambda g: g.to(torch.float32) * scale, grads)
 
     count = state.count + 1
     lr = cosine_schedule(cfg, count)
@@ -104,10 +147,12 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
     b1c = 1 - torch.pow(base(cfg.b1), cf)
     b2c = 1 - torch.pow(base(cfg.b2), cf)
 
-    mu = tree_map(lambda m, g: cfg.b1 * m + (1 - cfg.b1) * g, state.mu,
-                  grads)
-    nu = tree_map(lambda v, g: cfg.b2 * v + (1 - cfg.b2) * g * g, state.nu,
-                  grads)
+    def first(m, g):
+        return cfg.b1 * m + (1 - cfg.b1) * (g.to(torch.float32) * scale)
+
+    def second(v, g):
+        g = g.to(torch.float32) * scale
+        return cfg.b2 * v + (1 - cfg.b2) * g * g
 
     def upd(p, m, v):
         mhat = m / b1c
@@ -115,6 +160,8 @@ def adamw_update(cfg: AdamWConfig, grads, state: AdamWState, params):
         step = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p
         return (p - lr * step).to(p.dtype)
 
-    new_params = tree_map(upd, params, mu, nu)
+    mu = tree_map(_shardwise(first), state.mu, grads)
+    nu = tree_map(_shardwise(second), state.nu, grads)
+    new_params = tree_map(_shardwise(upd), params, mu, nu)
     return new_params, AdamWState(mu, nu, count), {"grad_norm": gnorm,
                                                    "lr": lr}

@@ -35,6 +35,19 @@ a sticky CUDA error), so every later call raises ``RuntimeError`` naming
 the wave, the bucket and the sessions. Nothing falls back to an eager step
 on the card. For N servers behind one admission API see
 ``repro_torch.serving.router.StreamRouter``.
+
+Scale-out: ``mesh=`` (a ``DeviceMesh``, one process per rank, every rank
+making the same calls) shards the slot axis over the mesh's data axes
+(``sharding.session_specs``). Each rank holds and steps only its own
+slots, as local tensors: the step and its graph never see a ``DTensor`` or
+a collective. The host's slot table is the same on every rank; after each
+wave the decisions are gathered (``sharding.gather_ranks``), so every rank
+resolves the same ``FeedResult``s as a server without a mesh. What reads a
+rank's own clock is decided once: the eviction victim by the first rank,
+and a coalescing deadline is not taken. Parking a session gathers its row
+from the rank that owns it; the first rank writes the named checkpoints.
+A step that raises on one rank poisons every rank at the end of that
+dispatch. A capacity the data axes do not divide replicates.
 """
 
 from __future__ import annotations
@@ -48,6 +61,7 @@ import torch
 
 from repro_torch.core import pipeline as pl
 from repro_torch.core.pipeline import InFilterPipeline, SessionState
+from repro_torch.distributed import sharding as sh
 from repro_torch.kernels._wrap import add_launches, take_captured
 from repro_torch.serving.session import (Decision, FeedRequest, FeedResult,
                                          FeedTicket, Session)
@@ -64,6 +78,28 @@ def bucket_length(n: int, min_chunk: int, max_chunk: int) -> int:
     while b < n:
         b <<= 1
     return min(b, max_chunk)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """A register's values as flat int32 words, bit for bit (float32
+    reinterpreted, int32 as is, bool as 0 / 1)."""
+    t = t.reshape(-1)
+    return t.view(torch.int32) if t.dtype == torch.float32 \
+        else t.to(torch.int32)
+
+
+def _unbits(flat: torch.Tensor, like: SessionState) -> SessionState:
+    """The inverse of :func:`_bits` over every register of ``like``."""
+    out, k = [], 0
+    for t in like.tensors():
+        w = flat[k:k + t.numel()]
+        k += t.numel()
+        w = w.view(torch.float32) if t.dtype == torch.float32 \
+            else w.to(t.dtype)
+        out.append(w.reshape(t.shape).clone())
+    nd, nc = len(like.delays), len(like.consumed)
+    return SessionState(tuple(out[:nd]), tuple(out[nd:nd + nc]),
+                        *out[nd + nc:])
 
 
 class _Bucket:
@@ -278,8 +314,8 @@ class StreamServer:
                     (checked on API calls; there is no thread).
     step_fn:        a step from :func:`make_batched_step` for this
                     pipeline, to share it with other servers.
-    mesh:           not taken: sharding the slot axis over cards comes
-                    with the distributed slice (ROADMAP.md §1).
+    mesh:           a ``torch.distributed`` ``DeviceMesh``: shard the slot
+                    axis over its data axes (see the module docstring).
     """
 
     def __init__(self, pipeline: InFilterPipeline, capacity: int = 64, *,
@@ -306,10 +342,17 @@ class StreamServer:
                 "stream_impl='pallas' requires an MP-mode pipeline "
                 f"(got mode={pipeline.config.mode!r})")
         if mesh is not None:
-            raise NotImplementedError(
-                "mesh=: sharding the slot axis over cards comes with the "
-                "distributed slice (ROADMAP.md §1, 'Serving, the "
-                "distributed rest')")
+            from torch.distributed.device_mesh import DeviceMesh
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh= takes a torch DeviceMesh, got "
+                                f"{type(mesh).__name__}")
+            if mesh.device_type not in ("cpu", pipeline.device.type):
+                raise ValueError(f"a {mesh.device_type} mesh cannot serve "
+                                 f"a pipeline on {pipeline.device}")
+            if coalesce_deadline is not None:
+                raise ValueError("coalesce_deadline reads each rank's own "
+                                 "clock: under a mesh use "
+                                 "coalesce_watermark")
         if step_fn is not None and step_fn.pipeline is not pipeline:
             raise ValueError("step_fn was made for another pipeline")
         self.pipeline = pipeline
@@ -319,8 +362,23 @@ class StreamServer:
         self.evict_after = evict_after
         self._clock = clock if clock is not None else time.monotonic
         self._cuda = pipeline.device.type == "cuda"
+        self._mesh = mesh
         self._state = pipeline.init_session(
             capacity, active=np.zeros((capacity,), bool))
+        # this rank's slots [lo, lo + n) of the capacity's n_shards shards
+        self._lo, self._n, self._n_shards = 0, capacity, 1
+        self._lead = True          # writes the named checkpoints
+        if mesh is not None:
+            self._specs = sh.session_specs(self._state, mesh)
+            if self._specs.acc[0] is not None:
+                index, self._n_shards = sh.data_shard(mesh)
+                self._n = capacity // self._n_shards
+                self._lo = index * self._n
+            lo, hi = self._lo, self._lo + self._n
+            self._state = SessionState(*(
+                tuple(t[lo:hi].clone() for t in f) if isinstance(f, tuple)
+                else f[lo:hi].clone() for f in self._state))
+            self._lead = not any(mesh.get_coordinate())
         self._batched = step_fn if step_fn is not None \
             else make_batched_step(pipeline)
         self._batched.bind(self._state)
@@ -373,8 +431,57 @@ class StreamServer:
 
     def step_counts(self) -> dict:
         """This server's graphs captured, replays and eager runs (see
-        ``BatchedStep.counts``)."""
+        ``BatchedStep.counts``); under a mesh, this rank's."""
         return self._batched.counts(self._state)
+
+    @property
+    def local_slots(self) -> tuple:
+        """The slots ``[lo, hi)`` this rank holds and steps (all of them
+        without a mesh, or where the data axes do not divide them)."""
+        return self._lo, self._lo + self._n
+
+    @property
+    def sharded_state(self) -> SessionState:
+        """The slot-batched state as ``DTensor`` views of every rank's
+        slots, placed by ``sharding.session_specs`` (the mesh's state;
+        without a mesh, ``state``)."""
+        if self._mesh is None:
+            return self._state
+        from torch.distributed.tensor import DTensor
+        return sh.map_specs(lambda t, spec: DTensor.from_local(
+            t, self._mesh, sh.to_placements(spec, self._mesh),
+            run_check=False), self._state, self._specs)
+
+    # -- slots under a mesh ---------------------------------------------------
+
+    def _local(self, slot: int) -> Optional[int]:
+        """``slot``'s index in this rank's state, None if another rank
+        holds it."""
+        i = slot - self._lo
+        return i if 0 <= i < self._n else None
+
+    def _sync(self) -> None:
+        """Under a mesh, wait for every rank (after the first rank wrote
+        or deleted a named checkpoint the others read)."""
+        if self._mesh is not None:
+            sh.gather_ranks(torch.zeros(1), self._mesh)
+
+    def _take_slot(self, slot: int) -> SessionState:
+        """One slot's registers (copies), from the rank that holds it."""
+        i = self._local(slot)
+        if self._n_shards == 1:
+            return pl.take_slot(self._state, i)
+        row = pl.take_slot(self._state, 0 if i is None else i)
+        flat = torch.cat([_bits(t) for t in row.tensors()])
+        if i is None:
+            flat = torch.zeros_like(flat)
+        every = sh.gather_ranks(flat, self._mesh)
+        coord, shard = [0] * self._mesh.ndim, slot // self._n
+        names = list(self._mesh.mesh_dim_names)
+        for a in reversed(sh.data_axes(self._mesh)):
+            size = self._mesh.size(names.index(a))
+            coord[names.index(a)], shard = shard % size, shard // size
+        return _unbits(every[tuple(coord)], row)
 
     def stats(self) -> dict:
         total = sum(self.bucket_counts.values())
@@ -421,15 +528,19 @@ class StreamServer:
             now = self._clock()
             sess = Session(id=session_id, slot=slot, opened_at=now,
                            last_fed=now, max_history=self._max_history)
-            pl.clear_slots(self._state, [slot])
+            i = self._local(slot)
+            if i is not None:
+                pl.clear_slots(self._state, [i])
             name = self._ckpt_name(session_id)
             if self._manager is not None and self._manager.has_named(name):
                 row, meta = self._manager.restore_named(
-                    name, pl.take_slot(self._state, slot))
-                pl.put_slot(self._state, slot, row)
+                    name, pl.take_slot(self._state, 0))
+                if i is not None:
+                    pl.put_slot(self._state, i, row)
                 if meta:
                     sess.load_meta(meta)
-            pl.set_active(self._state, [slot], True)
+            if i is not None:
+                pl.set_active(self._state, [i], True)
         except Exception:
             self._free.append(slot)    # a failed admission keeps no slot
             raise
@@ -448,8 +559,12 @@ class StreamServer:
         if checkpoint:
             self._park(sess)
         elif self._manager is not None:
-            self._manager.delete_named(self._ckpt_name(session_id))
-        pl.set_active(self._state, [sess.slot], False)
+            if self._lead:
+                self._manager.delete_named(self._ckpt_name(session_id))
+            self._sync()
+        i = self._local(sess.slot)
+        if i is not None:
+            pl.set_active(self._state, [i], False)
         self._free.append(sess.slot)
         return sess
 
@@ -466,9 +581,11 @@ class StreamServer:
     def _park(self, sess: Session) -> None:
         if self._manager is None:
             raise RuntimeError("session checkpointing needs checkpoint_dir")
-        self._manager.save_named(self._ckpt_name(sess.id),
-                                 pl.take_slot(self._state, sess.slot),
-                                 meta=sess.meta())
+        row = self._take_slot(sess.slot)
+        if self._lead:
+            self._manager.save_named(self._ckpt_name(sess.id), row,
+                                     meta=sess.meta())
+        self._sync()
 
     def _check_poisoned(self) -> None:
         if self._poisoned is not None:
@@ -498,8 +615,17 @@ class StreamServer:
                 "checkpoint_dir to evict into")
         now = self._clock()
         lru = min(self._sessions.values(), key=lambda s: s.last_fed)
-        if self.evict_after is not None and \
-                now - lru.last_fed < self.evict_after:
+        refuse = self.evict_after is not None and \
+            now - lru.last_fed < self.evict_after
+        if self._mesh is not None:
+            # the victim by the first rank's clock, the same on every rank
+            mine = torch.tensor([-1 if refuse else lru.slot])
+            pick = sh.gather_ranks(mine, self._mesh).reshape(-1)[0].item()
+            refuse = pick < 0
+            if not refuse:
+                lru = next(s for s in self._sessions.values()
+                           if s.slot == pick)
+        if refuse:
             raise RuntimeError(
                 f"server at capacity ({self.capacity}); least-recent "
                 f"session {lru.id!r} idle {now - lru.last_fed:.1f}s < "
@@ -655,6 +781,7 @@ class StreamServer:
         self._queue_since = None
         pending = [list(r.segs) for r in reqs]
         wave_no = 0
+        failed = None       # (what, error) of this rank's failed step
         while any(pending):
             wave_no += 1
             wave, seen, finals = [], set(), []
@@ -674,13 +801,28 @@ class StreamServer:
                 buf.dirty.append(slot)
             what = (f"wave {wave_no} of a feed() call (bucket {L}, sessions "
                     f"{sorted(r.sid for r, _ in wave)})")
+            p = None
+            if failed is None:
+                try:
+                    chunk_dev, valid_dev = self._batched.inputs(self._state,
+                                                                L)
+                    lo, hi = self._lo, self._lo + self._n
+                    chunk_dev.copy_(buf.batch[lo:hi], non_blocking=True)
+                    valid_dev.copy_(buf.valid[lo:hi], non_blocking=True)
+                    _, p = self._step(self.pipeline, self._state, chunk_dev,
+                                      valid_dev)
+                except Exception as e:
+                    failed = (f"step raised {type(e).__name__} on {what}",
+                              e)
+                    if self._mesh is None:
+                        raise self._poison(failed[0]) from e
             try:
-                chunk_dev, valid_dev = self._batched.inputs(self._state, L)
-                chunk_dev.copy_(buf.batch, non_blocking=True)
-                valid_dev.copy_(buf.valid, non_blocking=True)
-                _, p = self._step(self.pipeline, self._state, chunk_dev,
-                                  valid_dev)
-                p_host = self._copy_out(p) if finals else None
+                if self._mesh is not None:
+                    # every rank joins every wave's gather, a failed one
+                    # with its flag up, so no rank waits on another
+                    p = self._gather_wave(p, failed is not None)
+                p_host = (self._copy_out(p)
+                          if finals or self._mesh is not None else None)
                 event = self._record()
             except Exception as e:
                 raise self._poison(f"step raised {type(e).__name__} on "
@@ -688,6 +830,7 @@ class StreamServer:
             self.steps_run += 1
             self.bucket_counts[L] = self.bucket_counts.get(L, 0) + 1
             buf.inflight = (event, what) if event is not None else None
+            last = (p_host, event, what)
             if finals:
                 # slots are taken now: a session cannot move before the
                 # resolve (close() flushes first)
@@ -696,6 +839,37 @@ class StreamServer:
                      [(r, self._sessions[r.sid].slot) for r in finals],
                      what))
         self._dispatched.extend(reqs)
+        if self._mesh is not None:
+            self._agree(failed, *last)
+
+    def _gather_wave(self, p: Optional[torch.Tensor],
+                     failed: bool) -> torch.Tensor:
+        """Every rank's decisions of a wave as (S + 1, C): a row per global
+        slot, then a row of ones if any rank's step failed in this dispatch
+        (``failed`` on this rank; ``p`` is then None), else zeros."""
+        C = self.pipeline.clf.params.b_pos.shape[0]
+        dev = self._state.acc.device
+        if p is None:
+            p = torch.zeros((self._n, C), dtype=torch.float32, device=dev)
+        local = torch.cat([p, torch.full((self._n, 1), float(failed),
+                                         dtype=p.dtype, device=dev)], 1)
+        every = sh.gather_ranks(local, self._mesh)
+        # the slot shards in order: the data axes' coordinates, the rest 0
+        dp = sh.data_axes(self._mesh) if self._n_shards > 1 else ()
+        rows = every[tuple(slice(None) if a in dp else 0
+                           for a in self._mesh.mesh_dim_names)]
+        flag = every[..., C].amax().reshape(1, 1).expand(1, C)
+        return torch.cat([rows.reshape(-1, C + 1)[:, :C], flag], 0)
+
+    def _agree(self, failed, p_host, event, what: str) -> None:
+        """End of a dispatch under a mesh: wait for its last wave and
+        poison this rank if its own step or another rank's failed."""
+        self._wait(event, what)
+        if failed is not None:
+            raise self._poison(failed[0]) from failed[1]
+        if p_host[-1, 0].item():
+            raise self._poison(f"another rank's step failed in the waves "
+                               f"up to {what}")
 
     def _copy_out(self, p: torch.Tensor) -> torch.Tensor:
         """The wave's decisions out of the step's output buffer, which the

@@ -4,7 +4,8 @@ Both write ``manifest.json`` plus ``leaf_00000.npy``... with the same leaf
 paths for the same tree, so each package restores what the other saved:
 named objects (a parked session's registers and history) and step-indexed
 checkpoints alike. The refusals (shape, dtype, missing leaf, bad name)
-raise what the reference raises.
+raise what the reference raises. A step checkpoint saved under a mesh
+(one gloo rank here) restores as without one and records the mesh.
 """
 
 import json
@@ -21,6 +22,9 @@ from repro.core import pipeline as pl_ref
 from repro_torch import bridge
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import pipeline as pl
+from repro_torch.distributed import sharding as sh
+from repro_torch.launch.mesh import make_host_mesh
+from torch_mesh_ranks import one_rank_group
 
 
 def _session(numerics, seed=0, S=3, T1=15, octaves=3, P=9):
@@ -185,7 +189,30 @@ def test_step_checkpoints_gc_async_and_cross_packages(tmp_path):
     _leaves_equal(state, _train_state(7))
     assert _manifest(tmp_path / "ref" / "step_00000007")["leaves"] == \
         _manifest(tmp_path / "step_00000005")["leaves"]
-    with pytest.raises(NotImplementedError, match="distributed slice"):
-        m.save(9, like, mesh=object())
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        m.save(9, like, mesh=object(), specs={})
+    # under a (one-rank) mesh: the same leaves back, the mesh and each
+    # leaf's spec in the manifest, the rest as without one
+    with one_rank_group(tmp_path):
+        mesh = make_host_mesh(device="cpu")
+        st = _train_state(9)
+        st["params"]["w"] = torch.from_numpy(st["params"]["w"])
+        specs = sh.param_specs(st, mesh)
+        m.save(9, sh.shard_tree(st, specs, mesh), mesh=mesh, specs=specs)
+        m.wait()
+        got, step = m.restore({**like, "params": {
+            **like["params"], "w": torch.zeros(4, 3)}}, mesh=mesh,
+            specs=specs)
+        assert step == 9 and sh.is_dtensor(got["params"]["w"])
+        _leaves_equal(jax.tree.map(lambda t: np.asarray(sh.full_tensor(t)),
+                                   got), _train_state(9))
+    meshed = _manifest(tmp_path / "step_00000009")
+    assert meshed["mesh_shape"] == [1, 1]
+    assert meshed["mesh_axes"] == ["data", "model"]
+    assert {leaf.pop("spec") for leaf in meshed["leaves"]} == \
+        {"PartitionSpec()"}
+    assert meshed["leaves"] == [
+        {k: v for k, v in leaf.items() if k != "spec"}
+        for leaf in _manifest(tmp_path / "step_00000005")["leaves"]]
     with pytest.raises(FileNotFoundError, match="no checkpoints"):
         CheckpointManager(str(tmp_path / "empty")).restore(like)

@@ -27,9 +27,11 @@ from repro.serving import StreamServer as RefServer
 from repro.serving import make_batched_step as ref_make_step
 from repro_torch import bridge
 from repro_torch.core import pipeline as pl
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.serving import (FeedRequest, StreamServer,
                                  make_batched_step)
+from torch_mesh_ranks import one_rank_group
 
 TOL = 1e-5
 LENS = [5, 16, 33, 64, 100]     # buckets 16 / 32 / 64, 100 splits
@@ -440,7 +442,7 @@ def test_stats_keys_match_reference():
     assert {k: got[k] for k in want} == want
 
 
-def test_step_refuses_foreign_inputs_and_states():
+def test_step_refuses_foreign_inputs_and_states(tmp_path):
     pipe, step = port("float")
     srv = port_server()
     chunk, valid = step.inputs(srv.state, 16)
@@ -451,8 +453,22 @@ def test_step_refuses_foreign_inputs_and_states():
     other, _ = port("fixed")
     with pytest.raises(ValueError, match="another pipeline"):
         StreamServer(other, step_fn=step)
-    with pytest.raises(NotImplementedError, match="distributed slice"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         StreamServer(pipe, mesh=object())
+    # a mesh (one gloo rank) is taken: its server decides and steps as one
+    # without, bit for bit
+    with one_rank_group(tmp_path):
+        meshed = StreamServer(pipe, step_fn=step,
+                              mesh=make_host_mesh(device="cpu"), **SERVER_KW)
+        plain = port_server()
+        rng = np.random.default_rng(4)
+        for server in (meshed, plain):
+            server.open("m")
+            server.open("n")
+        for reqs in [feeds(rng, ["m", "n"], 5) for _ in range(2)]:
+            assert key_of(meshed.feed(reqs)) == key_of(plain.feed(reqs))
+        for a, b in zip(meshed.state.tensors(), plain.state.tensors()):
+            assert torch.equal(a, b)
     # one state, written in place; p is the bucket's one output buffer
     state = srv.state
     srv.open("a")

@@ -68,6 +68,7 @@ from repro_torch.launch import train as train_launch
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
 from repro_torch.optim import adamw
+from torch_mesh_ranks import one_rank_group
 
 TOL = 1e-5
 STEP_TOL = 1e-4
@@ -402,10 +403,19 @@ def test_launch_train_resumes_from_a_checkpoint(tmp_path, capsys):
 
 
 def test_launch_train_refuses_a_mesh_and_runs_on_the_card_by_default(
-        monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 2"):
-        train_launch.main(["--arch", "qwen3-8b", "--smoke", "--mesh-data",
-                           "2", "--device", "cpu"])
+        monkeypatch, tmp_path):
+    """A mesh is no longer refused: ``--mesh-data 2`` on one process trains
+    on a (1, 1) mesh (clamped to the one rank, as the reference clamps to
+    its devices), with the losses of the run without it; what is refused
+    is a mesh argument that is not a ``DeviceMesh``."""
+    args = ["--arch", "qwen3-8b", "--smoke", "--steps", "3", "--batch", "2",
+            "--seq", "16", "--warmup", "1", "--device", "cpu"]
+    with one_rank_group(tmp_path):
+        meshed = train_launch.main(args + ["--mesh-data", "2"])
+    assert meshed == train_launch.main(args)
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        steps.make_train_step(get_smoke("qwen3-8b"), adamw.AdamWConfig(),
+                              mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train_launch.main(["--arch", "qwen3-8b", "--smoke", "--steps", "1"])

@@ -39,6 +39,7 @@ from repro_torch.kernels import ops
 from repro_torch.launch.serve import serve_decode
 from repro_torch.models import layers
 from repro_torch.models import transformer as T
+from torch_mesh_ranks import one_rank_group
 
 B, STEPS = 2, 4
 TOL32, TOL16 = 1e-4, 3e-2
@@ -271,19 +272,22 @@ def test_param_count_matches_reference():
                                 device="cpu")) == ref_n
 
 
-def test_unported_families_raise_naming_roadmap():
+def test_unported_families_raise_naming_roadmap(tmp_path):
     """Every family serves (tests/test_torch_archs.py); what still raises
-    and names ROADMAP.md: the train CLI on a family other than dense, and
-    on a mesh."""
+    and names ROADMAP.md: the train CLI on a family other than dense. On a
+    mesh it now trains (one gloo rank here: ``--mesh-model 2`` clamps to
+    (1, 1)), with the losses of the run without one."""
     from repro_torch.launch import train as train_launch
     for arch in ("deepseek-moe-16b", "mamba2-2.7b", "jamba-v0.1-52b",
                  "internvl2-2b", "hubert-xlarge"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             train_launch.main(["--arch", arch, "--smoke", "--steps", "1",
                                "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_launch.main(["--arch", "qwen3-8b", "--smoke", "--mesh-model",
-                           "2", "--device", "cpu"])
+    args = ["--arch", "qwen3-8b", "--smoke", "--steps", "2", "--batch",
+            "2", "--seq", "16", "--device", "cpu"]
+    with one_rank_group(tmp_path):
+        meshed = train_launch.main(args + ["--mesh-model", "2"])
+    assert len(meshed) == 2 and meshed == train_launch.main(args)
 
 
 def test_no_silent_cpu_without_cuda(monkeypatch):
