@@ -278,6 +278,44 @@ nothing of the reference package). Phases, each failing loudly:
              rank per device, so the decisions are gathered on the host),
              each rank's decisions bit for bit the server's without a
              mesh, each replaying its own graph over its 128 slots.
+16. train zoo — training the rest of the zoo in MP mode (runs between
+             13 and 14): mamba2-2.7b (64 layers), internvl2-2b (16 patches
+             + 16 tokens), hubert-xlarge (frames and per-frame labels) and
+             deepseek-moe-16b at the most layers whose step fits
+             (``ZOO_STEP_BYTES_PER_PARAM``), full width, bf16 compute,
+             seeded f32 masters, the batches ``launch.train`` builds (B =
+             2, seq = 32), AdamW lr 3e-4, three steps each at the config's
+             own remat (on), mamba2 again with remat off. Gates: losses
+             finite and falling; mp_linear and mp_linear_bwd launches per
+             step those of the layer plan under its remat
+             (``models.transformer.mp_train_launches``: every scanned
+             block and the loss chunk recomputed); mamba2's losses with
+             remat on and off within 1e-5 relative; every train shape's
+             MP call of the three-step run (64 rows, the tile the step
+             ran) and, at depth 1 (deepseek: its dense layer and one MoE
+             layer; f32, B = 1 x 16, MoE on the plain run's routes, the
+             router in f32), every MP call of the kernel path's
+             backward, each on its own operands, against the plain
+             versions: y within 1e-5 x (1 + max) of ``ref.mp_linear``
+             and on average within one final bisection bracket (gamma x
+             2^-26) of it, a mean the 22-step solve must miss; the
+             levels within 1e-6 x (1 + |z|) of the sort's with the same
+             supports off near-level branches; the grads pass within
+             1e-5 x max of its plain version, whose dv-flipped control
+             must miss (at the train shapes y and the levels on 2,048
+             columns spread over O, the grads pass whole); at depth 1
+             the loss within 1e-5 of the plain path's
+             (``plain_mp_grad``: ``ref.mp_linear``, the reference's
+             sort-based backward) and every gradient finite (the MP
+             gradient jumps where an operand crosses its level and the
+             two paths' f32 sums cross such points, so the per-leaf
+             gaps are printed, not gated). Printed: ms per
+             step, peak memory, the profiled step's device ms (the MP
+             forwards, the grads pass, the rest), each train shape's
+             levels-writing forward against its bound. The kernel rows of
+             6 and 6b carry this phase's launches as
+             ``train_zoo_path_launches``. The LM phases (11, 15) state
+             ``remat=False``, as they ran before remat was taken.
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -671,18 +709,41 @@ def is_bank_q_kernel(name: str) -> bool:
     return "fir_mp_oneshot_q" in name or "fir_mp_bank_q" in name
 
 
+CALL_MARK = "spin_kernel"    # torch.cuda._sleep's kernel, between calls
+
+
+def split_calls(evs, mine, per: int) -> list:
+    """The device records of a profile (in start order) cut into calls at
+    the ``CALL_MARK`` records that ``device_us`` launches before each call
+    and after the last: per call, its records other than the marks. A
+    call whose picked records (``mine(name)``) are not ``per`` lost one
+    (or a mark was lost, and two calls ran together) and is left out."""
+    calls, cur = [], []
+    for e in evs:
+        if CALL_MARK in e.name:
+            calls.append(cur)
+            cur = []
+        else:
+            cur.append(e)
+    calls.append(cur)
+    return [c for c in calls
+            if sum(1 for e in c if mine(e.name)) == per]
+
+
 def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
     """Device time of ``fn()`` under torch.profiler, per call: the launches
     of the kernel that ``mine(name)`` picks, in order, their total, every
     kernel's total, and how many kernels each call launched. The launches
-    a call makes are counted by the wrappers (``LAUNCHES``); a profile
-    that lost a launch's record is taken again, up to ``tries`` times,
-    after which a call of one launch is timed by the records that came
-    (some profiles of one-launch calls came back a record short). Where
-    no profile traced anything on the device (torch.profiler has been seen
-    to return no device records at all), every device time is None and the
-    call's CUDA-event time (launch gaps included) stands apart as
-    ``events_us``; ``timed_by`` says which (``device_fields``)."""
+    a call makes are counted by the wrappers (``LAUNCHES``). The profiler
+    has been seen to lose a kernel's record (one of 60, three profiles in
+    a row), so a one-cycle ``torch.cuda._sleep`` marks each call's start
+    and the last call's end (``split_calls``), and only the calls whose
+    records all came are timed; a profile with fewer than half its calls
+    whole is taken again, up to ``tries`` times. Where no profile traced
+    anything on the device (torch.profiler has been seen to return no
+    device records at all), every device time is None and the call's
+    CUDA-event time (launch gaps included) stands apart as ``events_us``;
+    ``timed_by`` says which (``device_fields``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -691,41 +752,43 @@ def device_us(fn, mine, reps: int = 10, tries: int = 3) -> dict:
     fn()
     torch.cuda.synchronize()
     per = sum(LAUNCHES.values()) - before
-    traced = False
+    traced, best, seen = False, [], set()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
+                torch.cuda._sleep(1)
                 fn()
+            torch.cuda._sleep(1)
             torch.cuda.synchronize()
         evs = sorted((e for e in prof.events()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: e.time_range.start)
-        traced = traced or bool(evs)
-        picked = [e for e in evs if mine(e.name)]
-        if per > 0 and len(picked) == per * reps:
+        traced = traced or any(CALL_MARK not in e.name for e in evs)
+        seen |= {e.name[:60] for e in evs}
+        whole = split_calls(evs, mine, per) if per > 0 else []
+        if len(whole) > len(best):
+            best = whole
+        if len(best) == reps:
             break
-    else:
-        if per > 0 and not traced:
-            log(f"device_us: the profiler traced nothing on the device in "
-                f"{tries} tries; device time not measured, CUDA events "
-                f"apart")
-            return dict(launch_us=None, kernel_us=None, all_us=None,
-                        kernels_per_call=None,
-                        events_us=cuda_ms(fn, reps) * 1e3,
-                        timed_by="cuda_events")
-        if not (per == 1 and len(picked) >= reps // 2):
-            raise AssertionError(
-                f"profiled {len(picked)} kernel launches in {reps} calls "
-                f"of {per} launches each: "
-                f"{sorted({e.name[:60] for e in evs})}")
-    calls = len(picked) // per      # the calls whose records all came
+    if per > 0 and not traced:
+        log(f"device_us: the profiler traced nothing on the device in "
+            f"{tries} tries; device time not measured, CUDA events apart")
+        return dict(launch_us=None, kernel_us=None, all_us=None,
+                    kernels_per_call=None, events_us=cuda_ms(fn, reps) * 1e3,
+                    timed_by="cuda_events")
+    if not len(best) >= max(1, reps // 2):
+        raise AssertionError(
+            f"profiled {len(best)} whole calls of {reps} ({per} launches "
+            f"each) in {tries} tries: {sorted(seen)}")
     us = [0.0] * per
-    for i, e in enumerate(picked):
-        us[i % per] += e.time_range.elapsed_us() / calls
+    for call in best:
+        for i, e in enumerate(e for e in call if mine(e.name)):
+            us[i] += e.time_range.elapsed_us() / len(best)
     return dict(launch_us=us, kernel_us=sum(us),
-                all_us=sum(e.time_range.elapsed_us() for e in evs) / calls,
-                kernels_per_call=len(evs) / calls, events_us=None,
-                timed_by="profiler")
+                all_us=sum(e.time_range.elapsed_us() for c in best
+                           for e in c) / len(best),
+                kernels_per_call=sum(len(c) for c in best) / len(best),
+                events_us=None, timed_by="profiler")
 
 
 def device_fields(prof: dict, b_ms: float | None = None) -> dict:
@@ -2725,16 +2788,36 @@ def newton_passes(x, w, gamma, iters: int, cap: int = 64):
     return passes, z_out
 
 
+def train_split(prof) -> dict:
+    """A profiled train step's device ms: the MP forwards (with levels,
+    and any without), row 6b's grads pass (and its partials' sum), the
+    rest."""
+    from torch.autograd import DeviceType
+    parts = {"forward_with_levels": 0.0, "forward_alone": 0.0,
+             "backward_grads": 0.0, "other": 0.0}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(e, "self_device_time_total", 0.0) * 1e-3
+        lv = re.search(r"mp_linear_kernel<.*,\s*(true|false)>", e.key)
+        if lv:
+            parts["forward_with_levels" if lv.group(1) == "true"
+                  else "forward_alone"] += t
+        elif ("mp_linear_grads_kernel" in e.key
+              or "mp_linear_dx_sum_kernel" in e.key):
+            parts["backward_grads"] += t
+        else:
+            parts["other"] += t
+    return parts
+
+
 def phase_train_lm(cfg):
     """qwen3-8b at full width, depth 2, MP mode: ``make_train_step`` on
     one TokenStream batch (B = 2, S = 32), three steps, one more under the
     profiler, then one more whose grads passes are recorded (x, w, g and
     the forward's levels lv as ``ops.mp_linear``'s backward passes them)
     for ``phase_mp_backward``."""
-    import re
-
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.data.tokens import TokenStream
     from repro_torch.distributed.steps import make_train_step
@@ -2751,7 +2834,8 @@ def phase_train_lm(cfg):
     n_params = T.param_count(state.params)
     toks = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch(0)
     batch = {"tokens": torch.as_tensor(toks).to(dev)}
-    per_step = 7 * cfg.num_layers + 1
+    # forward and backward launches per step, by the plan under cfg.remat
+    fwd_n, per_step = T.mp_train_launches(cfg, LM_SEQ)
     reset_launches()
     losses, norms, step_ms = [], [], []
     for _ in range(LM_STEPS):
@@ -2764,10 +2848,11 @@ def phase_train_lm(cfg):
     # what phase_mesh's sharded run is held to: the losses, and fixed
     # slices of the params after step 3 and after step 4 (the profiled)
     mesh_ref = dict(losses=list(losses), slices=[param_slices(state.params)])
-    want = per_step * LM_STEPS
-    if (launches["mp_linear"], launches["mp_linear_bwd"]) != (want, want):
+    want = (fwd_n * LM_STEPS, per_step * LM_STEPS)
+    if (launches["mp_linear"], launches["mp_linear_bwd"]) != want:
         raise AssertionError(f"train step launches {launches}: want "
-                             f"{per_step} forward and backward per step")
+                             f"{fwd_n} forward and {per_step} backward per "
+                             f"step (remat {cfg.remat})")
     if not (all(math.isfinite(v) for v in losses + norms)
             and losses[-1] < losses[0]):
         raise AssertionError(f"train step: losses {losses}, grad norms "
@@ -2788,21 +2873,7 @@ def phase_train_lm(cfg):
         if len(mesh_ref["losses"]) == LM_STEPS:
             mesh_ref["losses"].append(loss)
             mesh_ref["slices"].append(param_slices(state.params))
-        parts = {"forward_with_levels": 0.0, "forward_alone": 0.0,
-                 "backward_grads": 0.0, "other": 0.0}
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            t = getattr(e, "self_device_time_total", 0.0) * 1e-3
-            lv = re.search(r"mp_linear_kernel<.*,\s*(true|false)>", e.key)
-            if lv:
-                parts["forward_with_levels" if lv.group(1) == "true"
-                      else "forward_alone"] += t
-            elif ("mp_linear_grads_kernel" in e.key
-                  or "mp_linear_dx_sum_kernel" in e.key):
-                parts["backward_grads"] += t
-            else:
-                parts["other"] += t
+        parts = train_split(prof)
         busy = sum(parts.values())
         if busy:
             break
@@ -2816,7 +2887,7 @@ def phase_train_lm(cfg):
                              "forward under grad must write levels")
     log(dict(phase="train_lm", arch=cfg.name, layers=cfg.num_layers,
              d_model=cfg.d_model, vocab=cfg.vocab_size, mp_mode=True,
-             batch=LM_BATCH, seq=LM_SEQ, params=n_params,
+             remat=cfg.remat, batch=LM_BATCH, seq=LM_SEQ, params=n_params,
              losses=losses, grad_norms=norms, ms_per_step=step_ms,
              profiled_step_ms=prof_ms, device_ms=parts,
              device_busy_ms=busy,
@@ -2846,7 +2917,7 @@ def phase_train_lm(cfg):
     if len(calls) != per_step:
         raise AssertionError(f"recorded {len(calls)} backward calls, want "
                              f"{per_step}")
-    if fwd_levels != [True] * per_step:
+    if fwd_levels != [True] * fwd_n:
         raise AssertionError(f"train step forwards' levels {fwd_levels}: "
                              f"every forward under grad must write levels")
     del state, m
@@ -3025,6 +3096,7 @@ def phase_mesh(audio, cal, cfg, ref, card) -> dict:
     from repro_torch.distributed.steps import make_train_step
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as T
     from repro_torch.optim import AdamWConfig
     from repro_torch.serving import StreamServer
     t_phase = time.perf_counter()
@@ -3086,7 +3158,7 @@ def phase_mesh(audio, cal, cfg, ref, card) -> dict:
     placed = check_placed(state, specs, mesh, "init under the mesh")
     toks = TokenStream(cfg.vocab_size, LM_SEQ, LM_BATCH, seed=0).batch(0)
     batch = {"tokens": torch.as_tensor(toks).cuda()}
-    per_step = 7 * cfg.num_layers + 1
+    fwd_n, bwd_n = T.mp_train_launches(cfg, LM_SEQ)
     reset_launches()
     losses, step_ms = [], []
     for _ in range(LM_STEPS):
@@ -3130,16 +3202,17 @@ def phase_mesh(audio, cal, cfg, ref, card) -> dict:
                                               ref["slices"][1])
     launches.update(mp_linear=LAUNCHES["mp_linear"],
                     mp_linear_bwd=LAUNCHES["mp_linear_bwd"])
-    want = per_step * (LM_STEPS + 1)
-    if (launches["mp_linear"], launches["mp_linear_bwd"]) != (want, want):
+    want = (fwd_n * (LM_STEPS + 1), bwd_n * (LM_STEPS + 1))
+    if (launches["mp_linear"], launches["mp_linear_bwd"]) != want:
         raise AssertionError(f"mesh train launches {launches}: want {want} "
-                             "forward and backward")
+                             f"forward and backward (remat {cfg.remat})")
     bad = {k: v for k, v in gaps.items() if not v <= MESH_TRAIN_TOL}
     if bad or at != LM_STEPS:
         raise AssertionError(f"mesh train vs phase 11: {gaps} (gate "
                              f"{MESH_TRAIN_TOL}), restored step {at}")
     out["train"] = dict(
-        arch=cfg.name, layers=cfg.num_layers, steps=LM_STEPS + 1,
+        arch=cfg.name, layers=cfg.num_layers, remat=cfg.remat,
+        steps=LM_STEPS + 1,
         dtensor_leaves=placed, losses=losses + [loss4],
         phase11_losses=ref["losses"], gaps=gaps, gate=MESH_TRAIN_TOL,
         ms_per_step=step_ms, save_s=save_s, restore_s=restore_s,
@@ -3364,29 +3437,6 @@ def mp_cfg(arch: str, layers=None):
                               mp_gamma=MP_GAMMA)
     return cfg if layers is None else dataclasses.replace(
         cfg, num_layers=layers)
-
-
-def mp_launches_per_step(cfg) -> int:
-    """The mp_linear calls of one decode step (or one forward) as the
-    layer plan gives them: 4 per attention mixer, 2 per Mamba mixer, a
-    dense FFN's projections (3 SwiGLU, 2 GELU), a MoE FFN's shared
-    experts (one SwiGLU, 3; the router and the routed experts are torch
-    products), and the head."""
-    from repro_torch.models.transformer import _layer_plan
-    plan = _layer_plan(cfg)
-
-    def layer(mixer, is_moe):
-        n = 4 if mixer == "attn" else 2
-        if is_moe:
-            return n + (3 if cfg.num_shared_experts else 0)
-        return n + ((2 if cfg.norm == "ln" else 3) if cfg.d_ff > 0 else 0)
-
-    if plan["kind"] == "uniform":
-        n = (plan["n_prefix"] * layer("attn", False)
-             + plan["n_scan"] * layer(plan["mixer"], plan["is_moe"]))
-    else:
-        n = plan["n_groups"] * sum(layer(m, e) for m, e in plan["subs"])
-    return n + 1
 
 
 def clone_tree(t):
@@ -3639,7 +3689,7 @@ def held_forward(params, cfg, batch: dict, positions: int) -> tuple:
     import torch
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models import transformer as T
-    per_fwd = mp_launches_per_step(cfg)
+    per_fwd = T.mp_launches_per_step(cfg)
     B = next(iter(batch.values())).shape[0]
 
     def fwd():
@@ -3710,7 +3760,7 @@ def phase_decode(arch: str, layers, tol: float, control: int, why: str,
     cfg = mp_cfg(arch, layers)
     c32 = dataclasses.replace(cfg, compute_dtype="float32")
     params, init_s = init_params(cfg)
-    per_step = mp_launches_per_step(cfg)
+    per_step = T.mp_launches_per_step(cfg)
     k = cfg.num_experts_per_tok if cfg.num_experts else None
     B, prompt_len, gen = DECODE_B, DECODE_PROMPT, DECODE_GEN
     out = dict(phase="decode", arch=cfg.name, family=cfg.family, why=why,
@@ -3886,6 +3936,496 @@ def phase_encoder(card: str) -> dict:
     if gate["fails"]:
         raise AssertionError(f"{gate['check']}: " + "; ".join(gate["fails"]))
     return row
+
+
+# -- training the zoo: MP mode, remat -----------------------------------------
+
+ZOO_TRAIN = (
+    # arch, layers trained (None: all; "fit": the most whose step fits),
+    # why
+    ("mamba2-2.7b", None, "SSM: the SSD scan under grad, 64 layers (the "
+     "slice's headline; again with remat off)"),
+    ("internvl2-2b", None, "VLM: 16 patches + 16 tokens"),
+    ("hubert-xlarge", None, "audio: frames (2, 32, 1280), a label per "
+     "frame"),
+    ("deepseek-moe-16b", "fit", "MoE: the capacity path under grad, its "
+     "dense first layer and the MoE layers that fit"),
+)
+ZOO_B, ZOO_SEQ, ZOO_STEPS = 2, 32, 3
+# a step holds the f32 params, their grads and both moments (16 B per
+# param) and, during the update, the new params and moments beside the
+# old (12 B more): a depth is taken where 28 B per param fit in 90% of
+# the card
+ZOO_STEP_BYTES_PER_PARAM = 28
+ZOO_GATE_B, ZOO_GATE_SEQ = 1, 16
+ZOO_GATE_COLS = 2048      # train-shape calls: columns of y and the levels
+ZOO_LOSS_TOL = 1e-5       # the depth-1 loss, kernels vs plain, relative
+ZOO_REMAT_TOL = 1e-5      # mamba2's losses, remat on vs off, relative
+
+
+def zoo_layers(arch: str, layers, card_bytes: int) -> int | None:
+    """The depth to train: all (None), or with "fit" the most layers
+    whose step fits (``ZOO_STEP_BYTES_PER_PARAM`` x the params, counted
+    on fake tensors, within 90% of the card)."""
+    if layers != "fit":
+        return layers
+    from repro_torch.launch.specs import params_specs
+    from repro_torch.models import transformer as T
+    cfg = mp_cfg(arch)
+    best = None
+    for n in range(cfg.first_dense_layers + 1, cfg.num_layers + 1):
+        count = T.param_count(params_specs(dataclasses.replace(
+            cfg, num_layers=n)))
+        if ZOO_STEP_BYTES_PER_PARAM * count > 0.9 * card_bytes:
+            break
+        best = n
+    return best
+
+
+def zoo_batch(cfg, B: int, seq: int, dev) -> tuple:
+    """(the step's config, the batch on the card) as ``launch.train``
+    builds them: ``step_config`` (a VLM's patches cut to half of seq) and
+    ``make_batch`` from TokenStream's rows and a seeded numpy generator."""
+    import numpy as np
+    import torch
+    from repro_torch.data.tokens import TokenStream
+    from repro_torch.launch.train import make_batch, step_config
+    cfg = step_config(cfg, seq)
+    toks = TokenStream(cfg.vocab_size, seq, B, seed=0).batch(0)
+    batch = make_batch(cfg, toks, np.random.default_rng(0))
+    return cfg, {k: torch.as_tensor(v).to(dev) for k, v in batch.items()}
+
+
+def zoo_steps(cfg, batch, steps: int, record: bool = True) -> dict:
+    """``steps`` train steps from seeded masters (AdamW lr 3e-4): losses,
+    grad norms, host ms per step (synchronized), launches and peak
+    memory; then one step under the profiler (its device split) whose
+    mp_linear calls are recorded per shape if ``record`` (the first grads
+    pass's x, w, g and levels; the forward and backward calls). The state
+    is freed before returning."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.steps import make_train_step
+    from repro_torch.kernels import LAUNCHES, ops, reset_launches
+    from repro_torch.models import layers
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    dev = torch.device("cuda")
+    resident = free_card()
+    init_state, step = make_train_step(cfg, AdamWConfig(
+        lr=3e-4, warmup_steps=1, total_steps=10))
+    t0 = time.perf_counter()
+    state = init_state(torch.Generator(device=dev).manual_seed(0),
+                       device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = T.param_count(state.params)
+    reset_launches()
+    losses, norms, step_ms = [], [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    launches = (LAUNCHES["mp_linear"], LAUNCHES["mp_linear_bwd"])
+    peak = torch.cuda.max_memory_allocated()
+    real, real_grads, seen = layers.mp_linear, ops.mp_linear_grads_kernel, {}
+
+    def key(x2, w):
+        return (x2.shape[0], x2.shape[1], w.shape[1],
+                str(w.dtype).replace("torch.", ""))
+
+    def rec(x, w, gamma, **kw):
+        ent = seen.setdefault(key(x.reshape(-1, x.shape[-1]), w),
+                              [None, 0, 0])
+        ent[1] += 1
+        return real(x, w, gamma, **kw)
+
+    def rec_grads(x, w, g, lv):
+        ent = seen.setdefault(key(x, w), [None, 0, 0])
+        if ent[0] is None:
+            ent[0] = (x.detach(), w.detach(), g.detach(), lv.detach())
+        ent[2] += 1
+        return real_grads(x, w, g, lv)
+
+    patches = contextlib.ExitStack()
+    if record:
+        patches.enter_context(mock.patch.object(layers, "mp_linear", rec))
+        patches.enter_context(mock.patch.object(
+            ops, "mp_linear_grads_kernel", rec_grads))
+    with patches, profile(activities=[ProfilerActivity.CPU,
+                                      ProfilerActivity.CUDA]) as prof:
+        state, m = step(state, batch)
+        float(m["loss"])
+    parts = train_split(prof)
+    if not sum(parts.values()):
+        parts = None          # the profiler traced nothing on the device
+    del state, m
+    free_card()
+    return dict(params=n_params, init_s=init_s, losses=losses,
+                grad_norms=norms, ms_per_step=step_ms, launches=launches,
+                peak_memory_bytes=peak, memory_resident_before=resident,
+                device_ms=parts, calls=seen)
+
+
+def zoo_shapes(seen: dict, gamma: float) -> list:
+    """Each recorded train shape (rows, d, O, w dtype) on the step's own
+    operands, by CUDA events: the levels-writing forward (the launch a
+    training forward makes) against the bound of its product
+    (``ops_mp_linear``: x, w read once, y written; the levels' tail is
+    row 6b's), and the grads pass (row 6b's launch in the backward)
+    against the bound of its mask pass (10 ops per (b, o, i) and one per
+    level: x, w, g, the levels read, dx and dw written), per call and
+    with its forward and backward calls per step."""
+    from repro_torch.kernels.mp_kernels import (mp_linear_grads_kernel,
+                                                mp_linear_kernel,
+                                                mp_linear_plan)
+    out = []
+    for (rows, d, O, wdt), (operands, n_fwd, n_bwd) in sorted(
+            seen.items()):
+        if operands is None:
+            raise AssertionError(f"no grads pass recorded at rows={rows} "
+                                 f"d={d} O={O}")
+        x, w, g, lv = operands
+        reps = 3 if rows * d * O > 2e9 else 10
+        f_ms = cuda_ms(lambda: mp_linear_kernel(x, w, gamma, levels=True),
+                       reps)
+        g_ms = cuda_ms(lambda: mp_linear_grads_kernel(x, w, g, lv), reps)
+        nb = 4 * rows * d + w.element_size() * d * O + 4 * rows * O
+        fb_ms, f_by = bound_ms(ops_mp_linear(rows, d, O), nb)
+        gb_ms, g_by = bound_ms(
+            10 * rows * O * d + 2 * rows * O,
+            2 * 4 * rows * d + (w.element_size() + 4) * d * O
+            + 4 * rows * O * 5)
+        plan = mp_linear_plan(rows, d, O, w.dtype)
+        out.append(dict(rows=rows, d=d, O=O, w=wdt, forward_calls=n_fwd,
+                        tile=(plan["BB"], plan["TO"], plan["resident"]),
+                        backward_calls=n_bwd, ms_with_levels=f_ms,
+                        bound_ms=fb_ms, bound_by=f_by,
+                        forward_x_bound=f_ms / fb_ms, grads_ms=g_ms,
+                        grads_bound_ms=gb_ms, grads_bound_by=g_by,
+                        grads_x_bound=g_ms / gb_ms))
+    return out
+
+
+def _mp_function(fwd, bwd):
+    """A ``layers.mp_linear`` stand-in from ``fwd(x2, w, gamma) -> (y,
+    saved)`` and ``bwd(x2, w, g, gamma, saved) -> (dx, dw)``."""
+    import torch
+
+    def mp(x, w, gamma, **kw):
+        class F(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x2, w):
+                y, saved = fwd(x2, w, gamma)
+                ctx.save_for_backward(x2, w, saved)
+                return y
+
+            @staticmethod
+            def backward(ctx, g):
+                x2, w, saved = ctx.saved_tensors
+                dx, dw = bwd(x2, w, g.float(), gamma, saved)
+                return dx, dw.to(w.dtype)
+
+        y = F.apply(x.reshape(-1, x.shape[-1]), w)
+        return y.reshape(*x.shape[:-1], w.shape[1])
+    return mp
+
+
+def plain_mp_grad():
+    """The plain versions with the reference's rule as the backward:
+    ``ref.mp_linear`` forward, ``ref.mp_linear_bwd`` (the sort-based
+    masks of the exact levels) backward."""
+    from repro_torch.kernels import ref
+    return _mp_function(
+        lambda x, w, g: (ref.mp_linear(x, w, g), x.new_empty(0)),
+        lambda x, w, gy, g, _: ref.mp_linear_bwd(x, w, gy, g))
+
+
+def zoo_call_gates(calls, gamma: float, cols: int = 0) -> dict:
+    """Each MP call (its own x, w, output gradient g and the levels lv its
+    forward wrote) against the plain versions on the same operands, the
+    kernels launched at the call's own shape (so in the tile the main path
+    ran): y within KERNEL_TOL x (1 + max) of ``ref.mp_linear``'s, and on
+    average within one final bisection bracket (gamma x 2^-26) of it, a
+    mean the 22-step solve must miss; the levels within LEVEL_TOL x (1 +
+    |z|) of the sort's and the supports equal off the near-level branches;
+    the grads pass within KERNEL_TOL x max of its plain version on those
+    levels, whose dv-flipped control must miss. ``cols`` > 0 holds y and
+    the levels on that many columns spread over O (the first and the last
+    among them), which bounds the plain bisection and sort; the grads pass
+    is held whole. Returns the worst of each and the failures."""
+    import torch
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.mp_kernels import (mp_linear_grads_kernel,
+                                                mp_linear_kernel)
+    bracket = gamma * 2.0 ** -ref.DEFAULT_ITERS
+    out = dict(calls=len(calls), y_rel=0.0, y_mean_gap=0.0,
+               y_22_rel=0.0, y_22_mean_gap=math.inf,
+               y_mean_gate=bracket, z_gap=0.0, supports_off=0,
+               near_level_branches=0, grads_rel=0.0, flipped_rel=math.inf,
+               fails=[])
+    for x, w, g, lv in calls:
+        O = w.shape[1]
+        sel = (torch.arange(O, device=w.device) if not cols or O <= cols
+               else torch.linspace(0, O - 1, cols,
+                                   device=w.device).round().long())
+        wf = w.float()
+        ws = wf[:, sel]
+        want = ref.mp_linear(x, ws, gamma)
+        top = 1.0 + float(want.abs().max())
+        y_d = (mp_linear_kernel(x, w, gamma)[:, sel] - want).abs()
+        y_22 = (mp_linear_kernel(x, w, gamma, CONTROL_GATE_ITERS)[:, sel]
+                - want).abs()
+        want_lv = ref.mp_linear_levels(x, ws, gamma)
+        lv_s = lv[:, sel]
+        z_gap = float(((lv_s[..., :2] - want_lv[..., :2]).abs()
+                       / (1 + want_lv[..., :2].abs())).max())
+        near = ref.mp_linear_near_level(x, ws, want_lv[..., :2], LEVEL_TOL)
+        k_off = int(((lv_s[..., 2:] != want_lv[..., 2:]) & ~near).sum())
+        dx, dw = mp_linear_grads_kernel(x, w, g, lv)
+        own_dx, own_dw = ref.mp_linear_bwd_from_levels(x, wf, g, lv)
+        flip = lv.clone()
+        flip[..., 3] = -flip[..., 3]
+        c_dx, c_dw = ref.mp_linear_bwd_from_levels(x, wf, g, flip)
+
+        def rel(a, b):
+            return float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+        grads = max(rel(dx, own_dx), rel(dw, own_dw))
+        flipped = max(rel(c_dx, own_dx), rel(c_dw, own_dw))
+        out.update(y_rel=max(out["y_rel"], float(y_d.max()) / top),
+                   y_mean_gap=max(out["y_mean_gap"], float(y_d.mean())),
+                   y_22_rel=max(out["y_22_rel"], float(y_22.max()) / top),
+                   y_22_mean_gap=min(out["y_22_mean_gap"],
+                                     float(y_22.mean())),
+                   z_gap=max(out["z_gap"], z_gap),
+                   supports_off=out["supports_off"] + k_off,
+                   near_level_branches=out["near_level_branches"]
+                   + int(near.sum()),
+                   grads_rel=max(out["grads_rel"], grads),
+                   flipped_rel=min(out["flipped_rel"], flipped))
+        del want, y_d, y_22, want_lv, near, own_dx, own_dw, c_dx, c_dw, flip
+    if not out["y_rel"] <= KERNEL_TOL:
+        out["fails"].append(f"y {out['y_rel']} > {KERNEL_TOL}")
+    if not out["y_mean_gap"] <= bracket:
+        out["fails"].append(f"y's mean gap {out['y_mean_gap']} > {bracket}")
+    if not out["y_22_mean_gap"] > bracket:
+        out["fails"].append(f"the {CONTROL_GATE_ITERS}-step control passes: "
+                            f"y's mean gap {out['y_22_mean_gap']}")
+    if not out["z_gap"] <= LEVEL_TOL:
+        out["fails"].append(f"levels {out['z_gap']} > {LEVEL_TOL}")
+    if out["supports_off"]:
+        out["fails"].append(f"{out['supports_off']} supports off the "
+                            "sort's away from a tie")
+    if not out["grads_rel"] <= KERNEL_TOL:
+        out["fails"].append(f"grads pass {out['grads_rel']} > {KERNEL_TOL}")
+    if not out["flipped_rel"] > KERNEL_TOL:
+        out["fails"].append(f"the flipped control passes: "
+                            f"{out['flipped_rel']}")
+    return out
+
+
+def zoo_grad_gate(arch: str, layers: int) -> dict:
+    """``arch`` at full width, ``layers`` deep, f32 compute, remat off, B
+    = 1 x 16 positions, the loss's gradients through the kernels against
+    those through the plain versions (``plain_mp_grad``), MoE layers on
+    the plain run's routes (the router in f32, as the decode gates run
+    it). The MP gradient is discontinuous where an operand sits at its
+    level (a flip moves the level's support count k, and 1 / k scales a
+    whole row of dx and column of dw), and at full width the two paths'
+    f32 sums (~1e-7 apart) cross such points; so the gate is per call,
+    on each call's own operands (``zoo_call_gates``), and the model's
+    loss within ``ZOO_LOSS_TOL``; every gradient finite, and the largest
+    per-leaf gaps from the plain path's printed."""
+    import contextlib
+    from unittest import mock
+
+    import torch
+    from repro_torch.checkpoint.manager import _flatten, _path_str
+    from repro_torch.distributed.steps import make_loss_fn
+    from repro_torch.kernels import ops
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(mp_cfg(arch, layers), compute_dtype="float32",
+                              remat=False)
+    cfg, batch = zoo_batch(cfg, ZOO_GATE_B, ZOO_GATE_SEQ, dev)
+    params, _ = init_params(cfg)
+    names = [_path_str(p) for p, _ in _flatten(params)]
+    plain = plain_mp_grad()
+    plain_scores, calls = [], []
+    real_grads = ops.mp_linear_grads_kernel
+
+    def record(x, w, g, lv):
+        calls.append((x.detach(), w.detach(), g.detach(), lv.detach()))
+        return real_grads(x, w, g, lv)
+
+    def grads(mp, keep_calls=False):
+        scores = []
+        real = moe._route_scores
+
+        def route(logits):
+            s = real(logits)
+            scores.append(s.detach().clone())
+            return s if mp is plain else plain_scores[len(scores) - 1]
+
+        swap = (mock.patch.object(L, "mp_linear", mp) if mp
+                else contextlib.nullcontext())
+        rec = (mock.patch.object(ops, "mp_linear_grads_kernel", record)
+               if keep_calls else contextlib.nullcontext())
+        with swap, rec, mock.patch.object(moe, "_route_scores", route), \
+                mock.patch.dict(L.linear.__kwdefaults__,
+                                {"compute_dtype": torch.float32}):
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              params)
+            loss = make_loss_fn(cfg)(leaves, batch)
+            loss.backward()
+        torch.cuda.synchronize()
+        if mp is plain:
+            plain_scores[:] = scores
+        return float(loss.detach()), [p.grad for p in tree_leaves(leaves)]
+
+    t0 = time.perf_counter()
+    p_loss, want = grads(plain)
+    plain_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    k_loss, got = grads(None, keep_calls=True)
+    kernel_s = time.perf_counter() - t0
+
+    def leaf_gaps(gs) -> list:
+        """(leaf, max |diff| / max |plain|, L2 |diff| / L2 |plain|), the
+        largest L2 first."""
+        out = [(n, float((a - b).abs().max() / b.abs().max()),
+                float((a - b).norm() / b.norm()))
+               for n, a, b in zip(names, gs, want) if float(b.abs().max())]
+        return sorted(out, key=lambda t: -t[2])
+
+    kernel = leaf_gaps(got)
+    per_call = zoo_call_gates(calls, cfg.mp_gamma)
+    loss_gap = abs(k_loss - p_loss) / abs(p_loss)
+    fails = list(per_call.pop("fails"))
+    want_calls = T.mp_train_launches(cfg, ZOO_GATE_SEQ)[1]
+    if per_call["calls"] != want_calls:
+        fails.append(f"{per_call['calls']} grads passes recorded, the "
+                     f"plan's {want_calls}")
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+        fails.append("a gradient is not finite")
+    if not loss_gap <= ZOO_LOSS_TOL:
+        fails.append(f"loss {loss_gap} > {ZOO_LOSS_TOL}")
+    del params, got, want, calls
+    free_card()
+    return dict(check=f"{arch} gradients, {layers} layers, f32, B = "
+                f"{ZOO_GATE_B} x {ZOO_GATE_SEQ}", loss=k_loss,
+                plain_loss=p_loss, loss_rel_gap=loss_gap,
+                loss_gate=ZOO_LOSS_TOL, per_call=per_call,
+                kernel_leaves=kernel[:3], kernel_s=kernel_s,
+                plain_s=plain_s, fails=fails)
+
+
+def phase_train_zoo(card: str) -> dict:
+    """Training the zoo in MP mode on the card (bf16 compute, seeded f32
+    masters, AdamW lr 3e-4, the launcher's batches at B = 2, seq = 32),
+    each config at its own remat (on): mamba2-2.7b (64 layers, then again
+    with remat off), internvl2-2b, hubert-xlarge, deepseek-moe-16b at the
+    depth that fits; three steps each. Gates: losses finite and falling;
+    ``mp_linear`` / ``mp_linear_bwd`` launches per step those of the
+    layer plan under its remat (``mp_train_launches``); mamba2's losses
+    with remat on and off within ``ZOO_REMAT_TOL``; at depth 1 (deepseek:
+    its dense layer and one MoE layer), each config's MP calls, loss and
+    gradients through the kernels against the plain versions
+    (``zoo_grad_gate``); and every train shape's MP call of the three-step
+    run, on its own operands (``zoo_call_gates``). Printed:
+    ms per step, the profiled step's device split, peak memory, each
+    train shape's levels-writing forward against its bound. Returns the
+    launches of the three-step runs (the path's own, counted from 0)."""
+    import torch
+    from repro_torch.models import transformer as T
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    out = dict(phase="train_zoo", batch=ZOO_B, seq=ZOO_SEQ,
+               steps=ZOO_STEPS, card=card, configs=[])
+    fails = []
+    total = [0, 0]
+    for arch, layers, why in ZOO_TRAIN:
+        n = zoo_layers(arch, layers, card_bytes)
+        cfg, batch = zoo_batch(mp_cfg(arch, n), ZOO_B, ZOO_SEQ, dev)
+        runs = [cfg] + ([dataclasses.replace(cfg, remat=False)]
+                        if arch == "mamba2-2.7b" else [])
+        rows = []
+        for c in runs:
+            t0 = time.perf_counter()
+            # the remat-off rerun has the same shapes: recorded once
+            r = zoo_steps(c, batch, ZOO_STEPS, record=c is cfg)
+            want = tuple(ZOO_STEPS * k
+                         for k in T.mp_train_launches(c, ZOO_SEQ))
+            total[0] += r["launches"][0]
+            total[1] += r["launches"][1]
+            steps_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            seen = r.pop("calls")
+            shapes = zoo_shapes(seen, c.mp_gamma)
+            r.update(steps_s=steps_s, shapes_s=time.perf_counter() - t0)
+            if seen:
+                # every train shape's first grads pass, at its own rows
+                t0 = time.perf_counter()
+                r["call_gates"] = zoo_call_gates(
+                    [seen[k][0] for k in sorted(seen)], c.mp_gamma,
+                    ZOO_GATE_COLS)
+                r["call_gates_s"] = time.perf_counter() - t0
+                fails += [f"{arch} train shapes: {f}"
+                          for f in r["call_gates"].pop("fails")]
+            del seen
+            ok = (all(math.isfinite(v) for v in r["losses"] + r["grad_norms"])
+                  and r["losses"][-1] < r["losses"][0])
+            if not ok:
+                fails.append(f"{arch} remat {c.remat}: losses {r['losses']}")
+            if r["launches"] != want:
+                fails.append(f"{arch} remat {c.remat}: launches "
+                             f"{r['launches']}, the plan's {want}")
+            per_step = {} if not shapes else dict(
+                mp_forward_ms_with_levels=sum(
+                    s["ms_with_levels"] * s["forward_calls"] for s in shapes),
+                mp_forward_bound_ms=sum(
+                    s["bound_ms"] * s["forward_calls"] for s in shapes),
+                grads_ms=sum(s["grads_ms"] * s["backward_calls"]
+                             for s in shapes),
+                grads_bound_ms=sum(s["grads_bound_ms"] * s["backward_calls"]
+                                   for s in shapes))
+            rows.append(dict(r, remat=c.remat, launches_by_plan=want,
+                             shapes=shapes, **per_step))
+        entry = dict(arch=arch, why=why, family=cfg.family,
+                     layers=cfg.num_layers,
+                     layers_full=mp_cfg(arch).num_layers,
+                     d_model=cfg.d_model, vocab=cfg.vocab_size,
+                     batch_keys={k: list(v.shape) for k, v in batch.items()},
+                     runs=rows)
+        if len(rows) == 2:
+            gap = max(abs(a - b) / abs(b) for a, b in
+                      zip(rows[0]["losses"], rows[1]["losses"]))
+            entry["remat_loss_rel_gap"] = gap
+            if not gap <= ZOO_REMAT_TOL:
+                fails.append(f"{arch}: remat on vs off, losses {gap} apart")
+        del batch
+        t0 = time.perf_counter()
+        gate = zoo_grad_gate(arch, 2 if cfg.first_dense_layers else 1)
+        entry["gate"] = dict(gate, gate_s=time.perf_counter() - t0)
+        fails += [f"{gate['check']}: {f}" for f in gate["fails"]]
+        out["configs"].append(entry)
+        log(dict(phase="train_zoo", **entry, card=card))
+    out["launches"] = dict(mp_linear=total[0], mp_linear_bwd=total[1])
+    out["phase_s"] = time.perf_counter() - t_phase
+    log({k: v for k, v in out.items() if k != "configs"})
+    if fails:
+        raise AssertionError(" | ".join(fails))
+    return out["launches"]
 
 
 # -- the fixed-point IR and static-analysis tier --------------------------------
@@ -4224,6 +4764,9 @@ def main() -> int:
     t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
+    log(f"device memory: "
+        f"{torch.cuda.get_device_properties(0).total_memory} bytes "
+        "(total_memory)")
     log(f"torch {torch.__version__} cuda {torch.version.cuda} python "
         f"{sys.version.split()[0]}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4256,7 +4799,8 @@ def main() -> int:
     lin_row, wf_row = phase_mp_kernels(qwen)
 
     phase_train()
-    qwen2 = dataclasses.replace(qwen, num_layers=2)
+    # remat off, as the LM cell has always run (its times stay comparable)
+    qwen2 = dataclasses.replace(qwen, num_layers=2, remat=False)
     bwd_launches, bwd_device_ms, bwd_calls, mesh_ref = phase_train_lm(qwen2)
     bwd_row = phase_mp_backward(bwd_calls, qwen2.num_layers, qwen2.mp_gamma)
     del bwd_calls
@@ -4267,6 +4811,7 @@ def main() -> int:
     qwen_out = decoded[0][0]
     decode_rows = [r for _, rows in decoded for r in rows]
     decode_rows.append(phase_encoder(card))
+    zoo_launches = phase_train_zoo(card)
     phase_ir(card, clips)
 
     src = "src/repro_torch/kernels/csrc/"
@@ -4310,6 +4855,7 @@ def main() -> int:
              replaces="src/repro/kernels/mp_linear.py:89",
              launches=qwen_out["mp_linear_launches"],
              mesh_path_launches=mesh_launches["mp_linear"],
+             train_zoo_path_launches=zoo_launches["mp_linear"],
              device_ms=qwen_out["mp_linear_device_ms_per_step"],
              device_timed_by=("profiler"
                               if qwen_out["mp_linear_device_ms_per_step"]
@@ -4319,6 +4865,7 @@ def main() -> int:
              replaces="src/repro/kernels/ops.py:73",
              launches=bwd_launches,
              mesh_path_launches=mesh_launches["mp_linear_bwd"],
+             train_zoo_path_launches=zoo_launches["mp_linear_bwd"],
              device_ms=bwd_device_ms,
              device_timed_by="profiler" if bwd_device_ms else None,
              library_ms=None),
@@ -4330,6 +4877,7 @@ def main() -> int:
          for r in decode_rows]
     keys = ("name", "at", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "mesh_path_launches",
+            "train_zoo_path_launches",
             "max_abs_err", "ms",
             "device_ms", "device_timed_by", "plain_ms", "bound_ms",
             "bound_by", "x_bound", "library_ms")

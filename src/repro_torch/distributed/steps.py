@@ -76,32 +76,53 @@ def _local_rows(batch: dict, mesh, accum: int) -> dict:
     return out
 
 
+def _hidden_and_labels(params, cfg, batch):
+    """The final hidden states aligned with their labels, per modality
+    (the reference's ``_labels_and_logits``): audio frames with their own
+    labels, every frame and no shift; else next-token prediction, a VLM's
+    patch positions dropped before the shift."""
+    h = T.forward(params, cfg, batch, return_hidden=True)
+    if cfg.audio_frontend:
+        return h, batch["labels"].long()
+    if cfg.vlm_patches:
+        h = h[:, cfg.vlm_patches:]
+    return h[:, :-1], batch["tokens"][:, 1:].long()
+
+
+def _chunk_ce(hc, lc, head, cfg):
+    """The summed cross entropy of one sequence chunk: its logits through
+    the head (an MP product in ``mp_mode``), labels < 0 masked."""
+    logits = L.linear(hc, head, mp_mode=cfg.mp_mode, mp_gamma=cfg.mp_gamma,
+                      compute_dtype=L.cdt(cfg)).float()
+    m = logits.amax(-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
+    valid = lc >= 0
+    gold = torch.where(valid, logits.gather(
+        -1, lc.clamp_min(0)[..., None])[..., 0], 0.0)
+    return ((logz - gold) * valid.float()).sum()
+
+
 def make_loss_fn(cfg, seq_chunk: int = 1024, mesh=None):
-    """Chunked cross entropy of next-token prediction: the head (through
-    ``layers.linear``, so an MP product in ``mp_mode``) and the softmax run
-    one sequence chunk of ``seq_chunk`` positions at a time, so the (B, S,
-    V) logits never exist at once. Mean over the labelled positions; under
-    ``mesh``, this rank's share of the mean over the global batch (its sum
-    over the global count)."""
+    """Chunked cross entropy: the head (through ``layers.linear``, so an
+    MP product in ``mp_mode``) and the softmax run one sequence chunk of
+    ``seq_chunk`` positions at a time, so the (B, S, V) logits never exist
+    at once; under ``cfg.remat`` each chunk is recomputed in the backward
+    (the reference's ``jax.checkpoint(chunk_ce)``). Labels per modality
+    (``_hidden_and_labels``): audio ``batch["labels"]`` per frame, else
+    the next tokens (after a VLM's patches). Mean over the labelled
+    positions (labels >= 0); under ``mesh``, this rank's share of the mean
+    over the global batch (its sum over the global count)."""
+    chunk_ce = L.remat(_chunk_ce, cfg)
 
     def loss_fn(params, batch):
-        h = T.forward(params, cfg, batch, return_hidden=True)[:, :-1]
-        labels = batch["tokens"][:, 1:].long()
+        h, labels = _hidden_and_labels(params, cfg, batch)
         head = T.head(params, cfg)
         S2 = h.shape[1]
         C = min(seq_chunk, S2)
         tot = torch.zeros((), dtype=torch.float32, device=h.device)
         for c0 in range(0, S2, C):
-            hc, lc = h[:, c0:c0 + C], labels[:, c0:c0 + C]
-            logits = L.linear(hc, head, mp_mode=cfg.mp_mode,
-                              mp_gamma=cfg.mp_gamma,
-                              compute_dtype=L.cdt(cfg)).float()
-            m = logits.amax(-1, keepdim=True).detach()
-            logz = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
-            valid = lc >= 0
-            gold = torch.where(valid, logits.gather(
-                -1, lc.clamp_min(0)[..., None])[..., 0], 0.0)
-            tot = tot + ((logz - gold) * valid.float()).sum()
+            tot = tot + chunk_ce(h[:, c0:c0 + C], labels[:, c0:c0 + C],
+                                 head, cfg)
         n = torch.clamp_min(_dp_sum((labels >= 0).sum().float(), mesh), 1.0)
         return tot / n
 
@@ -110,8 +131,9 @@ def make_loss_fn(cfg, seq_chunk: int = 1024, mesh=None):
 
 def make_train_step(cfg, opt: AdamWConfig, accum: int = 1, mesh=None):
     """``accum`` > 1 splits the batch (this rank's rows of it, under
-    ``mesh``) into that many microbatches whose gradients are averaged
-    before the one AdamW update."""
+    ``mesh``; every entry, ``tokens``, ``frames``, ``labels``, ``patches``,
+    by its leading dim) into that many microbatches whose gradients are
+    averaged before the one AdamW update."""
     if mesh is not None:
         from torch.distributed.device_mesh import DeviceMesh
         if not isinstance(mesh, DeviceMesh):
@@ -138,13 +160,13 @@ def make_train_step(cfg, opt: AdamWConfig, accum: int = 1, mesh=None):
     def grads_of(params, batch):
         if accum == 1:
             return value_and_grad(params, batch)
-        B = batch["tokens"].shape[0]
+        first = next(iter(batch.values()))
+        B = first.shape[0]
         if B % accum:
             raise ValueError(f"batch {B} does not split into {accum} "
                              "microbatches")
         mb = B // accum
-        loss_sum = torch.zeros((), dtype=torch.float32,
-                               device=batch["tokens"].device)
+        loss_sum = torch.zeros((), dtype=torch.float32, device=first.device)
         gsum = tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                         params)
         for a in range(accum):

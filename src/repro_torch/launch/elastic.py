@@ -13,6 +13,11 @@ The counterpart of the reference's ``repro.launch.elastic``:
 3. restore the checkpoint with B's placements (``CheckpointManager.restore``
    reshards whatever mesh wrote it);
 4. continue training; the loss continues and does not reset.
+
+Any ``--arch`` whose batch is tokens (dense, MoE, SSM, the hybrid), at its
+smoke size. The audio encoder and the VLM need frames or patches, which
+this token stream does not give: they raise ``ValueError`` (the
+reference's elastic feeds them tokens and fails at the embed).
 """
 
 from __future__ import annotations
@@ -64,11 +69,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     cfg = get_smoke(args.arch)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            "yet; it is queued in ROADMAP.md (section 1, 'Modules still to "
-            "port', item 7)")
+    if cfg.audio_frontend or cfg.vlm_patches:
+        raise ValueError(
+            f"{cfg.name}: elastic trains on token batches only, and the "
+            f"{cfg.family} family's embedding needs "
+            f"{'frames' if cfg.audio_frontend else 'patches'} (as the "
+            "reference's elastic, which fails at the embed there); train it "
+            "with launch.train")
     dev = resolve_device(args.device)
     ensure_process_group(dev)
     ckpt = CheckpointManager(args.ckpt_dir, keep_last=2)

@@ -84,11 +84,17 @@ def make_production_mesh(shape: tuple = (2, 16, 16), device=None):
 
 
 class HW:
-    """TPU v5e constants of the reference's roofline model, kept as they
-    are until the dry-run tier is ported (ROADMAP.md §1 item 7), where they
-    become the H100's."""
-    PEAK_FLOPS_BF16 = 197e12      # per chip
-    HBM_BW = 819e9                # bytes/s per chip
-    ICI_BW = 50e9                 # bytes/s per link (~per-direction)
-    HBM_BYTES = 16 * 2 ** 30      # 16 GiB
-    VMEM_BYTES = 128 * 2 ** 20
+    """The card's constants for the dry run's roofline
+    (``launch.dryrun.roofline``), from NVIDIA's H100 SXM5 80 GB data sheet
+    (dense rates, no sparsity, at its 700 W power limit): data-sheet
+    figures, not measurements. A card set below 700 W runs slower."""
+    PEAK_FLOPS_BF16 = 989e12      # bf16 tensor cores, dense, per card
+    HBM_BW = 3.35e12              # HBM3 bytes/s per card
+    # the card's memory as torch reports it (total_memory of an NVIDIA
+    # H100 80GB HBM3, 700 W, as chip_smoke.py prints it)
+    HBM_BYTES = 85_017_493_504
+    NVLINK_BW = 450e9             # NVLink 4, bytes/s per card per
+                                  # direction (900 GB/s both ways), inside
+                                  # an 8-card node
+    NET_BW = 50e9                 # between nodes: one 400 Gb/s NIC per
+                                  # card, bytes/s per direction

@@ -19,10 +19,15 @@ above 1 train on a ``("data", "model")`` mesh (``launch.mesh.make_host_mesh``,
 its sizes clamped to the ranks there are; one process per rank, under
 ``torchrun``): params and moments sharded by ``sharding.param_specs``, the
 batch split over 'data', checkpoints saved and restored under the mesh
-(a checkpoint written on one mesh resumes on another). Families other
-than dense raise ``NotImplementedError``: ``models.transformer`` serves
-them, and their training, held against the reference's gradients, is
-queued in ROADMAP.md.
+(a checkpoint written on one mesh resumes on another).
+
+Every family trains. Its batch is the reference launcher's
+(:func:`make_batch`): tokens, or for the audio encoder standard-normal
+``frames`` (B, seq, d_model) from ``np.random.default_rng(seed)`` with
+``labels = tokens % vocab_size``, or for a VLM ``p = min(vlm_patches, seq
+// 2)`` patch embeddings before ``seq - p`` tokens, the step built for
+``vlm_patches = p`` (:func:`step_config`; the reference rebuilds that
+step without ``--accum``, the port keeps it).
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import argparse
 import dataclasses
 import time
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -44,7 +50,7 @@ from repro_torch.distributed.steps import make_train_step
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.optim import AdamWConfig
 
-__all__ = ["build_argparser", "main"]
+__all__ = ["build_argparser", "step_config", "make_batch", "main"]
 
 
 def build_argparser():
@@ -74,16 +80,42 @@ def build_argparser():
     return ap
 
 
+def step_config(cfg, seq: int):
+    """The config a train step at sequence ``seq`` runs: a VLM's patches
+    cut to at most half of it (``vlm_patches = min(vlm_patches, seq //
+    2)``), as the reference launcher does; any other config as it is."""
+    if not cfg.vlm_patches:
+        return cfg
+    return dataclasses.replace(cfg, vlm_patches=min(cfg.vlm_patches,
+                                                    seq // 2))
+
+
+def make_batch(cfg, toks: np.ndarray, rng: np.random.Generator) -> dict:
+    """One train batch (numpy) for ``cfg`` (a :func:`step_config`) from
+    the token rows ``toks`` (B, seq), as the reference launcher builds it:
+    tokens; audio ``frames`` (B, seq, d_model) standard normal from
+    ``rng`` and ``labels = toks % vocab_size``; a VLM ``vlm_patches``
+    patch embeddings from ``rng`` and the first ``seq - vlm_patches``
+    tokens."""
+    B, seq = toks.shape
+    if cfg.audio_frontend:
+        frames = rng.standard_normal((B, seq, cfg.d_model))
+        return {"frames": frames.astype(np.float32),
+                "labels": toks % cfg.vocab_size}
+    if cfg.vlm_patches:
+        p = cfg.vlm_patches
+        patches = rng.standard_normal((B, p, cfg.d_model))
+        return {"tokens": toks[:, :seq - p],
+                "patches": patches.astype(np.float32)}
+    return {"tokens": toks}
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     cfg = get_smoke(args.arch) if args.smoke else get_arch(args.arch)
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"training the {cfg.family!r} family ({cfg.name}) is not ported "
-            "yet; it is queued in ROADMAP.md (section 1, 'Modules still to "
-            "port', item 7)")
     if args.mp_mode:
         cfg = dataclasses.replace(cfg, mp_mode=True)
+    cfg = step_config(cfg, args.seq)
     dev = resolve_device(args.device)
     mesh = (make_host_mesh(args.mesh_data, args.mesh_model, device=dev)
             if args.mesh_data > 1 or args.mesh_model > 1 else None)
@@ -106,9 +138,11 @@ def main(argv=None):
     stream = TokenStream(cfg.vocab_size, args.seq, args.batch * args.accum,
                          seed=args.seed)
     monitor = StragglerMonitor()
+    rng = np.random.default_rng(args.seed)
     losses = []
     for step in range(start_step, args.steps):
-        batch = {"tokens": torch.as_tensor(stream.batch(step)).to(dev)}
+        batch = {k: torch.as_tensor(v).to(dev) for k, v in
+                 make_batch(cfg, stream.batch(step), rng).items()}
         t0 = time.time()
         state, metrics = train_step(state, batch)
         loss = float(metrics["loss"])

@@ -25,10 +25,11 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.ops import mp_linear
 
-__all__ = ["cdt", "dense_init", "linear", "rms_norm", "layer_norm",
+__all__ = ["cdt", "remat", "dense_init", "linear", "rms_norm", "layer_norm",
            "rope_freqs", "apply_rope", "chunked_attention", "init_attention",
            "attention_block", "attention_decode", "init_attn_cache",
            "init_swiglu", "swiglu", "init_gelu_mlp", "gelu_mlp"]
@@ -40,6 +41,22 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 def cdt(cfg) -> torch.dtype:
     """The arch's compute dtype (bf16 default; f32 for exactness tests)."""
     return _DTYPES[getattr(cfg, "compute_dtype", "bfloat16")]
+
+
+def remat(fn, cfg):
+    """``fn`` recomputed in the backward under ``cfg.remat`` (the
+    reference's ``jax.checkpoint``): a non-reentrant checkpoint that keeps
+    ``fn``'s inputs and none of its intermediates. ``fn`` as it is without
+    remat or without autograd (serving)."""
+    if not cfg.remat:
+        return fn
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int,

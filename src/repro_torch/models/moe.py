@@ -6,10 +6,12 @@ static capacity C = ceil(g K / E x capacity_factor) (None: no-drop, C = g).
 Per group a stable sort of the token -> expert assignments makes each
 expert's tokens contiguous, and they are gathered into a (G, E, C, D)
 expert batch; overflowing assignments are dropped (their token keeps its
-residual path only). The routed experts' SwiGLU and the router are torch
-products, as the reference computes them outside its MP kernel; the shared
-experts (DeepSeek-MoE) are one SwiGLU through ``layers.linear``, so in MP
-mode they run the CUDA ``mp_linear`` kernel.
+residual path only); under ``cfg.remat`` each chunk of
+``moe_group_chunk`` groups is recomputed in the backward, as the
+reference's chunk body is. The routed experts' SwiGLU and the router are
+torch products, as the reference computes them outside its MP kernel;
+the shared experts (DeepSeek-MoE) are one SwiGLU through
+``layers.linear``, so in MP mode they run the CUDA ``mp_linear`` kernel.
 
 Determinism, as the reference's:
   * selection rounds the router logits onto a 2^-10 grid
@@ -127,23 +129,32 @@ def moe_block(p, x, cfg):
     asc = torch.argsort(top_idx.reshape(G, g, K), dim=-1)
     gate_c, slot_c = gate_c.gather(2, asc), slot_c.gather(2, asc)
     xg = xf.reshape(G, g, D)
-    gchunk = max(min(cfg.moe_group_chunk, G), 1)
-    if G % gchunk:
-        gchunk = 1
-    out = []
-    for c0 in range(0, G, gchunk):
-        sl = slice(c0, c0 + gchunk)
-        xe = torch.gather(xg[sl], 1, buf_tok[sl, :, None].expand(-1, -1, D))
+
+    def run_groups(xg_c, tok_c, slot_cc, gate_cc):
+        """A chunk of groups: gather each slot's token, the experts' FFNs,
+        each token's K weighted outputs summed in ascending expert order."""
+        xe = torch.gather(xg_c, 1, tok_c[..., None].expand(-1, -1, D))
         ye = _expert_ffn(xe.reshape(-1, E, C, D), p["wi_gate"], p["wi_up"],
                          p["wo"]).reshape(-1, E * C, D)
         ye = torch.cat([ye, ye.new_zeros(ye.shape[0], 1, D)], dim=1)
         picked = torch.gather(
-            ye, 1, slot_c[sl].reshape(ye.shape[0], g * K, 1).expand(-1, -1, D)
-        ).reshape(-1, g, K, D) * gate_c[sl, ..., None]
+            ye, 1, slot_cc.reshape(ye.shape[0], g * K, 1).expand(-1, -1, D)
+        ).reshape(-1, g, K, D) * gate_cc[..., None]
         yg = picked[:, :, 0]
         for k in range(1, K):
             yg = yg + picked[:, :, k]
-        out.append(yg)
+        return yg
+
+    gchunk = max(min(cfg.moe_group_chunk, G), 1)
+    if G % gchunk:
+        gchunk = 1
+    # more than one chunk: under cfg.remat each chunk's body is recomputed
+    # in the backward (the reference's jax.checkpoint of its lax.map body),
+    # so the gathered (Gc, E, C, D) tokens are not kept per chunk
+    body = L.remat(run_groups, cfg) if gchunk < G else run_groups
+    out = [body(xg[c0:c0 + gchunk], buf_tok[c0:c0 + gchunk],
+                slot_c[c0:c0 + gchunk], gate_c[c0:c0 + gchunk])
+           for c0 in range(0, G, gchunk)]
     y = torch.cat(out).reshape(B, S, D)
     if cfg.num_shared_experts:
         y = y + L.swiglu(p["shared"], x, cfg)

@@ -9,7 +9,9 @@ float32, as the reference computes them outside any kernel.
 
 The full-sequence form (training, prefill) is the chunked SSD: chunks of Q
 positions, within a chunk a masked quadratic form, across chunks the
-(H, N, P) state carried by a loop. Decode keeps that state exactly:
+(H, N, P) state carried by a loop (under ``cfg.remat`` each chunk's body
+is recomputed in the backward, as the reference's scan body is). Decode
+keeps that state exactly:
 
     h <- exp(dt A) h + dt (B outer x);   y = C . h + D x
 
@@ -96,13 +98,14 @@ def mamba_block(p, x, cfg, *, chunk: int = 256):
     if S % Q:
         raise ValueError(f"the SSD chunk {Q} must divide the sequence {S}")
     causal = torch.tril(torch.ones(Q, Q, dtype=torch.bool, device=x.device))
-    h = torch.zeros(B, H, N, P, device=x.device)
-    ys = []
-    for c0 in range(0, S, Q):
-        xc, Bcc, Ccc, dtc = (t[:, c0:c0 + Q] for t in (xh, Bc, Cc, dt))
+
+    def chunk_step(h, xc, Bcc, Ccc, dtc):
+        """One chunk: the intra-chunk quadratic form plus the carried
+        state's part; returns (the next state, y of the chunk)."""
         dAcs = torch.cumsum(dtc * A, dim=1)                    # (B, Q, H)
         # Lmat[i, j] = exp(dAcs_i - dAcs_j) for i >= j; masked BEFORE the
-        # exp (the upper triangle is positive and overflows)
+        # exp (the upper triangle is positive and overflows; after it, the
+        # gradient would be inf x 0)
         diff = dAcs[:, :, None, :] - dAcs[:, None, :, :]        # (B,Q,Q,H)
         diff = torch.where(causal[None, :, :, None], diff, -math.inf)
         CB = torch.einsum("bqn,bkn->bqk", Ccc, Bcc)
@@ -111,8 +114,19 @@ def mamba_block(p, x, cfg, *, chunk: int = 256):
         y_inter = torch.einsum("bqn,bqh,bhnp->bqhp", Ccc, torch.exp(dAcs), h)
         seg = torch.exp(dAcs[:, -1:, :] - dAcs)
         st = torch.einsum("bkn,bkh,bkhp->bhnp", Bcc, dtc * seg, xc)
-        h = h * torch.exp(dAcs[:, -1])[..., None, None] + st
-        ys.append(y_intra + y_inter)
+        return h * torch.exp(dAcs[:, -1])[..., None, None] + st, \
+            y_intra + y_inter
+
+    # under cfg.remat the chunk body is recomputed in the backward (the
+    # reference's jax.checkpoint of its scan body): only each chunk's
+    # inputs and the carried (H, N, P) state are kept, not the (B, Q, Q,
+    # H) quadratic tensors
+    step = L.remat(chunk_step, cfg)
+    h = torch.zeros(B, H, N, P, device=x.device)
+    ys = []
+    for c0 in range(0, S, Q):
+        h, y = step(h, *(t[:, c0:c0 + Q] for t in (xh, Bc, Cc, dt)))
+        ys.append(y)
     y = torch.cat(ys, dim=1) + p["D"][None, None, :, None] * xh
     return _gated_out(p, y.reshape(B, S, d_inner), z, cfg, x.dtype)
 

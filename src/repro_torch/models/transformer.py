@@ -5,7 +5,9 @@ The counterpart of the reference's ``repro.models.transformer``:
 ``ArchConfig`` (a copy, field for field), ``init``, ``forward`` (training,
 prefill, and the encoder's only path), ``init_cache``, ``decode_step``,
 ``param_count`` and ``active_param_count``, for every family the
-reference has (dense, moe, ssm, hybrid, vlm, audio):
+reference has (dense, moe, ssm, hybrid, vlm, audio); and, from the same
+layer plan, the MP kernel launches of a forward and of a train step
+(``mp_launches_per_step``, ``mp_train_launches``):
 
     params = init(cfg, generator)               # nested dict, f32 masters
     logits = forward(params, cfg, {"tokens": tokens})
@@ -25,8 +27,15 @@ reference sends through ``L.linear(..., mp_mode=...)`` (the projections,
 Mamba's in/out projections, the shared experts, the LM head) runs the CUDA
 ``mp_linear`` kernel (and, training, its backward kernel); the router, the
 routed experts and the audio frame projection stay torch products, as the
-reference computes them. ``cfg.remat`` is not taken: the forward keeps
-every block's activations (the reference recomputes them in its backward).
+reference computes them. Under ``cfg.remat`` (and autograd) the forward
+keeps only each block's input and recomputes the block in the backward
+(``torch.utils.checkpoint``, non-reentrant), at the reference's
+granularity: one checkpoint per scanned block on the uniform plan (the
+peeled prefix is not checkpointed, as there), one per period group
+around one per sublayer on the periodic plan. The per-step bf16 cast and
+the mesh's gather of a layer's weights (``_constrain``) run inside the
+checkpointed region, so the backward makes them again instead of keeping
+them; an MP product there writes its levels twice, the same bits.
 """
 
 from __future__ import annotations
@@ -229,6 +238,53 @@ def _dense(cfg: ArchConfig) -> ArchConfig:
     return dataclasses.replace(cfg, num_experts=0)
 
 
+def mp_launches_per_step(cfg: ArchConfig) -> int:
+    """The mp_linear calls of one decode step (or one forward) as the
+    layer plan gives them: 4 per attention mixer, 2 per Mamba mixer, a
+    dense FFN's projections (3 SwiGLU, 2 GELU), a MoE FFN's shared
+    experts (one SwiGLU, 3; the router and the routed experts are torch
+    products), and the head."""
+    plan = _layer_plan(cfg)
+
+    def layer(mixer, is_moe):
+        n = 4 if mixer == "attn" else 2
+        if is_moe:
+            return n + (3 if cfg.num_shared_experts else 0)
+        return n + ((2 if cfg.norm == "ln" else 3) if cfg.d_ff > 0 else 0)
+
+    if plan["kind"] == "uniform":
+        n = (plan["n_prefix"] * layer("attn", False)
+             + plan["n_scan"] * layer(plan["mixer"], plan["is_moe"]))
+    else:
+        n = plan["n_groups"] * sum(layer(m, e) for m, e in plan["subs"])
+    return n + 1
+
+
+def mp_train_launches(cfg: ArchConfig, positions: int,
+                      seq_chunk: int = 1024) -> tuple:
+    """(forward, backward) mp_linear calls of one train step over
+    ``positions`` (patches included), loss chunks of ``seq_chunk`` (the
+    default of ``distributed.steps.make_loss_fn``), as the layer plan
+    gives them: each product once forward and once backward; under
+    ``cfg.remat`` every scanned block and every loss chunk's head again
+    (its recompute), the peeled prefix not (it is not checkpointed). The
+    periodic plan nests its checkpoints, and how far torch recomputes the
+    outer one depends on what it saved: it is not counted under remat."""
+    plan = _layer_plan(cfg)
+    labelled = positions - cfg.vlm_patches - (0 if cfg.audio_frontend
+                                              else 1)
+    chunks = -(-labelled // seq_chunk)
+    once = mp_launches_per_step(cfg) - 1 + chunks
+    if not cfg.remat:
+        return once, once
+    if plan["kind"] != "uniform":
+        raise ValueError(f"{cfg.name}: the periodic plan's launches under "
+                         "remat are not counted")
+    prefix = mp_launches_per_step(dataclasses.replace(
+        _dense(cfg), num_layers=plan["n_prefix"], first_dense_layers=0)) - 1
+    return 2 * once - prefix, once
+
+
 # the reference casts every float32 leaf of a layer to the compute dtype
 # before use (``_constrain``), except these; gradients flow back through
 # the cast to the float32 masters
@@ -352,14 +408,25 @@ def forward(params: dict, cfg: ArchConfig, batch: dict,
         for p in params.get("prefix_layers", []):
             x = _block(_on_use(p), x, _dense(cfg), positions,
                        mixer=plan["mixer"], layer_is_moe=False)
+        def block(p, xx):
+            return _block(_constrain(p, cfg), xx, cfg, positions,
+                          mixer=plan["mixer"], layer_is_moe=plan["is_moe"])
         for p in params["layers"]:
-            x = _block(_constrain(p, cfg), x, cfg, positions,
-                       mixer=plan["mixer"], layer_is_moe=plan["is_moe"])
+            x = L.remat(block, cfg)(p, x)
     else:
+        def sublayer(mixer, is_moe):
+            return L.remat(lambda p, xx: _block(
+                _constrain(p, cfg), xx, cfg, positions, mixer=mixer,
+                layer_is_moe=is_moe), cfg)
+
+        subs = [sublayer(m, e) for m, e in plan["subs"]]
+
+        def group_fwd(group, xx):
+            for p, sub in zip(group, subs):
+                xx = sub(p, xx)
+            return xx
         for group in zip(*params["period_layers"]):
-            for p, (mixer, is_moe) in zip(group, plan["subs"]):
-                x = _block(_constrain(p, cfg), x, cfg, positions,
-                           mixer=mixer, layer_is_moe=is_moe)
+            x = L.remat(group_fwd, cfg)(group, x)
     x = _norm(_on_use(params["final_norm"]), x, cfg)
     if return_hidden:
         return x

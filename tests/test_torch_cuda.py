@@ -747,6 +747,41 @@ def test_mp_linear_autograd_launches_the_backward_kernel(dev, monkeypatch):
                                atol=TOL * (1 + float(want_dw.abs().max())))
 
 
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "deepseek-moe-16b"])
+def test_remat_train_step_is_bit_equal_on_the_card(dev, arch):
+    """An MP train step's loss and every gradient, with remat on and
+    off, bit for bit on the card: the recomputed forward launches write
+    the same levels again (the smoke config, f32 compute; deepseek's
+    groups of 8 tokens in 2 chunks, so the MoE chunk is recomputed too).
+    Under remat the forwards are launched twice per scanned block."""
+    import dataclasses
+    from repro_torch.configs import get_smoke
+    from repro_torch.distributed.steps import make_loss_fn
+    from repro_torch.models import transformer as T
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    cfg = dataclasses.replace(get_smoke(arch), mp_mode=True,
+                              compute_dtype="float32", remat=False,
+                              moe_group_size=8, moe_group_chunk=2)
+    params = T.init(cfg, torch.Generator(device=dev).manual_seed(0),
+                    device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 32))).to(dev)
+    runs = []
+    for remat in (False, True):
+        c = dataclasses.replace(cfg, remat=remat)
+        leaves = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        reset_launches()
+        loss = make_loss_fn(c)(leaves, {"tokens": toks})
+        loss.backward()
+        torch.cuda.synchronize()
+        runs.append((loss.detach(), [p.grad for p in tree_leaves(leaves)],
+                     LAUNCHES["mp_linear"], LAUNCHES["mp_linear_bwd"]))
+    (l0, g0, f0, b0), (l1, g1, f1, b1) = runs
+    assert torch.isfinite(l0) and torch.equal(l0, l1)
+    assert all(torch.equal(a, b) for a, b in zip(g0, g1))
+    assert b0 == b1 == f0 and f0 < f1 < 2 * f0 + 1
+
+
 def test_fit_on_the_card(dev):
     """``fit`` at the smoke bank on the card: its features in one launch of
     the one-shot cascade kernel, its losses within 1e-3 x (1 + max) of the

@@ -19,6 +19,10 @@ they saw against values computed here:
   the control that keeps each rank's gradient unreduced misses; elastic:
   two steps on ``(2, 1)``, saved, restored on ``(1, 2)``, two more, equal
   to four uninterrupted steps;
+* the smoke deepseek-moe-16b step (f32, groups of 8 tokens, so each
+  rank's rows are whole groups of the global batch) on ``(2, 1)``: within
+  1e-5 of the one-process step, the expert weights sharded by the rule
+  table;
 * ``compressed_psum`` over the two ranks bit for bit the reference's under
   ``jax.vmap(..., axis_name="i")`` over the same two rows, op by op (under
   ``jax.jit`` XLA fuses the products into the sums and the last bit
@@ -158,6 +162,27 @@ def test_two_rank_train_steps_match_one_process(tmp_path):
     assert close_rel(e["losses"], want["losses"]) <= REL
     for k in want["params"]:
         assert l2_rel(e["params"][k], want["params"][k]) <= REL, k
+
+
+def test_two_rank_moe_train_step_matches_one_process(tmp_path):
+    """The smoke deepseek step (its dense layer, shared and routed experts,
+    the capacity path) on a (2, 1) mesh: losses, first moments and params
+    within ``REL`` of the one-process step on the global batch, and the
+    expert weights stored as the rule table shards them, (E, d_in, d_out)
+    as (None, 'data', 'model') for wi_gate and wi_up, (None, 'model',
+    'data') for wo (the 'model' axis has one rank), the router ('data',
+    None)."""
+    run = ranks.spawn("train_moe", 2, tmp_path)
+    cfg = ranks.moe_cfg()
+    with ranks.f32_router():
+        want = ranks.summary(*ranks.run_steps(cfg, None,
+                                              ranks.train_batches(cfg, 1)))
+    got = run.results()
+    assert got[0]["losses"] == got[1]["losses"]
+    assert_same_run(got[0], want, "moe")
+    assert got[0]["placements"] == {
+        "wi_gate": ["S(1)", "S(2)"], "wi_up": ["S(1)", "S(2)"],
+        "wo": ["S(2)", "S(1)"], "router": ["S(0)", "R"]}
 
 
 def test_two_rank_compressed_psum_matches_reference_bit_for_bit(tmp_path):

@@ -246,6 +246,44 @@ def case_train(rank, world, directory, inputs):
     return got
 
 
+# -- training a MoE: the smoke deepseek step on (2, 1) ------------------------
+
+
+def moe_cfg():
+    """The deepseek smoke (its dense layer, 2 MoE layers) in f32, groups
+    of 8 tokens: the 16 tokens of each rank's 2 rows are whole groups of
+    the global batch, so both ranks drop what one process drops."""
+    from repro_torch.configs import get_smoke
+    return dataclasses.replace(get_smoke("deepseek-moe-16b"),
+                               compute_dtype="float32", moe_group_size=8)
+
+
+@contextlib.contextmanager
+def f32_router():
+    """The router (``layers.linear``'s default compute dtype, a bf16
+    product otherwise) in float32: ~1e-6 of sum order between a split
+    and a whole batch must not move a route by a bf16 step."""
+    from repro_torch.models import layers
+    real = layers.linear.__kwdefaults__["compute_dtype"]
+    layers.linear.__kwdefaults__["compute_dtype"] = torch.float32
+    try:
+        yield
+    finally:
+        layers.linear.__kwdefaults__["compute_dtype"] = real
+
+
+def case_train_moe(rank, world, directory, inputs):
+    from repro_torch.launch.mesh import make_host_mesh
+    mesh = make_host_mesh(data=2, model=1, device="cpu")
+    cfg = moe_cfg()
+    with f32_router():
+        losses, state = run_steps(cfg, mesh, train_batches(cfg, 1))
+    experts = state.params["layers"][0]["ffn"]
+    return dict(summary(losses, state), placements={
+        k: [str(p) for p in experts[k].placements]
+        for k in ("wi_gate", "wi_up", "wo", "router")})
+
+
 # -- compression: compressed_psum over the ranks ------------------------------
 
 
@@ -259,7 +297,8 @@ def case_psum(rank, world, directory, inputs):
     return outs
 
 
-CASES = {"serve": case_serve, "train": case_train, "psum": case_psum}
+CASES = {"serve": case_serve, "train": case_train,
+         "train_moe": case_train_moe, "psum": case_psum}
 
 
 def main(case: str, rank: int, world: int, directory: str) -> None:
