@@ -16,7 +16,10 @@ nothing of the reference package). Phases, each failing loudly:
              window width) and of the int one-shot cascade's steps (one
              loop per window width, both branches of a dot in it: its
              instructions per branch step against the count of
-             ``ops_int_dot_min``, 31 at 16 lanes and 16 at 6).
+             ``ops_int_dot_min``, 31 at 16 lanes and 16 at 6; the
+             float-carrier instances' loops against ``ops_f32_dot_min``,
+             39 and 19), the int stream kernel's float instance's step
+             too.
 3. kernels — each kernel against its plain PyTorch version on the card at
              the main path's shapes: max abs diff, kernel ms (CUDA events,
              warmed up, many launches), plain ms, and the launches this
@@ -316,6 +319,35 @@ nothing of the reference package). Phases, each failing loudly:
              6 and 6b carry this phase's launches as
              ``train_zoo_path_launches``. The LM phases (11, 15) state
              ``remat=False``, as they ran before remat was taken.
+17. deploy — the paper's 8-bit deployment flow (runs right after 10, on
+             its seeded clips; ``phase_deploy``): QAT ``fit`` with
+             ``quant_bits=8`` in the bank and the trainer (features in one
+             launch of rows 2 + 3, within the one-shot phi gate of the
+             plain path; losses finite and falling, the first 20 within
+             phase 10's gate of the CPU's); the QAT pipeline served under
+             ``quant_bits=8`` through row 1 (256 streams, 40 waves, the
+             churned slot; each clip's peak in its first packet), the
+             final p within 1e-5 of one-shot ``apply`` on the same
+             samples; its fixed deploy (``calibrate_fixed``) one-shot
+             through row 4 and served through row 5, the served codes
+             exactly one-shot ``infer_q``'s; the fake-quant twin: rows 4
+             and 5's float32 instances (``fixed.predict(carrier="float",
+             use_pallas=True)``, and one served wave's registers cast to
+             f32), exactly the int instances' codes and their plain
+             versions, the largest code or sum below 2**24 (printed); past
+             2**24 (the accumulators of a long session, a 2 M-sample
+             full-scale 6.8 kHz tone) the same bits twice and within
+             2 n 2**-24 |sum| of the plain version; the MAC baseline
+             (``FILTERBANK_MAC_BASELINE``) through ``fit`` (TF32 off,
+             stated), its features within
+             1e-5 x (1 + max) of the port's on the CPU, its fixed codes
+             exactly the CPU's, served through ``stream_impl="xla"``
+             (captured bit for bit the eager step). Each step's launches
+             counted from 0 (``deploy_path_launches`` on rows 1, 2 + 3,
+             4, 5); the float instances' rows time them beside the int
+             ones (``int_ms``). Printed, not gated: the held-out accuracy
+             of MAC, MP float (phase 10's), MP 8-bit QAT and the fixed
+             deploy, and the phase's seconds.
 Then one ``{"kernels": [...]}`` line, the card line again, and as the last
 line ``{"ok": true, "device": {...}}``. A kernel off the main path (the
 one-stage bank entries, float and int, and mp_waterfill) reports the
@@ -462,6 +494,18 @@ def ops_int_dot_min(M: int, iters: int) -> int:
     return 6 * M + 2 * mpabs + 1
 
 
+def ops_f32_dot_min(M: int, iters: int) -> int:
+    """f32 instructions of one fxp_mp_dot over M lanes on the float
+    carrier, in the cheapest exact step form its kernel instance runs
+    (``ops_int_dot_min``'s, with f32 adds, which take two inputs): the
+    operands (6M for u and v); per mpabs |t| per lane, their max and lo
+    (2M), then per step the mid (add, halve, floor), the seed -M mid, a
+    max and an add per lane, the compare and 2 selects (2M + 7); then the
+    final sub."""
+    mpabs = 2 * M + iters * (2 * M + 7)
+    return 6 * M + 2 * mpabs + 1
+
+
 def ops_mp_linear(B: int, d: int, O: int, iters: int = 26) -> int:
     """f32 ops that mp_linear needs on (B, d) x (d, O), counted from the
     cheapest exact form of a bisection step, the one the kernel runs: a
@@ -524,8 +568,9 @@ def ptxas_report(text: str) -> dict:
 def short_entry(name: str) -> str:
     """A readable name for a kernel instantiation's mangled symbol, e.g.
     mp_linear<bf16,BB=2,TO=8,res> (mp_linear_levels<...> with LEVELS),
-    mp_linear_grads<bf16>, fir_mp_stream<16,6> or mp_waterfill_rows<32,1>
-    (elements per lane, lanes per row); others are shortened."""
+    mp_linear_grads<bf16>, fir_mp_stream<16,6>, fir_mp_oneshot_q<f32,16,6>
+    (the int kernels' carrier first) or mp_waterfill_rows<32,1> (elements
+    per lane, lanes per row); others are shortened."""
     m = re.search(r"mp_linear_kernelI([tf])Li(\d+)ELi(\d+)ELb(\d)ELb(\d)E",
                   name)
     if m:
@@ -539,9 +584,11 @@ def short_entry(name: str) -> str:
     if "mp_linear_dx_sum_kernel" in name:
         return "mp_linear_dx_sum"
     m = re.search(r"(fir_mp_stream(?:_q)?|fir_mp_oneshot(?:_q)?|"
-                  r"mp_waterfill_rows)_kernelILi(\d+)ELi(\d+)E", name)
+                  r"mp_waterfill_rows)_kernelI([if])?Li(\d+)ELi(\d+)E",
+                  name)
     if m:
-        return f"{m.group(1)}<{m.group(2)},{m.group(3)}>"
+        carrier = {"i": "i32,", "f": "f32,"}.get(m.group(2), "")
+        return f"{m.group(1)}<{carrier}{m.group(3)},{m.group(4)}>"
     return name.replace("_ZN12_GLOBAL__N_1", "")[:48]
 
 
@@ -625,16 +672,23 @@ def solve_census(lines: list, lanes: int = 16) -> dict:
     """The band-pass solve step of a stream kernel's SASS: of the
     innermost loops, the float Newton iteration (the loop with MUFU, the
     divide's reciprocal, and the most FADDs: its fast path counted, the
-    slow-path subroutine not) or, without one, the integer bisection step
-    (the loop with the most VIMNMX). Its opcodes, all and FP32 (FADD,
-    FMUL, FFMA, FMNMX) or INT instructions per iteration, and per operand
-    lane (``lanes``, the 16 band-pass taps)."""
+    slow-path subroutine not) or, without one, the int stream kernel's
+    bisection step: on the float carrier the loop with the most FMNMX, on
+    int32 the one with the most VIMNMX. Its opcodes, all and FP32 (FADD,
+    FMUL, FFMA, FMNMX; on the float carrier every F opcode) or INT
+    instructions per iteration, and per operand lane (``lanes``, the 16
+    band-pass taps)."""
     bodies = inner_loops(lines)
     newton = [b for b in bodies if "MUFU" in b]
+    floats = [b for b in bodies if "FMNMX" in b]
     if newton:
         body = max(newton, key=lambda o: o.count("FADD"))
         kind = "newton"
         sel = sum(o in ("FADD", "FMUL", "FFMA", "FMNMX") for o in body)
+    elif floats:
+        body = max(floats, key=lambda o: o.count("FMNMX"))
+        kind = "bisect_f32"
+        sel = sum(o.startswith("F") for o in body)
     else:
         ints = [b for b in bodies if "VIMNMX" in b or "IMNMX" in b]
         if not ints:
@@ -643,11 +697,9 @@ def solve_census(lines: list, lanes: int = 16) -> dict:
         kind = "bisect_int"
         sel = sum(o not in ("BRA", "BSSY", "BSYNC", "LDS", "STS", "LDG",
                             "STG") and not o.startswith("F") for o in body)
-    return {"loop": kind, "instructions": len(body),
-            "fp32" if kind == "newton" else "int": sel,
-            "per_lane": len(body) / lanes,
-            ("fp32" if kind == "newton" else "int") + "_per_lane":
-                sel / lanes,
+    what = "int" if kind == "bisect_int" else "fp32"
+    return {"loop": kind, "instructions": len(body), what: sel,
+            "per_lane": len(body) / lanes, what + "_per_lane": sel / lanes,
             "opcodes": {o: body.count(o) for o in sorted(set(body))}}
 
 
@@ -671,19 +723,25 @@ def bisect_census(lines: list) -> dict:
 
 def int_dot_census(lines: list) -> dict:
     """The bisection steps of the int one-shot kernel's SASS: each
-    innermost loop that holds a VIMNMX (one per window width; both
-    branches of a dot step in it, one max per operand lane and branch, so
-    lanes = VIMNMX / 2), its instructions, their half (one branch's step)
-    and the step that ``ops_int_dot_min`` counts at those lanes (M +
-    ceil(M / 2) + 7), and its opcodes."""
+    innermost loop that holds a VIMNMX (int32) or, in the float-carrier
+    instance, an FMNMX (one per window width; both branches of a dot step
+    in it, one max per operand lane and branch, so lanes = max / 2), its
+    instructions, their half (one branch's step) and the step that
+    ``ops_int_dot_min`` (M + ceil(M / 2) + 7) or ``ops_f32_dot_min`` (2 M
+    + 7) counts at those lanes, and its opcodes."""
     steps = []
     for body in inner_loops(lines):
-        if "VIMNMX" not in body:
+        mx = ("VIMNMX" if "VIMNMX" in body else
+              "FMNMX" if "FMNMX" in body else None)
+        if mx is None:
             continue
-        lanes = body.count("VIMNMX") // 2
-        steps.append(dict(lanes=lanes, instructions=len(body),
+        lanes = body.count(mx) // 2
+        steps.append(dict(carrier="i32" if mx == "VIMNMX" else "f32",
+                          lanes=lanes, instructions=len(body),
                           per_branch_step=len(body) / 2,
-                          counted_step=lanes + -(-lanes // 2) + 7,
+                          counted_step=(lanes + -(-lanes // 2) + 7
+                                        if mx == "VIMNMX" else
+                                        2 * lanes + 7),
                           opcodes={o: body.count(o)
                                    for o in sorted(set(body))}))
     return {"steps": steps}
@@ -1842,6 +1900,30 @@ def fixed_pipeline(cal, **kw):
     return pipe, pipe.calibrate_fixed(cal)
 
 
+def stream_q_ops(stages, n, consumed, step) -> int:
+    """Instructions the int stream cascade needs on one wave (n, consumed
+    its inputs; ``step`` per dot: ``ops_int_dot_min``, the reference's
+    ``ops_int_dot`` or the float carrier's ``ops_f32_dot_min``): each
+    valid band-pass (position, filter) a dot and its HWR add (2), each
+    kept low-pass position a dot and its requantization (4)."""
+    M = stages[0].bp_q.shape[1]
+    ops = 0
+    for (nv, kp), st in zip(served_counts(n, consumed), stages):
+        ops += int(nv.sum()) * st.bp_q.shape[0] * (step(M, st.iters_bp) + 2)
+        if st.lp_q is not None:
+            ops += int(kp.sum()) * (step(st.lp_q.shape[1], st.iters_lp) + 4)
+    return ops
+
+
+def stream_q_bytes(stages, S: int, L: int, T1: int) -> int:
+    """``cascade_bytes`` of the int stream cascade of a program's stages
+    on S slots of L samples."""
+    P = sum(st.bp_q.shape[0] for st in stages)
+    taps = sum(st.bp_q.size + (st.lp_q.size if st.lp_q is not None else 0)
+               for st in stages)
+    return cascade_bytes(S, L, len(stages), P, T1, taps)
+
+
 def phase_int_stream_kernel(prog, gen, clips):
     """The int stream kernel against its plain versions, exactly: the
     one-octave entry at one wave's six octave shapes (S = 256 slots, L =
@@ -1928,22 +2010,9 @@ def phase_int_stream_kernel(prog, gen, clips):
     run = lambda: fir_mp_stream_cascade_q(prog, *served)  # noqa: E731
     prof = device_us(run, lambda k: is_stream_kernel(k, "fixed"))
     counts = served_counts(served[1], served[3])
-    ops = ops_ref = 0
-    for (nv, kp), st in zip(counts, stages):
-        Fn = st.bp_q.shape[0]
-        lp = ((int(kp.sum()), st.lp_q.shape[1], st.iters_lp)
-              if st.lp_q is not None else (0, 1, 0))
-        for count, acc_ops in ((ops_int_dot_min, "ops"),
-                               (ops_int_dot, "ref")):
-            k = (int(nv.sum()) * Fn * (count(M, st.iters_bp) + 2)
-                 + lp[0] * (count(lp[1], lp[2]) + 4))
-            if acc_ops == "ops":
-                ops += k
-            else:
-                ops_ref += k
-    nb = cascade_bytes(S, L, O, P, T1,
-                       sum(st.bp_q.size + (st.lp_q.size if st.lp_q is not None
-                                           else 0) for st in stages))
+    ops = stream_q_ops(stages, served[1], served[3], ops_int_dot_min)
+    ops_ref = stream_q_ops(stages, served[1], served[3], ops_int_dot)
+    nb = stream_q_bytes(stages, S, L, T1)
     b_ms, b_by = bound_ms(ops, nb, INT32_OPS_PER_S)
     chain = device_us(lambda: octave_chain(fir_mp_stream_octave_q, *served,
                                            fixed_steps(prog)),
@@ -2594,7 +2663,7 @@ LM_BATCH, LM_SEQ, LM_STEPS = 2, 32, 3
 def phase_train():
     """esc10-mp ``InFilterPipeline.fit`` at full width on the card (30
     bands, 260 seeded 1 s clips, ``configs.esc10_mp.TRAIN``: 600 steps),
-    then deployed fixed."""
+    then deployed fixed. Returns the float model's held-out accuracy."""
     import numpy as np
     import torch
     from repro_torch.configs.esc10_mp import FILTERBANK, TRAIN
@@ -2696,6 +2765,441 @@ def phase_train():
                                      for k, t in prof["top_us"]],
              held_out_accuracy=acc, held_out_accuracy_fixed=acc_fixed,
              test_clips=len(ds.y_test)))
+    return acc
+
+
+DEPLOY_SERVE_ROUNDS = 40  # 160-sample waves served under quant_bits=8
+DEPLOY_FIXED_ROUNDS = 10  # ... and through the fixed twin
+LONG_SESSION_ACC = 2.0 ** 25   # a long session's accumulators, past 2**24
+LONG_CLIP = 2 << 20       # samples of the one-shot clip whose sums pass it:
+LONG_TONE_HZ = 6800.0     # a full-scale tone in octave 0's fourth band
+
+
+def peak_first(audio):
+    """``audio`` with each row's first sample set to 1.25 x its max |x|,
+    as the reference's golden cases put a known peak first: a stream's
+    running amax then holds its clip's one-shot amax from its first
+    packet, and quantized serving and quantized one-shot see the same
+    codes."""
+    import numpy as np
+    out = np.ascontiguousarray(audio, dtype=np.float32).copy()
+    out[:, 0] = 1.25 * np.abs(out).max(axis=1)
+    return out
+
+
+def fsum_bound(got, want, terms):
+    """Two f32 sums of the same nonnegative integer terms in two orders:
+    ``terms`` (per column) adds each err by at most (terms - 1) 2**-24 of
+    the sum, so they may differ by 2 terms 2**-24 max(|got|, |want|).
+    Returns (max |got - want|, the largest |got - want| / that bound;
+    the gate is <= 1)."""
+    import torch
+    diff = (got - want).abs()
+    bound = 2.0 * terms * 2.0 ** -24 * torch.maximum(got.abs(), want.abs())
+    share = torch.where(diff > 0, diff / bound, torch.zeros_like(diff))
+    return float(diff.max()), float(share.max())
+
+
+def twin_row(name, got_f, got_i, want_f, what: str) -> float:
+    """Gate: a float-carrier kernel's output equals the int kernel's codes
+    and its plain version's values exactly (+0 and -0 equal, as codes),
+    every value below 2**24. Returns its largest magnitude."""
+    import torch
+    torch.cuda.synchronize()
+    if got_f.dtype != torch.float32 or want_f.dtype != torch.float32:
+        raise AssertionError(f"{name} {what}: dtypes {got_f.dtype} "
+                             f"{want_f.dtype}, want float32")
+    big = float(got_i.abs().max()) if got_i.numel() else 0.0
+    if not (big < 2 ** 24 and torch.equal(got_f, got_i.float())
+            and torch.equal(got_f, want_f)):
+        raise AssertionError(
+            f"{name} {what}: float carrier vs int codes max |diff| "
+            f"{float((got_f - got_i.float()).abs().max())}, vs plain "
+            f"{float((got_f - want_f).abs().max())}, largest |code| {big}")
+    return big
+
+
+def phase_deploy(card: str, acc_mp_float: float) -> tuple:
+    """The paper's 8-bit deployment flow on the card at esc10-mp's full
+    width (``configs.esc10_mp``: 16 kHz, 6 x 5 bands, 16 / 6 taps, gamma
+    4) on phase 10's seeded data (260 train and 40 held-out 1 s clips):
+
+    (a) QAT: ``fit`` with ``quant_bits=8`` in the bank (signal and taps
+        fake-quantized) and in ``TRAIN`` (the STE on every weight);
+    (b) the QAT pipeline served under ``quant_bits=8`` through row 1 (the
+        chunk quantized on its running amax before the kernel,
+        ``update_amax=False``): 256 streams, a churned slot, each clip's
+        peak in its first packet;
+    (c) its fixed deploy: ``calibrate_fixed``, one-shot through row 4,
+        served through row 5; then the fake-quant twin, rows 4 and 5's
+        float32 instances: ``fixed.predict(carrier="float",
+        use_pallas=True)`` and one served wave's registers cast to f32
+        against the int codes and the plain versions; a long session and
+        a long clip past 2**24;
+    (d) the MAC baseline (``FILTERBANK_MAC_BASELINE``, Table III's "Normal
+        SVM"): ``fit``, one-shot float (torch einsum, TF32 off) and fixed
+        (the shift-add FIR), served through ``stream_impl="xla"``.
+
+    Every step counts its launches from 0 and must have launched its
+    kernels. Returns (the kernels line's rows of rows 4 and 5's float
+    instances, the phase's launches)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.esc10_mp import (FILTERBANK,
+                                              FILTERBANK_MAC_BASELINE,
+                                              QUANT_BITS, TRAIN)
+    from repro_torch.core import fixed as fx
+    from repro_torch.core import trainer
+    from repro_torch.core.filterbank import FilterBank
+    from repro_torch.core.pipeline import InFilterPipeline
+    from repro_torch.data.acoustic import make_esc10_like
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.fir_mp import (fir_mp_oneshot_cascade_q,
+                                            fir_mp_stream_cascade_q,
+                                            oneshot_plan)
+    t_phase = time.perf_counter()
+    # the MAC bank's einsum is a float32 product: full float32, stated
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    ds = make_esc10_like(per_class_train=26, per_class_test=4, fs=16000.0,
+                         seconds=1.0, seed=0)
+    x = torch.from_numpy(np.ascontiguousarray(ds.x_train)).cuda()
+    x_test = torch.from_numpy(np.ascontiguousarray(ds.x_test)).cuda()
+    y_test = torch.from_numpy(ds.y_test).cuda()
+    S = 256
+    ran = {}
+    steps_s, t_mark = {}, [t_phase]
+
+    def mark(step: str) -> None:
+        """The seconds since the last mark, under ``step``."""
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        steps_s[step] = now - t_mark[0]
+        t_mark[0] = now
+
+    def launched(step: str, keys) -> None:
+        """Gate: this step of the path launched each of ``keys``."""
+        got = {k: LAUNCHES[k] for k in keys}
+        ran[step] = got
+        if not all(got.values()):
+            raise AssertionError(f"deploy {step}: launches {dict(LAUNCHES)}")
+
+    def fit_checked(cfg, tcfg, what):
+        """``fit`` on the card, counted from 0: its losses finite and
+        falling, its first steps within phase 10's gate of the same steps
+        run by the port on the CPU from the same features. Returns the
+        pipeline, losses, the train clips' phi, fit seconds, the CPU gap
+        and its gate, and the fit's launches."""
+        reset_launches()
+        t0 = time.perf_counter()
+        pipe, losses = InFilterPipeline.fit(cfg, ds.x_train, ds.y_train, 10,
+                                            tcfg, device="cuda")
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        fit_launches = dict(LAUNCHES)
+        if not (all(math.isfinite(v) for v in losses)
+                and losses[-1] < losses[0]):
+            raise AssertionError(f"{what} fit's losses: {losses[:3]} .. "
+                                 f"{losses[-3:]}")
+        phi = (FilterBank(cfg, device="cuda").accumulate(x) - pipe.mu) \
+            / pipe.sigma
+        _, cpu = trainer.train(
+            phi.cpu(), ds.y_train, 10,
+            dataclasses.replace(tcfg, num_steps=TRAIN_CPU_STEPS),
+            device="cpu")
+        gap = max(abs(a - b) for a, b in zip(losses, cpu))
+        tol = TRAIN_LOSS_TOL * (1 + max(abs(v) for v in cpu))
+        if not gap <= tol:
+            raise AssertionError(f"{what}: the first {TRAIN_CPU_STEPS} "
+                                 f"losses, card vs CPU: {gap} > {tol}")
+        return pipe, losses, phi, secs, (gap, tol), fit_launches
+
+    # (a) QAT at 8 bits: the features in one launch of rows 2 + 3
+    cfg = FILTERBANK._replace(quant_bits=QUANT_BITS, use_pallas=True,
+                              stream_impl="pallas")
+    tcfg = dataclasses.replace(TRAIN, quant_bits=QUANT_BITS)
+    pipe, losses, phi, qat_s, qat_gap, fit_launches = fit_checked(
+        cfg, tcfg, "QAT")
+    ran["qat_fit"] = {"fir_mp_oneshot_cascade":
+                      fit_launches["fir_mp_oneshot_cascade"]}
+    if fit_launches["fir_mp_oneshot_cascade"] != 1:
+        raise AssertionError(f"QAT fit's features: {fit_launches}")
+    n = FEATURE_GATE_CLIPS
+    s_plain = FilterBank(cfg._replace(use_pallas=False, solver="bisect"),
+                         device="cuda").accumulate(x[:n])
+    phi_plain = (s_plain - pipe.mu) / pipe.sigma
+    dphi = float((phi[:n] - phi_plain).abs().max())
+    phi_tol = ONESHOT_PHI_TOL * (1 + float(phi_plain.abs().max()))
+    if not dphi <= phi_tol:
+        raise AssertionError(f"QAT features vs plain: {dphi} > {phi_tol}")
+    phi_test = pipe.features(x_test)
+    acc_qat = trainer.evaluate(pipe.clf.params, phi_test, y_test,
+                               QUANT_BITS)
+
+    mark("qat")
+    # (b) served under quant_bits=8 through row 1, a churned slot
+    R = DEPLOY_SERVE_ROUNDS
+    audio = peak_first(ds.x_train[:S, :R * 160])
+    sched = serve_schedule(audio, R, 160)
+    serve(pipe, sched[:2], S)                              # warm-up
+    reset_launches()
+    server, _, secs = serve(pipe, sched, S)
+    launched("qat_serve", ["fir_mp_stream_cascade"])
+    check_step_counts(server, sched, LAUNCHES["fir_mp_stream_cascade"],
+                      "fir_mp_stream_cascade")
+    p_served, _ = pipe.apply(torch.zeros(S, 0), server.state)
+    a = torch.from_numpy(audio).cuda()
+    p_one = torch.cat([pipe.apply(a[:S - 1]),
+                       pipe.apply(a[S - 1:, :(R - 30) * 160])])  # v2's
+    serve_gap = float((p_served - p_one).abs().max())
+    if not (serve_gap <= SERVE_TOL and torch.equal(p_served.argmax(-1),
+                                                   p_one.argmax(-1))):
+        raise AssertionError(f"served under quant_bits=8 vs one-shot: "
+                             f"max |p diff| {serve_gap} > {SERVE_TOL}")
+
+    mark("qat_serve")
+    # (c) the fixed deploy of the QAT model: one-shot (row 4), served (5)
+    fcfg = FILTERBANK._replace(numerics="fixed", use_pallas=True,
+                               stream_impl="pallas")
+    fixed = InFilterPipeline(fcfg, pipe.bp_taps, pipe.lp_taps, pipe.mu,
+                             pipe.sigma, pipe.clf.params, device="cuda")
+    prog = fixed.calibrate_fixed(ds.x_train[:8])
+    reset_launches()
+    p_fixed = fixed.apply(x_test)
+    torch.cuda.synchronize()
+    launched("fixed_oneshot", ["fir_mp_oneshot_cascade_q"])
+    if not (bool(torch.isfinite(p_fixed).all())
+            and float(p_fixed.abs().max()) <= 1.0):
+        raise AssertionError("fixed deploy: p outside [-1, 1]")
+    acc_fixed = float((p_fixed.argmax(-1) == y_test).float().mean())
+    R2 = DEPLOY_FIXED_ROUNDS
+    fsched = serve_schedule(audio[:, :R2 * 160], R2, 160)
+    serve(fixed, fsched[:2], S)                            # warm-up
+    reset_launches()
+    fserver, _, _ = serve(fixed, fsched, S)
+    launched("fixed_serve", ["fir_mp_stream_cascade_q"])
+    check_step_counts(fserver, fsched, LAUNCHES["fir_mp_stream_cascade_q"],
+                      "fir_mp_stream_cascade_q")
+    scale = prog.out_spec.scale
+    p_q = torch.round(fixed.apply(torch.zeros(S, 0), fserver.state)[0]
+                      / scale).to(torch.int32)
+    for rows, xs in ((slice(0, S - 1), a[:S - 1, :R2 * 160]),
+                     (slice(S - 1, S), a[S - 1:, :(R2 - 5) * 160])):   # v1
+        p1, _, s1 = fx.infer_q(prog, fx.quantize_signal(prog, xs),
+                               use_pallas=True)
+        exact(p_q[rows], p1, "fixed deploy: served p codes vs one-shot")
+        exact(fserver.state.acc[rows], s1,
+              "fixed deploy: served accumulators vs one-shot")
+
+    mark("fixed_deploy")
+    # the fake-quant twin: row 4's float instance on the main path
+    reset_launches()
+    p_f, phi_f = fx.predict(prog, x_test, carrier="float", use_pallas=True)
+    torch.cuda.synchronize()
+    launched("twin_predict", ["fir_mp_oneshot_cascade_q_f32"])
+    twin_launches = dict(oneshot=LAUNCHES["fir_mp_oneshot_cascade_q_f32"])
+    if LAUNCHES["fir_mp_oneshot_cascade_q"]:
+        raise AssertionError("predict(carrier='float') ran the int instance")
+    p_i, phi_i = fx.predict(prog, x_test, use_pallas=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(p_f, p_i) and torch.equal(phi_f, phi_i)):
+        raise AssertionError("predict(carrier='float', use_pallas=True) is "
+                             "not the int carrier's p and phi")
+    bank = prog.bank
+    largest = {}
+    xq = fx.quantize_signal(prog, x_test)
+    largest["oneshot held-out"] = twin_row(
+        "fir_mp_oneshot_cascade_q",
+        fir_mp_oneshot_cascade_q(bank, xq.float()),
+        fir_mp_oneshot_cascade_q(bank, xq),
+        ref.fir_mp_oneshot_cascade_q(bank, xq.float()), "held-out")
+    xq8 = xq[:8].contiguous()          # the rows' timing shape, row 4's
+    mark("twin_oneshot")
+    # row 5's float instance on one served wave's registers
+    st = fserver.state
+    chunk = torch.zeros(S, 256, device="cuda")
+    chunk[:, :160] = a[:, R2 * 160:(R2 + 1) * 160]
+    nv = torch.full((S,), 160, dtype=torch.int32, device="cuda")
+    cq = fx.quantize_signal(prog, chunk)
+    regs_i = (cq, nv, st.delays, st.consumed, st.acc, st.amax)
+    regs_f = (cq.float(), nv, tuple(d.float() for d in st.delays),
+              st.consumed, st.acc.float(), st.amax.float())
+    reset_launches()
+    got_f = fir_mp_stream_cascade_q(prog, *regs_f)
+    torch.cuda.synchronize()
+    launched("twin_stream", ["fir_mp_stream_cascade_q_f32"])
+    twin_launches["stream"] = LAUNCHES["fir_mp_stream_cascade_q_f32"]
+    got_i = fir_mp_stream_cascade_q(prog, *regs_i)
+    want_f = ref.fir_mp_stream_q(prog, *regs_f)
+    big = 0.0
+    for k, (gf, gi, wf) in enumerate(zip(got_f[0], got_i[0], want_f[0])):
+        big = max(big, twin_row("fir_mp_stream_cascade_q", gf, gi, wf,
+                                f"delays[{k}]"))
+    for gf, wf in zip(got_f[1], want_f[1]):
+        exact(gf, wf, "float carrier: consumed counters")
+    for k, what in ((2, "acc"), (3, "amax")):
+        big = max(big, twin_row("fir_mp_stream_cascade_q", got_f[k],
+                                got_i[k], want_f[k], what))
+    largest["stream wave"] = max(big, float(cq.abs().max()))
+    largest_all = max(largest.values())
+    if not largest_all < 2 ** 24:
+        raise AssertionError(f"the main path's codes reached {largest}")
+    mark("twin_stream")
+    # past 2**24: a long session's accumulators, and a long clip
+    acc_long = st.acc.float() + LONG_SESSION_ACC
+    long_regs = regs_f[:4] + (acc_long, regs_f[5])
+    l1 = fir_mp_stream_cascade_q(prog, *long_regs)
+    l2 = fir_mp_stream_cascade_q(prog, *long_regs)
+    lp = ref.fir_mp_stream_q(prog, *long_regs)
+    torch.cuda.synchronize()
+    if not torch.equal(l1[2].view(torch.int32), l2[2].view(torch.int32)):
+        raise AssertionError("long session: two runs, other bits")
+    terms = torch.tensor([161 for st_ in bank.octaves
+                          for _ in range(st_.bp_q.shape[0])],
+                         dtype=torch.float32, device="cuda")
+    long_session = fsum_bound(l1[2], lp[2], terms)
+    sig = bank.signal
+    tone = torch.cos(2 * math.pi * LONG_TONE_HZ / FILTERBANK.fs
+                     * torch.arange(LONG_CLIP, dtype=torch.float64))
+    xl = torch.round(sig.qmax * tone).clamp(sig.qmin, sig.qmax).float()[
+        None].cuda()
+    c1 = fir_mp_oneshot_cascade_q(bank, xl)
+    c2 = fir_mp_oneshot_cascade_q(bank, xl)
+    cp = ref.fir_mp_oneshot_cascade_q(bank, xl)
+    torch.cuda.synchronize()
+    if not torch.equal(c1.view(torch.int32), c2.view(torch.int32)):
+        raise AssertionError("long clip: two runs, other bits")
+    terms = torch.tensor([-(-LONG_CLIP // 2 ** o) for o, st_ in
+                          enumerate(bank.octaves)
+                          for _ in range(st_.bp_q.shape[0])],
+                         dtype=torch.float32, device="cuda")
+    long_clip = fsum_bound(c1, cp, terms)
+    long_max = dict(session=float(l1[2].abs().max()),
+                    clip=float(c1.abs().max()))
+    if not (long_session[1] <= 1 and long_clip[1] <= 1
+            and min(long_max.values()) > 2 ** 24):
+        raise AssertionError(f"past 2**24: |kernel - plain| and its share "
+                             f"of the bound {long_session} {long_clip}, "
+                             f"largest {long_max}")
+    del xl, c1, c2, cp
+
+    mark("past_2_24")
+    # the float instances' rows: times beside the int instances', bounds
+    O = len(bank.octaves)
+    F = bank.octaves[0].bp_q.shape[0]
+    B, N = xq8.shape
+    xf8 = xq8.float()
+    run_f = lambda: fir_mp_oneshot_cascade_q(bank, xf8)  # noqa: E731
+    run_i = lambda: fir_mp_oneshot_cascade_q(bank, xq8)  # noqa: E731
+    ops, nb = oneshot_q_ops(bank, B, N, step=ops_f32_dot_min)
+    b_ms, b_by = bound_ms(ops, nb, F32_OPS_PER_S)
+    prof = device_us(run_f, is_bank_q_kernel)
+    prof_i = device_us(run_i, is_bank_q_kernel)
+    times = [cuda_ms(f, 20) for f in (run_i, run_f, run_f, run_i)]
+    oneshot_row = dict(
+        name="fir_mp_oneshot_cascade_q[f32]",
+        shapes=f"B={B} N={N}, {O} octaves (the QAT deploy's ADC codes as "
+               "f32)", max_abs_err=0.0, ms=(times[1] + times[2]) / 2,
+        **device_fields(prof, b_ms),
+        int_ms=(times[0] + times[3]) / 2,
+        int_device_ms=device_fields(prof_i)["device_ms"],
+        plain_ms=cuda_ms(lambda: ref.fir_mp_oneshot_cascade_q(bank, xf8), 2),
+        bound_ms=b_ms, bound_by=b_by,
+        int_bound_ms=bound_ms(oneshot_q_ops(bank, B, N)[0], nb,
+                              INT32_OPS_PER_S)[0],
+        items=oneshot_plan(B, N, F, octaves=O, integer=True)["items"],
+        launches=twin_launches["oneshot"])
+    T1 = st.delays[0].shape[1]
+    run_f = lambda: fir_mp_stream_cascade_q(prog, *regs_f)  # noqa: E731
+    run_i = lambda: fir_mp_stream_cascade_q(prog, *regs_i)  # noqa: E731
+    ops = stream_q_ops(bank.octaves, nv, st.consumed, ops_f32_dot_min)
+    nb = stream_q_bytes(bank.octaves, S, 256, T1)
+    b_ms, b_by = bound_ms(ops, nb, F32_OPS_PER_S)
+    prof = device_us(run_f, lambda k: is_stream_kernel(k, "fixed"))
+    prof_i = device_us(run_i, lambda k: is_stream_kernel(k, "fixed"))
+    times = [cuda_ms(f, 50) for f in (run_i, run_f, run_f, run_i)]
+    stream_row = dict(
+        name="fir_mp_stream_cascade_q[f32]",
+        shapes=f"S={S} L=256 n=160, {O} octaves (a served wave's "
+               "registers as f32)", max_abs_err=0.0,
+        ms=(times[1] + times[2]) / 2, **device_fields(prof, b_ms),
+        int_ms=(times[0] + times[3]) / 2,
+        int_device_ms=device_fields(prof_i)["device_ms"],
+        plain_ms=cuda_ms(lambda: ref.fir_mp_stream_q(prog, *regs_f), 3),
+        bound_ms=b_ms, bound_by=b_by,
+        int_bound_ms=bound_ms(stream_q_ops(bank.octaves, nv, st.consumed,
+                                           ops_int_dot_min), nb,
+                              INT32_OPS_PER_S)[0],
+        launches=twin_launches["stream"])
+    log({"kernel_vs_plain": oneshot_row})
+    log({"kernel_vs_plain": stream_row})
+
+    mark("rows")
+    # (d) the MAC baseline: fit, one-shot float and fixed, served (xla)
+    mcfg = FILTERBANK_MAC_BASELINE._replace(use_pallas=True,
+                                            stream_impl="xla")
+    mac, _, _, mac_s, mac_gap, fit_launches = fit_checked(mcfg, TRAIN,
+                                                          "MAC")
+    if any(fit_launches.values()):
+        raise AssertionError(f"the MAC bank launched {fit_launches}")
+    xc = x[:n].cpu()
+    s_cpu = FilterBank(mcfg, device="cpu").accumulate(xc)
+    s_card = FilterBank(mcfg, device="cuda").accumulate(x[:n]).cpu()
+    mac_feat = max_err(s_card, s_cpu)
+    if not mac_feat[0] <= mac_feat[1]:
+        raise AssertionError(f"MAC features, card vs CPU: {mac_feat}")
+    acc_mac = float((mac.apply(x_test).argmax(-1) == y_test).float().mean())
+    mfixed = InFilterPipeline(mcfg._replace(numerics="fixed"), mac.bp_taps,
+                              mac.lp_taps, mac.mu, mac.sigma,
+                              mac.clf.params, device="cuda")
+    mfixed.calibrate_fixed(ds.x_train[:8])
+    mcpu = InFilterPipeline(mcfg._replace(numerics="fixed"),
+                            [t.cpu() for t in mac.bp_taps],
+                            [t.cpu() for t in mac.lp_taps], mac.mu.cpu(),
+                            mac.sigma.cpu(),
+                            [t.cpu() for t in mac.clf.params], device="cpu")
+    mcpu.calibrate_fixed(ds.x_train[:8])
+    pm, phim = mfixed.apply(x_test, return_features=True)
+    pc, phic = mcpu.apply(x_test.cpu(), return_features=True)
+    if not (torch.equal(pm.cpu(), pc) and torch.equal(phim.cpu(), phic)):
+        raise AssertionError("MAC fixed deploy: card codes != CPU codes")
+    acc_mac_fixed = float((pm.argmax(-1) == y_test).float().mean())
+    msched = serve_schedule(audio[:, :R2 * 160], R2, 160)
+    serve(mac, msched[:2], S)                              # warm-up
+    mserver, mres, _ = serve(mac, msched, S)
+    counts = mserver.step_counts()
+    if not (counts["replays"] == mserver.steps_run == R2
+            and counts["eager_runs"] == 0):
+        raise AssertionError(f"MAC serve: step counts {counts}")
+    mstate, mps = serve_eager(mac, msched, S)
+    check_captured_vs_eager(mserver, mres, mstate, mps, "MAC serve")
+    torch.cuda.empty_cache()
+    mark("mac")
+    secs_phase = time.perf_counter() - t_phase
+    log(dict(phase="deploy", card=card, config="esc10-mp FILTERBANK",
+             quant_bits=QUANT_BITS, tf32=dict(
+                 matmul=torch.backends.cuda.matmul.allow_tf32,
+                 cudnn=torch.backends.cudnn.allow_tf32),
+             qat_fit_s=qat_s, qat_first_loss=losses[0],
+             qat_last_loss=losses[-1], qat_cpu_loss_gap_and_tol=qat_gap,
+             qat_features_max_abs_diff_phi=dphi,
+             qat_features_tol=phi_tol,
+             served_quant8_vs_oneshot_max_abs_p=serve_gap,
+             served_quant8_step_ms_median=sorted(secs)[len(secs) // 2] * 1e3,
+             twin_equal_int=True, twin_largest_magnitude=largest,
+             past_2_24=dict(largest=long_max,
+                            session_max_abs_diff_and_share=long_session,
+                            clip_max_abs_diff_and_share=long_clip),
+             mac_fit_s=mac_s, mac_cpu_loss_gap_and_tol=mac_gap,
+             mac_features_card_vs_cpu=mac_feat,
+             mac_fixed_codes_equal_cpu=True, launches=ran,
+             seconds=secs_phase, seconds_by_step=steps_s))
+    log(f"deploy accuracy (held-out {len(ds.y_test)} clips; not gated, "
+        f"not a metric) on {card}: MAC {acc_mac:.4f}, MAC fixed "
+        f"{acc_mac_fixed:.4f}, MP float {acc_mp_float:.4f}, MP 8-bit QAT "
+        f"{acc_qat:.4f}, fixed deploy {acc_fixed:.4f}")
+    log(f"deploy: {secs_phase:.1f} s")
+    return [oneshot_row, stream_row], ran
 
 
 def ops_mp_linear_grads(B: int, d: int, O: int, passes: int) -> int:
@@ -4798,7 +5302,8 @@ def main() -> int:
     qwen = mp_cfg("qwen3-8b")
     lin_row, wf_row = phase_mp_kernels(qwen)
 
-    phase_train()
+    acc_mp = phase_train()
+    twin_rows, deploy = phase_deploy(card, acc_mp)
     # remat off, as the LM cell has always run (its times stay comparable)
     qwen2 = dataclasses.replace(qwen, num_layers=2, remat=False)
     bwd_launches, bwd_device_ms, bwd_calls, mesh_ref = phase_train_lm(qwen2)
@@ -4820,11 +5325,15 @@ def main() -> int:
              replaces="src/repro/kernels/fir_mp.py:279",
              launches=serve_launches,
              mesh_path_launches=mesh_launches["fir_mp_stream_cascade"],
+             deploy_path_launches=deploy["qat_serve"][
+                 "fir_mp_stream_cascade"],
              library_ms=None),
         dict(cascade_row, route="cuda", source=src + "fir_mp_bank.cu",
              replaces="src/repro/kernels/fir_mp.py:112",
              also_replaces="src/repro/kernels/fir_mp.py:382",
              launches=oneshot_launches["fir_mp_oneshot_cascade"],
+             deploy_path_launches=deploy["qat_fit"][
+                 "fir_mp_oneshot_cascade"],
              library_ms=None),
         dict(bank_rows["fir_mp_bank"], route="cuda",
              source=src + "fir_mp_bank.cu",
@@ -4840,7 +5349,11 @@ def main() -> int:
         dict(int_cascade_row, route="cuda", source=src + "fir_mp_bank_q.cu",
              replaces="src/repro/kernels/fir_mp.py:515",
              launches=fixed_oneshot_launches["fir_mp_oneshot_cascade_q"],
+             deploy_path_launches=deploy["fixed_oneshot"][
+                 "fir_mp_oneshot_cascade_q"],
              library_ms=None),
+        dict(twin_rows[0], route="cuda", source=src + "fir_mp_bank_q.cu",
+             replaces="src/repro/kernels/fir_mp.py:515", library_ms=None),
         dict(int_bank_row, route="cuda", source=src + "fir_mp_bank_q.cu",
              replaces="src/repro/kernels/fir_mp.py:515",
              launches=int_bank_row["launches_here"],
@@ -4850,7 +5363,11 @@ def main() -> int:
              replaces="src/repro/kernels/fir_mp.py:682",
              launches=fixed_serve_launches,
              mesh_path_launches=mesh_launches["fir_mp_stream_cascade_q"],
+             deploy_path_launches=deploy["fixed_serve"][
+                 "fir_mp_stream_cascade_q"],
              library_ms=None),
+        dict(twin_rows[1], route="cuda", source=src + "fir_mp_stream_q.cu",
+             replaces="src/repro/kernels/fir_mp.py:682", library_ms=None),
         dict(lin_row, route="cuda", source=src + "mp_linear.cu",
              replaces="src/repro/kernels/mp_linear.py:89",
              launches=qwen_out["mp_linear_launches"],
@@ -4877,10 +5394,11 @@ def main() -> int:
          for r in decode_rows]
     keys = ("name", "at", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "mesh_path_launches",
-            "train_zoo_path_launches",
+            "train_zoo_path_launches", "deploy_path_launches",
             "max_abs_err", "ms",
             "device_ms", "device_timed_by", "plain_ms", "bound_ms",
-            "bound_by", "x_bound", "library_ms")
+            "bound_by", "x_bound", "int_ms", "int_device_ms",
+            "int_bound_ms", "library_ms")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
     log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})

@@ -15,6 +15,9 @@ FILTERBANK = FilterBankConfig(
     gamma_f=4.0,
 )
 
+# the "Normal SVM" column of Table III: the same bank with MAC FIR filters
+FILTERBANK_MAC_BASELINE = FILTERBANK._replace(mode="mac")
+
 TRAIN = TrainConfig(
     num_steps=600,
     lr=0.5,

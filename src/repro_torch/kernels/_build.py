@@ -10,7 +10,10 @@ first call and an edited source rebuilds.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, ``-fmad=false`` so the compiler cannot
 contract adds into FMAs and reshape the float add DAG, and no fast math
-(the Newton solver divides, and the float contract needs IEEE division).
+and no ``-ftz=true`` (the Newton solver divides, and the float contract
+needs IEEE division; the int kernels' float carrier needs denormals: a
+right shift of a negative code is floor(ldexp(q, -k)), -1 where the
+scaled value is denormal, -0 once flushed).
 """
 
 from __future__ import annotations
@@ -40,9 +43,9 @@ SIGNATURES = {
     "fir_mp_bank": ("fir_mp_oneshot_launch",
                     [_P, _P] + [_P, _I] * 2 + [_I] * 5 + [_F, _I, _P]),
     "fir_mp_stream_q": ("fir_mp_stream_q_launch",
-                        [_P] * 9 + [_I] * 13 + [_P]),
+                        [_P] * 9 + [_I] * 14 + [_P]),
     "fir_mp_bank_q": ("fir_mp_oneshot_q_launch",
-                      [_P] * 3 + [_P, _I] * 2 + [_I] * 5 + [_P]),
+                      [_P] * 3 + [_P, _I] * 2 + [_I] * 6 + [_P] * 3),
     "mp_linear": ("mp_linear_launch", [_P] * 4 + [_I] * 5 + [_F, _I, _P]),
     "mp_linear_bwd": ("mp_linear_bwd_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "mp_waterfill": ("mp_waterfill_launch",

@@ -3,7 +3,8 @@ the checks made before a pointer reaches a kernel.
 
 ``LAUNCHES`` counts launches per kernel (one per wrapper call that launched
 its kernel, none for a call that ran the plain version), so a run can show
-that its path went through the kernels. A wrapper called while its stream
+that its path went through the kernels; the int kernels' float-carrier
+instances count under ``<name>_f32``. A wrapper called while its stream
 is being captured into a CUDA graph launches nothing yet: its launch is
 held apart (:func:`take_captured`) and counted each time the graph is
 replayed (:func:`add_launches`, called by whoever replays it).
@@ -17,6 +18,8 @@ LAUNCHES = {"fir_mp_stream_cascade": 0, "fir_mp_stream_octave": 0,
             "fir_mp_oneshot_cascade": 0, "fir_mp_bank": 0, "fir_mp": 0,
             "fir_mp_stream_cascade_q": 0, "fir_mp_stream_octave_q": 0,
             "fir_mp_oneshot_cascade_q": 0, "fir_mp_bank_q": 0,
+            "fir_mp_stream_cascade_q_f32": 0, "fir_mp_stream_octave_q_f32": 0,
+            "fir_mp_oneshot_cascade_q_f32": 0, "fir_mp_bank_q_f32": 0,
             "mp_linear": 0, "mp_linear_bwd": 0, "mp_waterfill": 0}
 
 

@@ -1,6 +1,7 @@
 // The integer session step: the fixed-point twin of fir_mp_stream.cu, for
 // one octave or for the whole octave cascade of a served wave in one
-// launch.
+// launch, on int32 codes (the hardware twin) or on integer codes carried
+// in float32 (the fake-quant twin; one instance of each body per carrier).
 //
 // Replaces: src/repro/kernels/fir_mp.py, fir_mp_stream_octave_q (the
 // Pallas kernel _fir_mp_stream_q_kernel), and the per-octave loop around
@@ -40,11 +41,18 @@
 // wrapper packs once per program; each CTA copies its octave's record
 // into shared memory.
 //
-// Integer addition and max are associative, so the partial sums and the
-// amax reduce in any order and still give the reference's bits. Sums wrap
-// in unsigned arithmetic, like the reference's int32 (the reference's
-// interval proof keeps every register far from 2**31 for sessions up to
-// 4,202,512 samples).
+// Integer addition and max are associative, so on int32 the partial sums
+// and the amax reduce in any order and still give the reference's bits.
+// Sums wrap in unsigned arithmetic, like the reference's int32 (the
+// reference's interval proof keeps every register far from 2**31 for
+// sessions up to 4,202,512 samples). On the float carrier every sum runs in
+// a fixed order (each lane's positions in turn, a fixed butterfly across
+// the warp, the blocks in turn), so a wave gives the same bits on every run
+// where sums pass 2**24; the amax, a max of codes >= 0, is an int max on
+// their bits, exact in any order. The accumulators take one f32 add per
+// wave, acc + (part << acc_shift), as the plain version's. The kernel
+// computes in f32 throughout, as the reference's kernel on this carrier:
+// nothing is converted to int32 on the way.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,8 +81,8 @@ enum { hF, hM, hM_lp, hT1, hSigShift, hLpSigShift, hLpOutShift, hAccShift,
 static_assert(kHeadFields <= kHead, "the stage header must fit kHead");
 
 struct Octave {
-  const int* delay_in;   // (S, T1)
-  int* delay_out;        // (S, T1)
+  const void* delay_in;  // (S, T1) codes, on the kernel's carrier
+  void* delay_out;       // (S, T1)
   const int* phase_in;   // cascade: consumed (S,); one octave: start (S,)
   int* consumed_out;     // (S,), cascade only
   int col;               // first accumulator column
@@ -100,47 +108,49 @@ __host__ inline long smem_words(int L, int F, int M, int T1) {
 // and the reversed taps ws: mpabs(clamp(w + x)) (br 0) or mpabs(clamp(w -
 // x)) (br 1), operands clamped onto [qmin, qmax] and solved from their
 // magnitudes.
-template <int P, int MC>
-__device__ __forceinline__ int mpabs_branch(const int* xs, const int* ws,
-                                            int M, int br, int shift,
-                                            int qmin, int qmax, int gamma,
-                                            int iters) {
+template <int P, int MC, typename T>
+__device__ __forceinline__ T mpabs_branch(const T* xs, const T* ws, int M,
+                                          int br, int shift, int qmin,
+                                          int qmax, int gamma, int iters) {
   const int m = MC ? MC : M;
-  int a[P];
+  T a[P];
 #pragma unroll
   for (int k = 0; k < P; ++k) {
-    const int x = k < m ? fxp::rescale(xs[k], shift) : 0;
-    const int w = k < m ? ws[k] : 0;
-    a[k] = abs(fxp::clamp(br ? fxp::wsub(w, x) : fxp::wadd(w, x), qmin,
-                          qmax));
+    const T x = k < m ? fxp::rescale(xs[k], shift) : T(0);
+    const T w = k < m ? ws[k] : T(0);
+    a[k] = fxp::mag(fxp::clamp(br ? fxp::wsub(w, x) : fxp::wadd(w, x),
+                               static_cast<T>(qmin), static_cast<T>(qmax)));
   }
   return fxp::mpabs_q_mag<P, MC>(a, M, gamma, iters);
 }
 
+// T: the carrier, int (int32 codes) or float (f32-carried codes)
+template <typename T>
 struct Args {
-  const int* x;          // (S, L) chunk codes (octave 0)
+  const T* x;            // (S, L) chunk codes (octave 0)
   const int* n;          // (S,) valid counts (octave 0)
-  const int* acc;        // (S, P) accumulators in
-  const int* amax;       // (S,) running max |code| in
-  int* acc_out;          // (S, P)
-  int* amax_out;         // (S,)
-  int* y;                // (S, ystride): y_next (one octave) or scratch
+  const T* acc;          // (S, P) accumulators in
+  const T* amax;         // (S,) running max |code| in
+  T* acc_out;            // (S, P)
+  T* amax_out;           // (S,)
+  T* y;                  // (S, ystride): y_next (one octave) or scratch
   const int* stages;     // (num_octaves, kStageWords) device table
   int L, P, ystride, num_octaves, M, M_lp, T1, F_max, update_amax, cascade;
 };
 
-template <int MB, int ML>
+template <typename T, int MB, int ML>
 __global__ void __launch_bounds__(kMaxThreads)
-fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
+fir_mp_stream_q_kernel(const Args<T> a, const __grid_constant__ Table t) {
+  using S_t = typename fxp::SumOf<T>::type;
   extern __shared__ int smem[];
   const int T1 = a.T1, M = MB ? MB : a.M, M_lp = ML ? ML : a.M_lp;
   const int LB0 = block_len(a.L);
-  int* buf = smem;                       // T1 + LB0: [delay line | block]
-  int* hd = buf + T1 + LB0;              // stage header
-  int* hs = hd + kHead;                  // F x M band-pass codes
-  int* ls = hs + a.F_max * M;            // M_lp low-pass codes
-  unsigned* hv = reinterpret_cast<unsigned*>(ls + kLP);  // F x LB HWR
-  unsigned* part = hv + a.F_max * LB0;                   // F partials
+  T* buf = reinterpret_cast<T*>(smem);   // T1 + LB0: [delay line | block]
+  int* hd = smem + T1 + LB0;             // stage header
+  T* hs = reinterpret_cast<T*>(hd + kHead);  // F x M band-pass codes
+  T* ls = hs + a.F_max * M;              // M_lp low-pass codes
+  S_t* hv = reinterpret_cast<S_t*>(ls + kLP);            // F x LB HWR
+  S_t* part = hv + a.F_max * LB0;                        // F partials
   int* am_s = reinterpret_cast<int*>(part + a.F_max);    // running amax
 
   const int s = blockIdx.x;
@@ -150,20 +160,23 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
   const int nthreads = blockDim.x;
   const int nwarps = nthreads >> 5;
 
-  const int* src = a.x + (size_t)s * a.L;
-  int* yrow = a.y ? a.y + (size_t)s * a.ystride : nullptr;
+  const T* src = a.x + (size_t)s * a.L;
+  T* yrow = a.y ? a.y + (size_t)s * a.ystride : nullptr;
   int Lo = a.L;
   int nv = a.n[s];
-  if (tid == 0) *am_s = a.amax[s];
+  if (tid == 0) *am_s = fxp::max_bits(a.amax[s]);
 
   for (int o = 0; o < a.num_octaves; ++o) {
     const Octave& oc = t.oct[o];
     const int* rec = a.stages + (size_t)o * kStageWords;
     const int F = rec[hF];
     for (int i = tid; i < kHead; i += nthreads) hd[i] = rec[i];
-    for (int i = tid; i < F * M; i += nthreads) hs[i] = rec[kHead + i];
-    for (int i = tid; i < M_lp; i += nthreads) ls[i] = rec[kHead + kMaxBP + i];
-    for (int i = tid; i < F; i += nthreads) part[i] = 0u;
+    // the tap codes onto the carrier, as the reference casts H_q
+    for (int i = tid; i < F * M; i += nthreads)
+      hs[i] = static_cast<T>(rec[kHead + i]);
+    for (int i = tid; i < M_lp; i += nthreads)
+      ls[i] = static_cast<T>(rec[kHead + kMaxBP + i]);
+    for (int i = tid; i < F; i += nthreads) part[i] = S_t(0);
     __syncthreads();
     const int emit = hd[hEmit];
     const int LB = block_len(Lo);
@@ -174,24 +187,25 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
     const int kept = !emit ? 0 : (a.cascade ? n_next : a.ystride);
     const bool reread = a.cascade && o > 0;  // src is the scratch row
 
+    const T* delay_in = static_cast<const T*>(oc.delay_in);
     for (int i = tid; i < T1; i += nthreads)
-      buf[i] = oc.delay_in[(size_t)s * T1 + i];
+      buf[i] = delay_in[(size_t)s * T1 + i];
 
     for (int b = 0; b < NB; ++b) {
       const int v = min(max(nv - b * LB, 0), LB);
       const int kb = min(max(kept - b * half, 0), half);
-      int m = 0;
+      T m = 0;
       for (int i = tid; i < LB; i += nthreads) {
         const int p = b * LB + i;
         // past the valid prefix the scratch row holds nothing written
         const bool in = reread ? p < nv : p < Lo;
-        const int xv = in ? (reread ? __ldcg(src + p) : src[p]) : 0;
+        const T xv = in ? (reread ? __ldcg(src + p) : src[p]) : T(0);
         buf[T1 + i] = xv;
-        m = max(m, abs(xv));
+        m = fxp::vmax(m, fxp::mag(xv));
       }
-      if (a.update_amax && o == 0) {   // integer max: any order
-        m = __reduce_max_sync(kFull, m);
-        if (lane == 0) atomicMax(am_s, m);
+      if (a.update_amax && o == 0) {   // a max of codes >= 0: any order
+        const int mb = __reduce_max_sync(kFull, fxp::max_bits(m));
+        if (lane == 0) atomicMax(am_s, mb);
       }
       __syncthreads();
 
@@ -203,7 +217,8 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
         const int q = i >> 1, br = i & 1;
         const bool act = i < items;
         const bool is_bp = q < nbp;
-        int f = 0, p = 0, z = 0;
+        int f = 0, p = 0;
+        T z = 0;
         if (act) {
           if (is_bp) {
             f = q / v;
@@ -220,30 +235,31 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
                                       hd[hGammaLp], hd[hItersLp]);
           }
         }
-        const int other = __shfl_xor_sync(kFull, z, 1);
+        const T other = __shfl_xor_sync(kFull, z, 1);
         if (act && br == 0) {
-          const int y = z - other;       // mpabs(u) - mpabs(v)
+          const T y = z - other;         // mpabs(u) - mpabs(v)
           if (is_bp)
-            hv[f * LB + p] = static_cast<unsigned>(max(y, 0));
+            hv[f * LB + p] = fxp::hwr_term(y);
           else
-            yrow[b * half + p] =
-                fxp::clamp(fxp::rescale(y, hd[hLpOutShift]), hd[hNextQmin],
-                           hd[hNextQmax]);
+            yrow[b * half + p] = fxp::clamp(
+                fxp::rescale(y, hd[hLpOutShift]),
+                static_cast<T>(hd[hNextQmin]), static_cast<T>(hd[hNextQmax]));
         }
       }
       __syncthreads();
 
-      // each filter's valid HWR values, summed in any order
+      // each filter's valid HWR values: each lane's positions in turn,
+      // then across the warp (int32: any order; float: fxp::warp_sum's)
       for (int f = warp; f < F; f += nwarps) {
-        unsigned sum = 0u;
+        S_t sum = S_t(0);
         for (int p = lane; p < v; p += 32) sum += hv[f * LB + p];
-        sum = __reduce_add_sync(kFull, sum);
+        sum = fxp::warp_sum(sum);
         if (lane == 0) part[f] += sum;
       }
 
       // slide the delay line by this block's valid count; a slot with no
       // valid samples keeps its registers bit for bit
-      const int d = tid < T1 ? buf[v + tid] : 0;
+      const T d = tid < T1 ? buf[v + tid] : T(0);
       __syncthreads();
       if (tid < T1) buf[tid] = d;
       __syncthreads();
@@ -252,10 +268,11 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
     for (int f = tid; f < F; f += nthreads) {
       const size_t c = (size_t)s * a.P + oc.col + f;
       a.acc_out[c] = fxp::wadd(
-          a.acc[c], fxp::shl(static_cast<int>(part[f]), hd[hAccShift]));
+          a.acc[c], fxp::shl(fxp::from_sum(part[f]), hd[hAccShift]));
     }
+    T* delay_out = static_cast<T*>(oc.delay_out);
     for (int i = tid; i < T1; i += nthreads)
-      oc.delay_out[(size_t)s * T1 + i] = buf[i];
+      delay_out[(size_t)s * T1 + i] = buf[i];
     if (oc.consumed_out && tid == 0)
       oc.consumed_out[s] = fxp::wadd(oc.phase_in[s], nv);
     // the next octave: the kept codes, read back after the barrier
@@ -264,16 +281,16 @@ fir_mp_stream_q_kernel(const Args a, const __grid_constant__ Table t) {
     Lo = (Lo + 1) / 2;
     __syncthreads();
   }
-  if (tid == 0) a.amax_out[s] = *am_s;
+  if (tid == 0) a.amax_out[s] = fxp::from_max_bits<T>(*am_s);
 }
 
 // Fields of one host table row, as int64 (kernels/fir_mp.py packs them).
 enum { kDelayIn, kDelayOut, kPhaseIn, kConsumedOut, kCol, kOctFields };
 
-template <int MB, int ML>
-int launch(const Args& args, const Table& t, int S, int threads,
+template <typename T, int MB, int ML>
+int launch(const Args<T>& args, const Table& t, int S, int threads,
            int smem_bytes, cudaStream_t stream) {
-  auto kernel = fir_mp_stream_q_kernel<MB, ML>;
+  auto kernel = fir_mp_stream_q_kernel<T, MB, ML>;
   if (smem_bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
@@ -283,27 +300,58 @@ int launch(const Args& args, const Table& t, int S, int threads,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T>
+int run(const void* x, const void* n, const void* acc, const void* amax,
+        void* acc_out, void* amax_out, void* y, const void* stages,
+        const Table& t, int num_octaves, int S, int L, int P, int ystride,
+        int F_max, int M, int M_lp, int T1, int update_amax, int cascade,
+        int threads, int smem_bytes, cudaStream_t st) {
+  Args<T> args;
+  args.x = static_cast<const T*>(x);
+  args.n = static_cast<const int*>(n);
+  args.acc = static_cast<const T*>(acc);
+  args.amax = static_cast<const T*>(amax);
+  args.acc_out = static_cast<T*>(acc_out);
+  args.amax_out = static_cast<T*>(amax_out);
+  args.y = static_cast<T*>(y);
+  args.stages = static_cast<const int*>(stages);
+  args.L = L;
+  args.P = P;
+  args.ystride = ystride;
+  args.num_octaves = num_octaves;
+  args.M = M;
+  args.M_lp = M_lp;
+  args.T1 = T1;
+  args.F_max = F_max;
+  args.update_amax = update_amax;
+  args.cascade = cascade;
+  if (M == 16 && M_lp == 6)
+    return launch<T, 16, 6>(args, t, S, threads, smem_bytes, st);
+  return launch<T, 0, 0>(args, t, S, threads, smem_bytes, st);
+}
+
 }  // namespace
 
 // The integer stream kernel for S slots over `num_octaves` stages. x (S,
-// L), n (S,), acc / acc_out (S, P), amax / amax_out (S,) int32 on the
-// card; y (S, ystride) int32: the one-octave entry's y_next (ystride = (L
-// + 1) / 2) or the cascade's scratch row (ystride >= (L + 1) / 2), null
-// when no stage emits. `stages` is the device table (num_octaves x 552
-// int32, kernels/fir_mp.py pack_stages); `octs` (num_octaves x kOctFields
-// int64) is host memory, copied into the launch's parameters; `F_max`, M,
-// M_lp and T1 must be the table's. `threads` and `smem_bytes` come from
-// the launch plan; a plan that does not cover this kernel's need is
-// refused. Returns 0, a cudaError_t code, or -1 for shapes outside what it
-// takes (1 <= M <= 16, 1 <= M_lp <= 8, M - 1 <= T1, M_lp - 1 <= T1, T1
-// <= 31, 1 <= F <= 32, 1 <= num_octaves <= 8, threads a multiple of 32 in
-// [32, 256]).
+// L), acc / acc_out (S, P), amax / amax_out (S,) and y codes on the card,
+// int32 or, under `float_carrier`, float32 (all on one carrier); n (S,)
+// and the phase / consumed counters int32; y (S, ystride): the one-octave
+// entry's y_next (ystride = (L + 1) / 2) or the cascade's scratch row
+// (ystride >= (L + 1) / 2), null when no stage emits. `stages` is the
+// device table (num_octaves x 552 int32, kernels/fir_mp.py pack_stages),
+// read onto the carrier; `octs` (num_octaves x kOctFields int64) is host
+// memory, copied into the launch's parameters; `F_max`, M, M_lp and T1
+// must be the table's. `threads` and `smem_bytes` come from the launch
+// plan; a plan that does not cover this kernel's need is refused. Returns
+// 0, a cudaError_t code, or -1 for shapes outside what it takes (1 <= M <=
+// 16, 1 <= M_lp <= 8, M - 1 <= T1, M_lp - 1 <= T1, T1 <= 31, 1 <= F <=
+// 32, 1 <= num_octaves <= 8, threads a multiple of 32 in [32, 256]).
 extern "C" int fir_mp_stream_q_launch(
     const void* x, const void* n, const void* acc, const void* amax,
     void* acc_out, void* amax_out, void* y, const void* stages,
     const int64_t* octs, int num_octaves, int S, int L, int P, int ystride,
     int F_max, int M, int M_lp, int T1, int update_amax, int cascade,
-    int threads, int smem_bytes, void* stream) {
+    int float_carrier, int threads, int smem_bytes, void* stream) {
   if (S < 1 || L < 1 || num_octaves < 1 || num_octaves > kMaxOctaves ||
       F_max < 1 || F_max > kMaxF || F_max * M > kMaxBP || M < 1 || M > kP ||
       M_lp < 1 || M_lp > kLP || T1 > 31 || M - 1 > T1 || M_lp - 1 > T1 ||
@@ -316,8 +364,8 @@ extern "C" int fir_mp_stream_q_launch(
   for (int o = 0; o < num_octaves; ++o) {
     const int64_t* r = octs + (size_t)o * kOctFields;
     Octave& oc = t.oct[o];
-    oc.delay_in = reinterpret_cast<const int*>(r[kDelayIn]);
-    oc.delay_out = reinterpret_cast<int*>(r[kDelayOut]);
+    oc.delay_in = reinterpret_cast<const void*>(r[kDelayIn]);
+    oc.delay_out = reinterpret_cast<void*>(r[kDelayOut]);
     oc.phase_in = reinterpret_cast<const int*>(r[kPhaseIn]);
     oc.consumed_out = reinterpret_cast<int*>(r[kConsumedOut]);
     oc.col = static_cast<int>(r[kCol]);
@@ -328,27 +376,9 @@ extern "C" int fir_mp_stream_q_launch(
   if ((cascade && num_octaves > 1) && !y) return -1;
   const long need = smem_words(L, F_max, M, T1) * (long)sizeof(int);
   if (smem_bytes < need || smem_bytes > 227 * 1024) return -1;
-  Args args;
-  args.x = static_cast<const int*>(x);
-  args.n = static_cast<const int*>(n);
-  args.acc = static_cast<const int*>(acc);
-  args.amax = static_cast<const int*>(amax);
-  args.acc_out = static_cast<int*>(acc_out);
-  args.amax_out = static_cast<int*>(amax_out);
-  args.y = static_cast<int*>(y);
-  args.stages = static_cast<const int*>(stages);
-  args.L = L;
-  args.P = P;
-  args.ystride = ystride;
-  args.num_octaves = num_octaves;
-  args.M = M;
-  args.M_lp = M_lp;
-  args.T1 = T1;
-  args.F_max = F_max;
-  args.update_amax = update_amax;
-  args.cascade = cascade;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (M == 16 && M_lp == 6)
-    return launch<16, 6>(args, t, S, threads, smem_bytes, st);
-  return launch<0, 0>(args, t, S, threads, smem_bytes, st);
+  return (float_carrier ? run<float> : run<int>)(
+      x, n, acc, amax, acc_out, amax_out, y, stages, t, num_octaves, S, L,
+      P, ystride, F_max, M, M_lp, T1, update_amax, cascade, threads,
+      smem_bytes, st);
 }

@@ -27,9 +27,12 @@ A CUDA tensor launches the kernel on ``torch.cuda.current_stream()``; a CPU
 tensor runs the plain PyTorch version in ``kernels.ref``; any other device
 raises. There is no fallback from one to the other. Outputs are allocated
 here with ``torch.empty``; a refused launch raises at once. The integer
-kernels take int32 codes (the hardware path); their plain versions also
-take codes carried in float32, which on the card raise (ROADMAP.md §2,
-"f32-carried codes through the CUDA int kernels").
+kernels take codes on either carrier of the reference's integer datapath:
+int32 (the hardware twin) or integer values carried in float32 (the
+fake-quant twin), each through its own instance of the kernel, which
+computes on that carrier (:func:`_carrier`). All the codes of one call
+share a carrier (a mix, or another dtype, raises on either device); the
+tap and stage tables stay int32 and the kernels read them onto it.
 
 The two stream kernels take a launch plan (:func:`stream_plan`: threads,
 shared bytes, scratch) and a table of per-octave rows packed here
@@ -240,15 +243,34 @@ def _i32(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.int32).contiguous()
 
 
-def _codes(t: torch.Tensor, name: str, kernel: str) -> torch.Tensor:
-    """int32 codes for an integer kernel; float-carried codes raise."""
-    if t.dtype != torch.int32:
+CARRIERS = (torch.int32, torch.float32)
+
+
+def _launch_key(kernel: str, codes: torch.Tensor) -> str:
+    """The ``LAUNCHES`` key of an int kernel's launch: its name for the
+    int32 instance, ``<name>_f32`` for the float-carrier one."""
+    return kernel if codes.dtype == torch.int32 else f"{kernel}_f32"
+
+
+def _carrier(kernel: str, *codes) -> torch.dtype:
+    """The carrier of one call's codes, given as (name, tensor) pairs:
+    int32 (the hardware twin) or float32 carrying integer values (the
+    fake-quant twin). Every code of a call shares it: another dtype, or a
+    mix of the two, raises ValueError."""
+    seen = {}
+    for name, t in codes:
+        if t.dtype not in CARRIERS:
+            raise ValueError(
+                f"{kernel}: {name} is {t.dtype}; the int kernels take codes "
+                "carried in int32 or in float32 (integer values) only")
+        seen.setdefault(t.dtype, name)
+    if len(seen) > 1:
+        got = ", ".join(f"{name} {dt}" for dt, name in seen.items())
         raise ValueError(
-            f"{kernel}: {name} must be int32 codes on the card, got "
-            f"{t.dtype} (float-carried codes run only in the plain version; "
-            "ROADMAP.md §2, 'f32-carried codes through the CUDA int "
-            "kernels')")
-    return t.contiguous()
+            f"{kernel}: mixed carriers ({got}): the codes of one call "
+            "(signal, delay lines, accumulators, amax) share one carrier, "
+            "int32 or float32")
+    return next(iter(seen))
 
 
 def _host_codes(a) -> np.ndarray:
@@ -465,9 +487,11 @@ def oneshot_plan(B: int, N: int, F: int, *, octaves: int = 1,
     ``ready_off[o]``, then a done counter per (row, filter) at
     ``done_off[o]``. Under ``integer`` the band sums are integers, which
     add in any order: there are no partials and no done counters, the
-    scratch holds the int32 signals x_o only and the counters the head and
-    the ready counters. Shapes outside the kernel raise ValueError, as the
-    kernel refuses them."""
+    scratch holds the signals x_o only (on the codes' carrier) and the
+    counters the head and the ready counters; on float32-carried codes the
+    int kernel's ordered sums take partials and done counters that
+    ``_oneshot_q_launch`` sizes beside the plan. Shapes outside the kernel
+    raise ValueError, as the kernel refuses them."""
     for name, val, hi in (("B", B, None), ("N", N, None), ("F", F, None),
                           ("octaves", octaves, ONESHOT_MAX_OCTAVES)):
         if val < 1 or (hi is not None and val > hi):
@@ -702,6 +726,7 @@ def fir_mp_kernel(x, h, gamma, *, accumulate: bool = False,
 def _stream_q_launch(x, n, acc, amax, acc_out, amax_out, y, stages, rows,
                      *, L, P, ystride, F_max, M, M_lp, T1, update_amax,
                      cascade, plan):
+    """The int stream kernel's C call, on x's carrier."""
     from repro_torch.kernels._build import load
     S = x.shape[0]
     return load("fir_mp_stream_q")(
@@ -709,8 +734,8 @@ def _stream_q_launch(x, n, acc, amax, acc_out, amax_out, y, stages, rows,
         acc_out.data_ptr(), amax_out.data_ptr(),
         None if y is None else y.data_ptr(), stages.data_ptr(),
         rows.ctypes.data, rows.shape[0], S, L, P, ystride, F_max, M, M_lp,
-        T1, int(update_amax), int(cascade), plan["threads"],
-        plan["smem_bytes"], _stream())
+        T1, int(update_amax), int(cascade), int(x.dtype == torch.float32),
+        plan["threads"], plan["smem_bytes"], _stream())
 
 
 def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
@@ -722,7 +747,9 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
     ``prog`` the compiled ``core.fixed.FixedPointProgram`` (MP mode);
     chunk_q (S, L) ADC codes with invalid tails zeroed, L >= 1 (the caller
     handles the L == 0 readout); n (S,) effective valid counts; the
-    registers as in ``SessionState``, int32. Per octave the phase is
+    registers as in ``SessionState``: the codes (chunk, delay lines, acc,
+    amax) on one carrier, int32 or float32 (:func:`_carrier`), the
+    consumed counters int32. Per octave the phase is
     ``consumed & 1`` and the next valid count ``max(n - phase + 1, 0) >>
     1``; amax rises at octave 0. The stage constants travel in a device
     table packed once per program and cached on it
@@ -738,6 +765,7 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
         raise ValueError(f"the program has {O} octaves: pass {O} delay "
                          f"lines and consumed counters")
     if not _on_cuda(chunk_q, n, acc, amax, *delays, *consumed):
+        _stream_carrier(chunk_q, delays, acc, amax)
         return ref.fir_mp_stream_q(prog, chunk_q, n, delays, consumed, acc,
                                    amax)
     key = "fir_mp_stream_cascade_q"
@@ -759,7 +787,7 @@ def fir_mp_stream_cascade_q(prog, chunk_q, n, delays, consumed, acc, amax):
     if code:
         _check(code, key, f"S={S} L={L} octaves={O} F={list(Fs)} M={M} "
                           f"T1={T1} M_lp={M_lp}")
-    count_launch(key)
+    count_launch(_launch_key(key, chunk_q))
     return (tuple(delays_out.unbind(0)), tuple(consumed_out.unbind(0)),
             acc_out, amax_out)
 
@@ -790,12 +818,19 @@ def _program_table(bank, T1: int, device):
     return cache[key]
 
 
+def _stream_carrier(chunk_q, delays, acc, amax) -> torch.dtype:
+    """The carrier of an int cascade's codes (:func:`_carrier`)."""
+    return _carrier("fir_mp_stream_cascade_q", ("chunk_q", chunk_q),
+                    *((f"delays[{o}]", d) for o, d in enumerate(delays)),
+                    ("acc", acc), ("amax", amax))
+
+
 def _cascade_q_inputs(chunk_q, n, delays, consumed, acc, amax, Fs, M, M_lp):
     """The int cascade's checks and conversions on CUDA tensors: its launch
-    plan and the inputs as the kernel reads them (contiguous int32 codes;
-    float-carried codes raise)."""
-    key = "fir_mp_stream_cascade_q"
+    plan and the inputs as the kernel reads them (contiguous codes on one
+    carrier, int32 or float32; a mix or another dtype raises)."""
     S, L = chunk_q.shape
+    _stream_carrier(chunk_q, delays, acc, amax)
     T1 = delays[0].shape[1]
     for o in range(len(delays)):
         _expect(f"delays[{o}]", delays[o], (S, T1))
@@ -805,11 +840,10 @@ def _cascade_q_inputs(chunk_q, n, delays, consumed, acc, amax, Fs, M, M_lp):
         _expect(name, t, shape)
     plan = stream_plan(L, max(Fs), M, M_lp, T1, octaves=len(delays),
                        integer=True)
-    return plan, (_codes(chunk_q, "chunk_q", key), _i32(n),
-                  [_codes(d, f"delays[{o}]", key)
-                   for o, d in enumerate(delays)],
-                  [_i32(c) for c in consumed], _codes(acc, "acc", key),
-                  _codes(amax, "amax", key))
+    return plan, (chunk_q.contiguous(), _i32(n),
+                  [d.contiguous() for d in delays],
+                  [_i32(c) for c in consumed], acc.contiguous(),
+                  amax.contiguous())
 
 
 def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
@@ -821,19 +855,21 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
     x (S, L) this octave's register codes (octave 0: invalid tails zeroed);
     n (S,) valid counts; start (S,) ÷2 phases; delay (S, T1) delay-line
     codes; acc (S, F) accumulators; amax (S,) running max |code| (updated
-    only under ``update_amax``); ``stage`` the compiled
+    only under ``update_amax``); x, delay, acc and amax on one carrier,
+    int32 or float32 (:func:`_carrier`); ``stage`` the compiled
     ``core.fixed.OctaveStage`` (taps, shifts, gammas, iterations, clamp
     bounds); ``next_spec`` the next octave's register spec (required with
     ``emit_next``). Returns ``(acc', delay', amax', y_next | None)``,
-    y_next (S, (L + 1) // 2) next-octave codes.
+    y_next (S, (L + 1) // 2) next-octave codes on the carrier.
     """
+    key = "fir_mp_stream_octave_q"
     if emit_next and next_spec is None:
         raise ValueError("emit_next needs the next octave's next_spec")
+    _carrier(key, ("x", x), ("delay", delay), ("acc", acc), ("amax", amax))
     if not _on_cuda(x, n, start, delay, acc, amax):
         return ref.fir_mp_stream_octave_q(
             x, n, start, delay, acc, amax, stage=stage, next_spec=next_spec,
             emit_next=emit_next, update_amax=update_amax)
-    key = "fir_mp_stream_octave_q"
     S, L = x.shape
     Fn, M = stage.bp_q.shape
     T1 = delay.shape[1]
@@ -843,8 +879,7 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
                            ("amax", amax, (S,))):
         _expect(name, t, shape)
     plan = stream_plan(L, Fn, M, M_lp, T1, integer=True)
-    x, delay, acc, amax = (_codes(t, nm, key) for t, nm in (
-        (x, "x"), (delay, "delay"), (acc, "acc"), (amax, "amax")))
+    x, delay, acc, amax = (t.contiguous() for t in (x, delay, acc, amax))
     n, start = _i32(n), _i32(start)
     nxt = next_spec if emit_next else None
     table = _device_table(stage, ("octave", nxt, T1),
@@ -853,7 +888,7 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
     delay_o = torch.empty_like(delay)
     amax_o = torch.empty_like(amax)
     l_next = (L + 1) // 2
-    y_next = (torch.empty((S, l_next), dtype=torch.int32, device=x.device)
+    y_next = (torch.empty((S, l_next), dtype=x.dtype, device=x.device)
               if emit_next else None)
     rows = stream_q_octave_rows([delay], [delay_o], [start], [None], [0])
     code = _stream_q_launch(x, n, acc, amax, acc_o, amax_o, y_next, table,
@@ -861,7 +896,7 @@ def fir_mp_stream_octave_q(x, n, start, delay, acc, amax, *, stage,
                             M_lp=M_lp, T1=T1, update_amax=update_amax,
                             cascade=False, plan=plan)
     _check(code, key, f"S={S} L={L} F={Fn} M={M} T1={T1} M_lp={M_lp}")
-    count_launch(key)
+    count_launch(_launch_key(key, x))
     return acc_o, delay_o, amax_o, y_next
 
 
@@ -903,21 +938,32 @@ def oneshot_q_octave_rows(plan, x, scratch, counters, y=None) -> np.ndarray:
 
 def _oneshot_q_launch(plan, x, table, *, P, M, M_lp, y=None):
     """Zero one buffer for the band sums (B, P) and the plan's counters,
-    allocate its scratch, pack its table and launch its queue. Returns
-    (the sums, or None in the output mode, the C code)."""
+    allocate its scratch, pack its table and launch its queue on x's
+    carrier. On float32 the sums land in order (the kernel's header): the
+    buffer also holds a done counter per accumulator column, and the tile
+    partials (B F sum(tiles) f32) are allocated beside it. Returns (the
+    sums, or None in the output mode, the C code)."""
     from repro_torch.kernels._build import load
     dev, B = x.device, x.shape[0]
+    flt = x.dtype == torch.float32
     nsum = 0 if plan["output"] else B * P
-    buf = torch.zeros(nsum + plan["counters"], dtype=torch.int32, device=dev)
-    sums = None if plan["output"] else buf[:nsum].view(B, P)
-    counters = buf[nsum:]
-    scratch = torch.empty(plan["scratch"], dtype=torch.int32, device=dev)
+    ndone = nsum if flt else 0
+    ctr = plan["counters"]
+    buf = torch.zeros(nsum + ctr + ndone, dtype=torch.int32, device=dev)
+    sums = None if plan["output"] else buf[:nsum].view(x.dtype).view(B, P)
+    counters = buf[nsum:nsum + ctr]
+    scratch = torch.empty(plan["scratch"], dtype=x.dtype, device=dev)
+    partials = (torch.empty(B * plan["F"] * sum(plan["tiles"]),
+                            dtype=torch.float32, device=dev)
+                if ndone else None)
     rows = oneshot_q_octave_rows(plan, x, scratch, counters, y)
     segs = plan["segments"]
     code = load("fir_mp_bank_q")(
         None if sums is None else sums.data_ptr(), counters.data_ptr(),
         table.data_ptr(), rows.ctypes.data, rows.shape[0], segs.ctypes.data,
-        segs.shape[0], B, plan["F"], P, M, M_lp, _stream())
+        segs.shape[0], B, plan["F"], P, M, M_lp, int(flt),
+        None if partials is None else partials.data_ptr(),
+        buf[nsum + ctr:].data_ptr() if ndone else None, _stream())
     return sums, code
 
 
@@ -958,12 +1004,13 @@ def _operand_bounds(qmin: int, qmax: int) -> None:
 
 def _oneshot_q_inputs(xq, M: int, M_lp: int, key: str) -> torch.Tensor:
     """The int one-shot cascade's checks on a card's tensor: xq as the
-    kernel reads it (contiguous int32 codes; float-carried codes and tap
-    lengths beyond the stage table raise)."""
+    kernel reads it (contiguous codes, int32 or float32; another dtype and
+    tap lengths beyond the stage table raise)."""
     if not (M <= ONESHOT_MAX_M and M_lp <= _LP_LANES):
         raise ValueError(f"{key}: M = {M} and M_lp = {M_lp} must be at most "
                          f"{ONESHOT_MAX_M} and {_LP_LANES}")
-    return _codes(xq, "xq", key)
+    _carrier(key, ("xq", xq))
+    return xq.contiguous()
 
 
 def fir_mp_oneshot_cascade_q(bank, xq):
@@ -973,18 +1020,22 @@ def fir_mp_oneshot_cascade_q(bank, xq):
     ``use_pallas``).
 
     ``bank`` the compiled ``core.fixed.FixedBankProgram`` (MP mode); xq
-    (B, N) ADC codes. Returns the accumulators (B, O F), octave o's
-    ``shift_left(sum max(y, 0), acc_shift)`` in columns o F .. o F + F - 1,
-    bit for bit the plain version. Octave o's low-pass is solved at its
-    kept positions only. The stage constants travel in the int stream
-    kernel's device stage table (:func:`pack_stages`), packed once per
-    bank and cached on it."""
+    (B, N) ADC codes, int32 or float32-carried. Returns the accumulators
+    (B, O F) on xq's carrier, octave o's ``shift_left(sum max(y, 0),
+    acc_shift)`` in columns o F .. o F + F - 1, bit for bit the plain
+    version while the sums stay below 2**24 (float32 past it: the same
+    bits on every run, within the rounding of the sums' two orders of the
+    plain version). Octave o's low-pass is solved at its kept positions
+    only. The stage constants travel in the int stream kernel's device
+    stage table (:func:`pack_stages`), packed once per bank and cached on
+    it."""
+    key = "fir_mp_oneshot_cascade_q"
     if xq.ndim != 2:
         raise ValueError(f"xq must be (B, N), got {tuple(xq.shape)}")
     F, M, M_lp = _oneshot_q_shapes(bank)
     if not _on_cuda(xq):
+        _carrier(key, ("xq", xq))
         return ref.fir_mp_oneshot_cascade_q(bank, xq)
-    key = "fir_mp_oneshot_cascade_q"
     xq = _oneshot_q_inputs(xq, M, M_lp, key)
     B, N = xq.shape
     O = len(bank.octaves)
@@ -997,7 +1048,7 @@ def fir_mp_oneshot_cascade_q(bank, xq):
     if code:
         _check(code, key, f"B={B} N={N} octaves={O} F={F} M={M} "
                           f"M_lp={M_lp}")
-    count_launch(key)
+    count_launch(_launch_key(key, xq))
     return sums
 
 
@@ -1020,12 +1071,13 @@ def fir_mp_bank_q_kernel(xq, H_q, *, gamma_q: int, iters: int, qmin: int,
     H_q (F, M) tap codes (host array or tensor) -> (B, F, N) band codes,
     or the integer HWR sums (B, F) under ``accumulate`` (the cascade
     kernel on one octave: its band items, or out items at every
-    position)."""
+    position), on xq's carrier (int32 or float32)."""
+    key = "fir_mp_bank_q"
+    _carrier(key, ("xq", xq))
     if not _on_cuda(xq):
         fn = ref.fir_mp_bank_q_accumulate if accumulate else ref.fir_mp_bank_q
         return fn(xq, H_q, gamma_q, iters, qmin, qmax)
-    key = "fir_mp_bank_q"
-    xq = _codes(xq, "xq", key)
+    xq = xq.contiguous()
     H = _host_codes(H_q)
     if xq.ndim != 2 or H.ndim != 2:
         raise ValueError(f"xq must be (B, N) and H_q (F, M), got "
@@ -1035,8 +1087,8 @@ def fir_mp_bank_q_kernel(xq, H_q, *, gamma_q: int, iters: int, qmin: int,
     table = _one_stage_table(H, gamma_q, iters, qmin, qmax, xq.device)
     plan = oneshot_plan(B, N, Fn, output=not accumulate, integer=True)
     y = (None if accumulate else
-         torch.empty((B, Fn, N), dtype=torch.int32, device=xq.device))
+         torch.empty((B, Fn, N), dtype=xq.dtype, device=xq.device))
     sums, code = _oneshot_q_launch(plan, xq, table, P=Fn, M=M, M_lp=1, y=y)
     _check(code, key, f"B={B} N={N} F={Fn} M={M}")
-    count_launch(key)
+    count_launch(_launch_key(key, xq))
     return sums if accumulate else y

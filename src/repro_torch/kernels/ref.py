@@ -37,6 +37,7 @@ __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
 DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
 BANK_TILE = 256      # positions per CTA of the bank kernel
 LINEAR_BLOCK = 1 << 25   # mp_linear: elements of one (B, O_blk, d) operand
+BANK_Q_BLOCK = 1 << 25   # fir_mp_bank_q: codes of one block's windows
 
 
 def tile_sum(h: torch.Tensor, tile: int = BANK_TILE) -> torch.Tensor:
@@ -241,8 +242,14 @@ def fir_mp_bank_q(xq: torch.Tensor, H_q, gamma_q: int, iters: int,
     band codes: position n pairs x[n - k] (zero left fill) with tap k,
     operands ``clip(h_k +- x[n - k], qmin, qmax)``, and
     ``mpabs(u) - mpabs(v)`` by integer bisection (``gamma_q``, ``iters``;
-    the result is ``hi``)."""
-    return fx.fxp_fir_bank(xq, H_q, gamma_q, iters, _Bounds(qmin, qmax))
+    the result is ``hi``). Solved in blocks of positions whose windows
+    hold about ``BANK_Q_BLOCK`` codes (at least 1024 positions): every
+    window solve is independent, so the blocks set memory and the number
+    of torch calls, not values."""
+    Fn, M = H_q.shape
+    rows = max(1, xq.numel() // max(1, xq.shape[-1]))
+    return fx.fxp_fir_bank(xq, H_q, gamma_q, iters, _Bounds(qmin, qmax),
+                           chunk_n=max(1024, BANK_Q_BLOCK // (rows * Fn * M)))
 
 
 def fir_mp_bank_q_accumulate(xq: torch.Tensor, H_q, gamma_q: int,

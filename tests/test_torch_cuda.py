@@ -439,21 +439,196 @@ def test_fixed_oneshot_apply_runs_one_cascade_launch(dev, clips):
 
 
 def test_int_kernels_refuse_float_carried_codes(dev, prog):
+    """What the int kernels refuse of float-carried codes: a call whose
+    codes mix float32 and int32, and codes in any other dtype (both
+    carriers are taken alone; the tests below)."""
     st = prog.bank.octaves[0]
     x = torch.zeros(2, 16, device=dev)
-    with pytest.raises(ValueError, match="f32-carried codes through the "
-                                         "CUDA int kernels"):
-        fir_mp_oneshot_cascade_q(prog.bank, x)
-    with pytest.raises(ValueError, match="f32-carried codes through the "
-                                         "CUDA int kernels"):
-        fir_mp_bank_q_kernel(x, st.bp_q, gamma_q=st.gamma_bp,
-                             iters=st.iters_bp, qmin=st.band_spec.qmin,
-                             qmax=st.band_spec.qmax)
+    for bad in (x.double(), x.long()):
+        with pytest.raises(ValueError, match="carried in int32 or in "
+                                             "float32"):
+            fir_mp_oneshot_cascade_q(prog.bank, bad)
+        with pytest.raises(ValueError, match="carried in int32 or in "
+                                             "float32"):
+            fir_mp_bank_q_kernel(bad, st.bp_q, gamma_q=st.gamma_bp,
+                                 iters=st.iters_bp, qmin=st.band_spec.qmin,
+                                 qmax=st.band_spec.qmax)
     i32 = lambda *s: torch.zeros(*s, dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="f32-carried codes"):
+    with pytest.raises(ValueError, match="mixed carriers"):
         fir_mp_stream_octave_q(x, i32(2), i32(2), i32(2, 15), i32(2, 5),
                                i32(2), stage=st,
                                next_spec=prog.bank.octaves[1].in_spec)
+
+
+# -- the fake-quant twin: the int kernels' float32 instances ------------------
+
+
+def _twin(got_f, got_i, want_f):
+    """A float-carrier kernel's output: float32, the int kernel's codes
+    (every value an integer below 2**24 here) and its plain version's,
+    exactly (+0 and -0 equal, as codes)."""
+    torch.cuda.synchronize()
+    assert got_f.dtype == want_f.dtype == torch.float32
+    assert got_i.dtype == torch.int32
+    assert float(got_i.abs().max()) < 2 ** 24
+    assert torch.equal(got_f, got_i.float())
+    assert torch.equal(got_f, want_f)
+
+
+def _f32(args, counters=(1, 2)):
+    """The codes of a kernel call's args on the float carrier; the args at
+    ``counters`` (valid counts, phases, consumed) stay int32."""
+    return [t if k in counters else
+            (tuple(a.float() for a in t) if isinstance(t, tuple)
+             else t.float()) for k, t in enumerate(args)]
+
+
+@pytest.mark.parametrize("S,L,o", [(37, 7, 0), (256, 256, 1), (9, 33, 5)])
+def test_stream_octave_q_float_carrier(dev, prog, S, L, o):
+    g = torch.Generator().manual_seed(L + 1)
+    stages = prog.bank.octaves
+    st = stages[o]
+    emit = st.lp_q is not None
+    Fn, T1 = st.bp_q.shape[0], 15
+    n = torch.randint(0, L + 1, (S,), generator=g, dtype=torch.int32)
+    n[0], n[1] = 0, L
+    x = torch.randint(-128, 128, (S, L), generator=g, dtype=torch.int32)
+    x = torch.where(torch.arange(L)[None] < n[:, None], x, 0)
+    args = [t.to(dev) for t in (
+        x, n, torch.randint(0, 2, (S,), generator=g, dtype=torch.int32),
+        torch.randint(-128, 128, (S, T1), generator=g, dtype=torch.int32),
+        torch.randint(0, 1 << 20, (S, Fn), generator=g, dtype=torch.int32),
+        torch.randint(0, 128, (S,), generator=g, dtype=torch.int32))]
+    kw = dict(stage=st, next_spec=stages[o + 1].in_spec if emit else None,
+              emit_next=emit, update_amax=(o == 0))
+    fargs = _f32(args)
+    reset_launches()
+    got = fir_mp_stream_octave_q(*fargs, **kw)
+    assert LAUNCHES["fir_mp_stream_octave_q_f32"] == 1
+    assert LAUNCHES["fir_mp_stream_octave_q"] == 0
+    got_i = fir_mp_stream_octave_q(*args, **kw)
+    want = ref.fir_mp_stream_octave_q(*fargs, **kw)
+    for a, b, c in zip(got, got_i, want):
+        if c is None:
+            assert a is None
+        else:
+            _twin(a, b, c)
+
+
+@pytest.mark.parametrize("S,L,served", [(256, 256, True), (37, 700, False)])
+def test_stream_cascade_q_float_carrier(dev, prog, S, L, served):
+    g = torch.Generator().manual_seed(S + L + 1)
+    O = len(prog.bank.octaves)
+    F = prog.bank.octaves[0].bp_q.shape[0]
+    n = _valid_counts(g, S, L, served)
+    x, delays, cons, acc, amax = _registers(g, S, L, n, O, F, 15,
+                                            fixed=(-128, 128))
+    args = [x.to(dev), n.to(dev), tuple(d.to(dev) for d in delays),
+            tuple(t.to(dev) for t in cons), acc.to(dev), amax.to(dev)]
+    fargs = _f32(args, counters=(1, 3))
+    reset_launches()
+    got = fir_mp_stream_cascade_q(prog, *fargs)
+    assert LAUNCHES["fir_mp_stream_cascade_q_f32"] == 1
+    assert LAUNCHES["fir_mp_stream_cascade_q"] == 0
+    got_i = fir_mp_stream_cascade_q(prog, *args)
+    want = ref.fir_mp_stream_q(prog, *fargs)
+    for a, b, c in zip(got[0], got_i[0], want[0]):
+        _twin(a, b, c)
+    for a, c in zip(got[1], want[1]):       # consumed counters stay int32
+        assert torch.equal(a, c) and a.dtype == torch.int32
+    _twin(got[2], got_i[2], want[2])
+    _twin(got[3], got_i[3], want[3])
+
+
+@pytest.mark.parametrize("B,N", [(1, 5), (3, 301), (8, 16000)])
+def test_oneshot_cascade_q_float_carrier(dev, prog, B, N):
+    g = torch.Generator().manual_seed(N + 1)
+    s = prog.bank.signal
+    xq = torch.randint(s.qmin, s.qmax + 1, (B, N), generator=g,
+                       dtype=torch.int32).to(dev)
+    reset_launches()
+    got = fir_mp_oneshot_cascade_q(prog.bank, xq.float())
+    assert LAUNCHES["fir_mp_oneshot_cascade_q_f32"] == 1
+    assert LAUNCHES["fir_mp_oneshot_cascade_q"] == 0
+    _twin(got, fir_mp_oneshot_cascade_q(prog.bank, xq),
+          ref.fir_mp_oneshot_cascade_q(prog.bank, xq.float()))
+    # the one-stage entry, both modes, on octave 0's stage
+    st = prog.bank.octaves[0]
+    kw = dict(gamma_q=st.gamma_bp, iters=st.iters_bp,
+              qmin=st.band_spec.qmin, qmax=st.band_spec.qmax)
+    x0 = fx.rescale(xq, st.sig_shift)
+    for acc in (False, True):
+        fn = ref.fir_mp_bank_q_accumulate if acc else ref.fir_mp_bank_q
+        _twin(fir_mp_bank_q_kernel(x0.float(), st.bp_q, accumulate=acc,
+                                   **kw),
+              fir_mp_bank_q_kernel(x0, st.bp_q, accumulate=acc, **kw),
+              fn(x0.float(), st.bp_q, **kw))
+
+
+def test_float_carrier_right_shift_past_32_is_minus_one(dev, prog):
+    """A right shift by 140 (past 32, into f32's denormals) of a negative
+    float-carried code is -1, of another code 0, as on int32: the kernel
+    keeps denormals (flushed to zero, floor would give -0, and every
+    window would differ from the int kernel's)."""
+    import dataclasses
+    stages = prog.bank.octaves
+    st = dataclasses.replace(stages[0], sig_shift=-140)
+    g = torch.Generator().manual_seed(140)
+    S, L, T1 = 16, 64, 15
+    x = torch.randint(-128, 128, (S, L), generator=g, dtype=torch.int32)
+    args = [t.to(dev) for t in (
+        x, torch.full((S,), L, dtype=torch.int32),
+        torch.zeros(S, dtype=torch.int32),
+        torch.randint(-128, 128, (S, T1), generator=g, dtype=torch.int32),
+        torch.zeros(S, st.bp_q.shape[0], dtype=torch.int32),
+        torch.zeros(S, dtype=torch.int32))]
+    fargs = _f32(args)
+    kw = dict(stage=st, next_spec=stages[1].in_spec, emit_next=True)
+    shifted = fx.rescale(fargs[0], -140)
+    assert torch.equal(shifted, torch.where(fargs[0] < 0, -1.0, 0.0))
+    got = fir_mp_stream_octave_q(*fargs, **kw)
+    got_i = fir_mp_stream_octave_q(*args, **kw)
+    want = ref.fir_mp_stream_octave_q(*fargs, **kw)
+    for a, b, c in zip(got, got_i, want):
+        _twin(a, b, c)
+
+
+def test_float_carrier_sums_past_2_24_are_deterministic(dev, prog):
+    """A long clip (a full-scale 6.8 kHz tone) whose accumulators pass
+    2**24: the float instance gives the same bits on two runs (its sums
+    run in a fixed order) and stays within 2 n 2**-24 |sum| of the plain
+    version (n terms per column: any order of n nonnegative f32 adds errs
+    by at most (n - 1) 2**-24 of the sum)."""
+    s = prog.bank.signal
+    B, N = 1, 2 << 20            # ~1.6 x 2**24 summed in octave 0's 4th band
+    tone = torch.cos(2 * np.pi * 6800.0 / FILTERBANK.fs
+                     * torch.arange(N, dtype=torch.float64))
+    xq = torch.round(s.qmax * tone).clamp(s.qmin, s.qmax).float()[None].to(
+        dev)
+    a = fir_mp_oneshot_cascade_q(prog.bank, xq)
+    b = fir_mp_oneshot_cascade_q(prog.bank, xq)
+    want = ref.fir_mp_oneshot_cascade_q(prog.bank, xq)
+    torch.cuda.synchronize()
+    assert float(a.abs().max()) > 2 ** 24
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    F = prog.bank.octaves[0].bp_q.shape[0]
+    n = torch.tensor([-(-N // 2 ** o) for o in range(len(prog.bank.octaves))
+                      for _ in range(F)], dtype=torch.float32, device=dev)
+    bound = 2 * n * 2.0 ** -24 * torch.maximum(a.abs(), want.abs())
+    assert bool(((a - want).abs() <= bound).all())
+
+
+def test_fixed_predict_float_carrier_on_the_card(dev, clips, prog):
+    """fixed.predict(carrier="float", use_pallas=True): one launch of the
+    float instance, the int carrier's p and phi exactly."""
+    x = torch.from_numpy(clips).to(dev)
+    reset_launches()
+    p_f, phi_f = fx.predict(prog, x, carrier="float", use_pallas=True)
+    assert (LAUNCHES["fir_mp_oneshot_cascade_q_f32"],
+            LAUNCHES["fir_mp_oneshot_cascade_q"]) == (1, 0)
+    p_i, phi_i = fx.predict(prog, x, use_pallas=True)
+    torch.cuda.synchronize()
+    assert torch.equal(p_f, p_i) and torch.equal(phi_f, phi_i)
 
 
 @pytest.mark.parametrize("impl", ["pallas", "xla"])

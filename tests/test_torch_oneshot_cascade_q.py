@@ -195,10 +195,13 @@ def test_cascade_q_wrapper_refuses_what_the_kernel_does_not_take(progs):
     _, prog = progs
     bank = prog.bank
     xq = torch.zeros(2, 64, dtype=torch.int32)
-    # float-carried codes (checked on the card's route; here directly)
-    with pytest.raises(ValueError, match="f32-carried codes through the "
-                                         "CUDA int kernels"):
-        _oneshot_q_inputs(xq.float(), 16, 6, "fir_mp_oneshot_cascade_q")
+    # float-carried codes are taken (the fake-quant twin's instance); other
+    # dtypes raise (checked on the card's route; here directly)
+    assert _oneshot_q_inputs(xq.float(), 16, 6, "k").dtype == torch.float32
+    for dt in (torch.float64, torch.int64):
+        with pytest.raises(ValueError, match="carried in int32 or in "
+                                             "float32"):
+            _oneshot_q_inputs(xq.to(dt), 16, 6, "fir_mp_oneshot_cascade_q")
     with pytest.raises(ValueError, match="M_lp = 9 must be at most"):
         _oneshot_q_inputs(xq, 16, 9, "fir_mp_oneshot_cascade_q")
     assert _oneshot_q_inputs(xq, 16, 6, "k").dtype == torch.int32

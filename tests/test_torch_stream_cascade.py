@@ -321,9 +321,21 @@ def test_cascade_inputs_and_outputs(ref_pipe, progs, integer):
         plan, ins = _cascade_q_inputs(*port, Fs, M, M_lp)
         assert plan is stream_plan(L, max(Fs), M, M_lp, T1, octaves=O,
                                    integer=True)
+        # every code on the float carrier is taken; a mix, or another
+        # dtype, raises
+        chunk, n, delays, consumed, acc, amax = port
+        flt = (chunk.float(), n, tuple(d.float() for d in delays), consumed,
+               acc.float(), amax.float())
+        _, ins_f = _cascade_q_inputs(*flt, Fs, M, M_lp)
+        assert [t.dtype for t in (ins_f[0], *ins_f[2], ins_f[4], ins_f[5])] \
+            == [torch.float32] * (O + 3)
         bad = (port[0].float(),) + port[1:]
-        with pytest.raises(ValueError, match="must be int32 codes"):
+        with pytest.raises(ValueError, match="mixed carriers"):
             _cascade_q_inputs(*bad, Fs, M, M_lp)
+        wide = (port[0].double(),) + port[1:]
+        with pytest.raises(ValueError, match="carried in int32 or in "
+                                             "float32"):
+            _cascade_q_inputs(*wide, Fs, M, M_lp)
         short = port[:4] + (port[4][:, 1:],) + port[5:]
         with pytest.raises(ValueError, match="acc must have shape"):
             _cascade_q_inputs(*short, Fs, M, M_lp)
