@@ -47,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tracing
 from repro_torch.core.mp import device_scalar
 from repro_torch.core.quant import FixedPointSpec, pow2_spec_for
 
@@ -719,9 +720,12 @@ def infer_q(prog: FixedPointProgram, xq: torch.Tensor, *,
     """The integer inference program: signal codes in, (p_q, phi_q, s_q)
     codes out. ``use_pallas`` runs the bank through the integer CUDA
     kernel, bit for bit the torch-op path."""
-    s_q = bank_accumulate_q(prog.bank, xq, use_pallas=use_pallas)
-    phi_q = standardize_q(prog, s_q)
-    p_q = classifier_q(prog.clf, phi_q)
+    with tracing.span("fixed.infer_q"):
+        with tracing.span("fixed.bank"):
+            s_q = bank_accumulate_q(prog.bank, xq, use_pallas=use_pallas)
+        with tracing.span("fixed.readout"):
+            phi_q = standardize_q(prog, s_q)
+            p_q = classifier_q(prog.clf, phi_q)
     return p_q, phi_q, s_q
 
 

@@ -51,6 +51,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from repro_torch import tracing
 from repro_torch.core import filterbank as fbm
 from repro_torch.core import kernel_machine as km
 from repro_torch.core import mp as mp_mod
@@ -183,16 +184,20 @@ class InFilterPipeline(nn.Module):
         ``return_features``). Stateful: ``x (S, L)`` one chunk per slot,
         ``valid`` per-slot sample counts (None: every row full); returns
         ``(p, state')`` or ``(p, phi, state')``."""
-        x = self._tensor(x)
         if state is None:
-            if self.config.numerics == "fixed":
-                from repro_torch.core import fixed
-                p, phi = fixed.predict(self.fixed_program(), x,
-                                       use_pallas=self.config.use_pallas)
+            with tracing.span("pipeline.apply"):
+                x = self._tensor(x)
+                if self.config.numerics == "fixed":
+                    from repro_torch.core import fixed
+                    p, phi = fixed.predict(self.fixed_program(), x,
+                                           use_pallas=self.config.use_pallas)
+                    return (p, phi) if return_features else p
+                with tracing.span("pipeline.features"):
+                    phi = self.features(x)
+                with tracing.span("pipeline.readout"):
+                    p = self.clf(phi, exact=False)
                 return (p, phi) if return_features else p
-            phi = self.features(x)
-            p = self.clf(phi, exact=False)
-            return (p, phi) if return_features else p
+        x = self._tensor(x)
         if x.ndim != 2 or x.shape[0] != state.capacity:
             raise ValueError(
                 f"chunk shape {tuple(x.shape)} does not match session "

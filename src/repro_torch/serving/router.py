@@ -131,12 +131,23 @@ class StreamRouter:
 
     def stats(self) -> dict:
         per = [s.stats() for s in self._shards]
+
+        def per_bucket(key: str) -> dict:
+            out: dict = {}
+            for p in per:
+                for L, n in p[key].items():
+                    out[L] = out.get(L, 0) + n
+            return dict(sorted(out.items()))
+
         return {
             "num_shards": self.num_shards,
             "capacity": sum(p["capacity"] for p in per),
             "resident": sum(p["resident"] for p in per),
             "steps_run": sum(p["steps_run"] for p in per),
             "queued_requests": sum(p["queued_requests"] for p in per),
+            "bucket_valid_samples": per_bucket("bucket_valid_samples"),
+            "bucket_padded_samples": per_bucket("bucket_padded_samples"),
+            "waits": sum(p["waits"] for p in per),
             "poisoned": {k: p["poisoned"] for k, p in enumerate(per)
                          if p["poisoned"] is not None} or None,
             "shards": per,

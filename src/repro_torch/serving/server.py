@@ -29,6 +29,14 @@ resolves tickets once every such event has completed, and ``drain()``
 blocks once and resolves every ticket in submit order. Decisions are bit
 for bit those of the synchronous path.
 
+Tracing (``repro_torch.tracing``): the server's calls and each wave's
+stage, launch and copy-out are spans, keyed by the ``FeedTicket``'s
+serial. While the tracer records on the card, each wave also takes two
+timed CUDA events, before its first copy and after its decisions are
+copied out, and ``_resolve`` reads each wave's time on the card and the
+card's time since the wave before it (``tracing.record_wave``).
+``stats()`` counts the valid and padded samples per bucket and the waits.
+
 A step that raises, or a card that fails while running one, poisons the
 server: the registers may be half written (and a failed replay can leave
 a sticky CUDA error), so every later call raises ``RuntimeError`` naming
@@ -52,6 +60,7 @@ dispatch. A capacity the data axes do not divide replicates.
 
 from __future__ import annotations
 
+import itertools
 import time
 import weakref
 from typing import Iterable, List, Optional, Union
@@ -59,6 +68,7 @@ from typing import Iterable, List, Optional, Union
 import numpy as np
 import torch
 
+from repro_torch import tracing
 from repro_torch.core import pipeline as pl
 from repro_torch.core.pipeline import InFilterPipeline, SessionState
 from repro_torch.distributed import sharding as sh
@@ -68,6 +78,10 @@ from repro_torch.serving.session import (Decision, FeedRequest, FeedResult,
 
 __all__ = ["StreamServer", "BatchedStep", "bucket_length",
            "make_batched_step"]
+
+
+# FeedTicket serials, process-wide: the key of each batch's spans
+_TICKETS = itertools.count(1)
 
 
 def bucket_length(n: int, min_chunk: int, max_chunk: int) -> int:
@@ -233,7 +247,8 @@ class BatchedStep:
                              "wave into step.inputs(state, L)")
         if state.acc.device.type == "cuda":
             if bk.graph is None:
-                self._capture(b, bk)
+                with tracing.span("step.capture"):
+                    self._capture(b, bk)
             bk.graph.replay()
             add_launches(bk.launches)
             b.replays += 1
@@ -393,7 +408,11 @@ class StreamServer:
                                               async_save=False)
         self._max_history = max_history
         self.bucket_counts: dict[int, int] = {}
+        # per bucket, the staged segments' samples and their padding
+        self.bucket_valid: dict[int, int] = {}
+        self.bucket_padded: dict[int, int] = {}
         self.steps_run = 0
+        self.waits = 0                 # _wait calls on an event
         # set when a step raised or the card failed: names the wave
         self._poisoned: Optional[str] = None
         # -- async feed pipeline --
@@ -407,6 +426,13 @@ class StreamServer:
         # per wave that finishes a request: (its decisions on the host,
         # the event after them, [(pending, slot), ...], the wave's name)
         self._inflight: list = []
+        # -- wave timing, while the tracer records on the card --
+        self._timing_pool: list = []   # timed CUDA events to reuse
+        # per timed wave not yet read: (wave, key, start event, end event,
+        # host ns of the start, whether the wave before it was timed)
+        self._timed: list = []
+        self._last_end = None          # the end event of the last one read
+        self._last_timed = False       # whether the last wave was timed
 
     # -- introspection --------------------------------------------------------
 
@@ -494,6 +520,9 @@ class StreamServer:
             "numerics": self.pipeline.config.numerics,
             "device": str(self.pipeline.device),
             "buckets": dict(sorted(self.bucket_counts.items())),
+            "bucket_valid_samples": dict(sorted(self.bucket_valid.items())),
+            "bucket_padded_samples": dict(sorted(
+                self.bucket_padded.items())),
             "bucket_steps_total": total,
             "bucket_hit_rate": {L: round(c / total, 4) for L, c in
                                 sorted(self.bucket_counts.items())}
@@ -505,6 +534,7 @@ class StreamServer:
             "inflight_waves": len(self._inflight),
             "coalesce_watermark": self.coalesce_watermark,
             "coalesce_deadline": self.coalesce_deadline,
+            "waits": self.waits,
         }
 
     # -- admission ------------------------------------------------------------
@@ -516,57 +546,65 @@ class StreamServer:
         victim and its parked registers must reflect every submitted
         feed."""
         self._check_poisoned()
-        self._flush_pending()
-        if session_id in self._sessions:
-            raise ValueError(f"session {session_id!r} already open")
-        if not session_id or not all(ch.isalnum() or ch in "-_."
-                                     for ch in session_id):
-            raise ValueError(
-                f"session id {session_id!r}: use [A-Za-z0-9._-]")
-        slot = self._acquire_slot()
-        try:
-            now = self._clock()
-            sess = Session(id=session_id, slot=slot, opened_at=now,
-                           last_fed=now, max_history=self._max_history)
-            i = self._local(slot)
-            if i is not None:
-                pl.clear_slots(self._state, [i])
-            name = self._ckpt_name(session_id)
-            if self._manager is not None and self._manager.has_named(name):
-                row, meta = self._manager.restore_named(
-                    name, pl.take_slot(self._state, 0))
+        with tracing.span("server.open"):
+            self._flush_pending()
+            if session_id in self._sessions:
+                raise ValueError(f"session {session_id!r} already open")
+            if not session_id or not all(ch.isalnum() or ch in "-_."
+                                         for ch in session_id):
+                raise ValueError(
+                    f"session id {session_id!r}: use [A-Za-z0-9._-]")
+            slot = self._acquire_slot()
+            try:
+                now = self._clock()
+                sess = Session(id=session_id, slot=slot, opened_at=now,
+                               last_fed=now, max_history=self._max_history)
+                i = self._local(slot)
                 if i is not None:
-                    pl.put_slot(self._state, i, row)
-                if meta:
-                    sess.load_meta(meta)
-            if i is not None:
-                pl.set_active(self._state, [i], True)
-        except Exception:
-            self._free.append(slot)    # a failed admission keeps no slot
-            raise
-        self._sessions[session_id] = sess
-        return sess
+                    with tracing.span("server.slot_write"):
+                        pl.clear_slots(self._state, [i])
+                name = self._ckpt_name(session_id)
+                if self._manager is not None \
+                        and self._manager.has_named(name):
+                    with tracing.span("server.restore"):
+                        row, meta = self._manager.restore_named(
+                            name, pl.take_slot(self._state, 0))
+                        if i is not None:
+                            pl.put_slot(self._state, i, row)
+                    if meta:
+                        sess.load_meta(meta)
+                if i is not None:
+                    with tracing.span("server.slot_write"):
+                        pl.set_active(self._state, [i], True)
+            except Exception:
+                self._free.append(slot)  # a failed admission keeps no slot
+                raise
+            self._sessions[session_id] = sess
+            return sess
 
     def close(self, session_id: str, *, checkpoint: bool = False) -> Session:
         """Release a session's slot after absorbing its queued feeds.
         ``checkpoint=True`` parks its registers and history for a later
         ``open`` (as eviction does); otherwise a parked copy is discarded
         and a later ``open`` of the id starts fresh."""
-        self._flush_pending()
-        if session_id not in self._sessions:
-            raise KeyError(f"session {session_id!r} is not open")
-        sess = self._sessions.pop(session_id)
-        if checkpoint:
-            self._park(sess)
-        elif self._manager is not None:
-            if self._lead:
-                self._manager.delete_named(self._ckpt_name(session_id))
-            self._sync()
-        i = self._local(sess.slot)
-        if i is not None:
-            pl.set_active(self._state, [i], False)
-        self._free.append(sess.slot)
-        return sess
+        with tracing.span("server.close"):
+            self._flush_pending()
+            if session_id not in self._sessions:
+                raise KeyError(f"session {session_id!r} is not open")
+            sess = self._sessions.pop(session_id)
+            if checkpoint:
+                with tracing.span("server.park"):
+                    self._park(sess)
+            elif self._manager is not None:
+                if self._lead:
+                    self._manager.delete_named(self._ckpt_name(session_id))
+                self._sync()
+            i = self._local(sess.slot)
+            if i is not None:
+                with tracing.span("server.slot_write"):
+                    pl.set_active(self._state, [i], False)
+            self._free.append(sess.slot)
+            return sess
 
     def evict(self, session_id: str) -> Session:
         """Park a resident session in the checkpoint store and free its
@@ -663,35 +701,37 @@ class StreamServer:
         ``coalesce_watermark`` pending requests, when its oldest request
         is older than ``coalesce_deadline``, or in ``drain()``."""
         self._check_poisoned()
-        entries = []
-        for r in requests:
-            sid, chunk = ((r.session_id, r.chunk) if isinstance(r, FeedRequest)
-                          else r)
-            if sid not in self._sessions:
-                raise KeyError(f"session {sid!r} is not open")
-            chunk = np.asarray(chunk, dtype=np.float32)
-            if chunk.ndim != 1:
-                raise ValueError(
-                    f"chunk for {sid!r} must be 1-D (samples,), got shape "
-                    f"{chunk.shape}")
-            if chunk.shape[0] == 0:
-                raise ValueError(f"empty chunk for session {sid!r}")
-            segs = [chunk[i:i + self.max_chunk]
-                    for i in range(0, chunk.shape[0], self.max_chunk)]
-            entries.append((sid, segs, chunk.shape[0]))
-        ticket = FeedTicket(n_requests=len(entries))
-        if not entries:
-            ticket.results = []
+        key = next(_TICKETS)
+        with tracing.span("server.submit", key):
+            entries = []
+            for r in requests:
+                sid, chunk = ((r.session_id, r.chunk)
+                              if isinstance(r, FeedRequest) else r)
+                if sid not in self._sessions:
+                    raise KeyError(f"session {sid!r} is not open")
+                chunk = np.asarray(chunk, dtype=np.float32)
+                if chunk.ndim != 1:
+                    raise ValueError(
+                        f"chunk for {sid!r} must be 1-D (samples,), got "
+                        f"shape {chunk.shape}")
+                if chunk.shape[0] == 0:
+                    raise ValueError(f"empty chunk for session {sid!r}")
+                segs = [chunk[i:i + self.max_chunk]
+                        for i in range(0, chunk.shape[0], self.max_chunk)]
+                entries.append((sid, segs, chunk.shape[0]))
+            ticket = FeedTicket(n_requests=len(entries), key=key)
+            if not entries:
+                ticket.results = []
+                return ticket
+            for pos, (sid, segs, total) in enumerate(entries):
+                self._queue.append(_Pending(ticket, pos, sid, segs, total))
+            if self._queue_since is None:
+                self._queue_since = self._clock()
+            if (self.coalesce_watermark is not None
+                    and len(self._queue) >= self.coalesce_watermark) \
+                    or self._deadline_expired():
+                self._dispatch()
             return ticket
-        for pos, (sid, segs, total) in enumerate(entries):
-            self._queue.append(_Pending(ticket, pos, sid, segs, total))
-        if self._queue_since is None:
-            self._queue_since = self._clock()
-        if (self.coalesce_watermark is not None
-                and len(self._queue) >= self.coalesce_watermark) \
-                or self._deadline_expired():
-            self._dispatch()
-        return ticket
 
     def poll(self, ticket: FeedTicket) -> Optional[list]:
         """The ticket's results if ready, else ``None``; never waits for
@@ -729,8 +769,9 @@ class StreamServer:
         if self._poisoned is not None:
             return
         if self._queue or self._dispatched or self._inflight:
-            self._dispatch()
-            self._resolve()
+            with tracing.span("server.flush"):
+                self._dispatch()
+                self._resolve()
 
     def _ready(self, event, what: str) -> bool:
         if event is None:
@@ -744,8 +785,10 @@ class StreamServer:
     def _wait(self, event, what: str) -> None:
         if event is None:
             return
+        self.waits += 1
         try:
-            event.synchronize()
+            with tracing.span("server.wait"):
+                event.synchronize()
         except Exception as e:
             raise self._poison(f"the card failed running {what} "
                                f"({type(e).__name__})") from e
@@ -779,11 +822,26 @@ class StreamServer:
             return
         reqs, self._queue = self._queue, []
         self._queue_since = None
-        pending = [list(r.segs) for r in reqs]
-        wave_no = 0
-        failed = None       # (what, error) of this rank's failed step
-        while any(pending):
-            wave_no += 1
+        key = reqs[-1].ticket.key
+        with tracing.span("server.dispatch", key):
+            pending = [list(r.segs) for r in reqs]
+            wave_no = 0
+            failed = None       # (what, error) of this rank's failed step
+            while any(pending):
+                wave_no += 1
+                with tracing.span("server.wave", key):
+                    failed, last = self._wave(reqs, pending, wave_no,
+                                              failed, key)
+            self._dispatched.extend(reqs)
+            if self._mesh is not None:
+                self._agree(failed, *last)
+
+    def _wave(self, reqs: list, pending: list, wave_no: int, failed,
+              key) -> tuple:
+        """Stage, launch and copy out the dispatch's next wave: the next
+        segment of each request whose session has none in the wave yet.
+        Returns (``failed``, (decisions on the host, event, name))."""
+        with tracing.span("server.stage", key):
             wave, seen, finals = [], set(), []
             for i, r in enumerate(reqs):
                 if pending[i] and r.sid not in seen:
@@ -794,53 +852,65 @@ class StreamServer:
             L = bucket_length(max(seg.shape[0] for _, seg in wave),
                               self.min_chunk, self.max_chunk)
             buf = self._stage_buffer(L)
+            valid = 0
             for r, seg in wave:
                 slot = self._sessions[r.sid].slot
-                buf.batch_np[slot, :seg.shape[0]] = seg
-                buf.valid_np[slot] = seg.shape[0]
+                n = seg.shape[0]
+                buf.batch_np[slot, :n] = seg
+                buf.valid_np[slot] = n
                 buf.dirty.append(slot)
-            what = (f"wave {wave_no} of a feed() call (bucket {L}, sessions "
-                    f"{sorted(r.sid for r, _ in wave)})")
-            p = None
-            if failed is None:
-                try:
+                valid += n
+        what = (f"wave {wave_no} of a feed() call (bucket {L}, sessions "
+                f"{sorted(r.sid for r, _ in wave)})")
+        p = start = None
+        if failed is None:
+            try:
+                with tracing.span("server.launch", key):
                     chunk_dev, valid_dev = self._batched.inputs(self._state,
                                                                 L)
+                    if self._cuda and tracing.recording():
+                        start = self._timing_event()
+                        t_start = time.perf_counter_ns()
                     lo, hi = self._lo, self._lo + self._n
                     chunk_dev.copy_(buf.batch[lo:hi], non_blocking=True)
                     valid_dev.copy_(buf.valid[lo:hi], non_blocking=True)
                     _, p = self._step(self.pipeline, self._state, chunk_dev,
                                       valid_dev)
-                except Exception as e:
-                    failed = (f"step raised {type(e).__name__} on {what}",
-                              e)
-                    if self._mesh is None:
-                        raise self._poison(failed[0]) from e
-            try:
+            except Exception as e:
+                failed = (f"step raised {type(e).__name__} on {what}", e)
+                if self._mesh is None:
+                    raise self._poison(failed[0]) from e
+        try:
+            with tracing.span("server.copy_out", key):
                 if self._mesh is not None:
                     # every rank joins every wave's gather, a failed one
                     # with its flag up, so no rank waits on another
                     p = self._gather_wave(p, failed is not None)
                 p_host = (self._copy_out(p)
                           if finals or self._mesh is not None else None)
+                if start is not None:
+                    end = self._timing_event()
                 event = self._record()
-            except Exception as e:
-                raise self._poison(f"step raised {type(e).__name__} on "
-                                   f"{what}") from e
-            self.steps_run += 1
-            self.bucket_counts[L] = self.bucket_counts.get(L, 0) + 1
-            buf.inflight = (event, what) if event is not None else None
-            last = (p_host, event, what)
-            if finals:
-                # slots are taken now: a session cannot move before the
-                # resolve (close() flushes first)
-                self._inflight.append(
-                    (p_host, event,
-                     [(r, self._sessions[r.sid].slot) for r in finals],
-                     what))
-        self._dispatched.extend(reqs)
-        if self._mesh is not None:
-            self._agree(failed, *last)
+        except Exception as e:
+            raise self._poison(f"step raised {type(e).__name__} on "
+                               f"{what}") from e
+        self.steps_run += 1
+        self.bucket_counts[L] = self.bucket_counts.get(L, 0) + 1
+        self.bucket_valid[L] = self.bucket_valid.get(L, 0) + valid
+        self.bucket_padded[L] = self.bucket_padded.get(L, 0) \
+            + L * len(wave) - valid
+        if start is not None:
+            self._timed.append((self.steps_run, key, start, end, t_start,
+                                self._last_timed))
+        self._last_timed = start is not None
+        buf.inflight = (event, what) if event is not None else None
+        if finals:
+            # slots are taken now: a session cannot move before the
+            # resolve (close() flushes first)
+            self._inflight.append(
+                (p_host, event,
+                 [(r, self._sessions[r.sid].slot) for r in finals], what))
+        return failed, (p_host, event, what)
 
     def _gather_wave(self, p: Optional[torch.Tensor],
                      failed: bool) -> torch.Tensor:
@@ -888,36 +958,62 @@ class StreamServer:
         event.record()
         return event
 
+    def _timing_event(self):
+        """A timed CUDA event from the pool, recorded now."""
+        event = self._timing_pool.pop() if self._timing_pool \
+            else torch.cuda.Event(enable_timing=True)
+        event.record()
+        return event
+
+    def _read_timings(self) -> None:
+        """Hand the timed waves' card times to the tracer (their events
+        have completed: the stream runs in order and the last wave's event
+        did) and return their events to the pool, but the last end."""
+        prev = self._last_end
+        for wave, key, start, end, t_start, chained in self._timed:
+            gap = prev.elapsed_time(start) if chained else None
+            tracing.record_wave(wave, key, t_start, start.elapsed_time(end),
+                                gap)
+            if prev is not None:
+                self._timing_pool.append(prev)
+            self._timing_pool.append(start)
+            prev = end
+        self._timed.clear()
+        self._last_end = prev
+
     def _resolve(self) -> list:
         """Wait once (for the last wave's event; the stream runs in order)
         and resolve every dispatched request in submit order: per wave, the
         argmax over its finishing slots' decision rows."""
         if not self._dispatched:
             return []
-        if self._inflight:
-            self._wait(self._inflight[-1][1], self._inflight[-1][3])
-        for p_host, _, finals, _ in self._inflight:
-            rows = p_host.numpy()[np.asarray([s for _, s in finals])]
-            labels = np.argmax(rows, axis=1)
-            for (r, _), label, row in zip(finals, labels, rows):
-                r.label = int(label)
-                r.conf = float(row[label])
-        self._inflight.clear()
-        now = self._clock()
-        results, tickets = [], []
-        for r in self._dispatched:
-            sess = self._sessions[r.sid]
-            # samples_seen advances by the whole request, once
-            total = sess.samples_seen + r.total
-            sess.record(Decision(total, r.label, r.conf), now)
-            fr = FeedResult(session_id=r.sid, label=r.label,
-                            confidence=r.conf, samples_seen=total)
-            results.append(fr)
-            if r.ticket.results is None:
-                r.ticket.results = [None] * r.ticket.n_requests
-                tickets.append(r.ticket)
-            r.ticket.results[r.pos] = fr
-        self._dispatched.clear()
-        # dispatch takes the whole queue, so every ticket resolved fully
-        assert all(None not in t.results for t in tickets)
-        return results
+        with tracing.span("server.resolve", self._dispatched[-1].ticket.key):
+            if self._inflight:
+                self._wait(self._inflight[-1][1], self._inflight[-1][3])
+            if self._timed:
+                self._read_timings()
+            for p_host, _, finals, _ in self._inflight:
+                rows = p_host.numpy()[np.asarray([s for _, s in finals])]
+                labels = np.argmax(rows, axis=1)
+                for (r, _), label, row in zip(finals, labels, rows):
+                    r.label = int(label)
+                    r.conf = float(row[label])
+            self._inflight.clear()
+            now = self._clock()
+            results, tickets = [], []
+            for r in self._dispatched:
+                sess = self._sessions[r.sid]
+                # samples_seen advances by the whole request, once
+                total = sess.samples_seen + r.total
+                sess.record(Decision(total, r.label, r.conf), now)
+                fr = FeedResult(session_id=r.sid, label=r.label,
+                                confidence=r.conf, samples_seen=total)
+                results.append(fr)
+                if r.ticket.results is None:
+                    r.ticket.results = [None] * r.ticket.n_requests
+                    tickets.append(r.ticket)
+                r.ticket.results[r.pos] = fr
+            self._dispatched.clear()
+            # dispatch takes the whole queue, so every ticket resolved fully
+            assert all(None not in t.results for t in tickets)
+            return results

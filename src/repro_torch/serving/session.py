@@ -92,6 +92,9 @@ class FeedTicket:
     """
     n_requests: int
     results: Optional[List[FeedResult]] = None
+    # the process-wide serial that keys this batch's spans
+    # (``repro_torch.tracing``)
+    key: Optional[int] = None
 
     @property
     def done(self) -> bool:

@@ -435,9 +435,14 @@ def test_lifecycle_errors_match_reference(tmp_path):
         assert all(e is not None for e in out["port"])
 
 
+# the port's own counters, which the reference does not keep
+PORT_STATS = {"device", "bucket_valid_samples", "bucket_padded_samples",
+              "waits"}
+
+
 def test_stats_keys_match_reference():
     got, want = port_server(impl="xla").stats(), ref_server().stats()
-    assert set(got) - {"device"} == set(want)
+    assert set(got) - PORT_STATS == set(want)
     assert got["device"] == "cpu"
     assert {k: got[k] for k in want} == want
 
