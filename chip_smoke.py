@@ -58,7 +58,13 @@ nothing of the reference package). Phases, each failing loudly:
              cascade's launches must be the replays plus one warm-up run
              per capture (the one-octave kernel none). Every decision and
              every register must equal, bit for bit, an eager run of
-             ``pipe._session_step`` on the same waves; the decisions must
+             ``pipe._session_step`` on the same waves (the opens and
+             closes written there by ``clear_slots`` / ``set_active`` at
+             once, where the server defers them to the next wave); the
+             admission kernel (``slot_admit``) must launch once per wave
+             that carries admissions (the first wave's 255 opens, then
+             the waves after the visitor's open, close and reopen: 4),
+             as the server's ``stats()`` count them; the decisions must
              be finite, within [-1, 1], and the final p within 1e-5 of the
              torch-op cascade (stream_impl="xla") served the same waves.
              Printed, not gated: feed() and the step, captured against
@@ -110,6 +116,19 @@ nothing of the reference package). Phases, each failing loudly:
              for the 255 regular streams, of one-shot ``infer_q`` on the
              8000 samples each was fed (one int one-shot cascade launch);
              phase 4's timings.
+   slot admit — the admission kernel (``slot_admit``, no TPU counterpart:
+             the reference writes a slot's registers with jnp ``.at[]``
+             sets at each open and close) on the 256-slot float and int32
+             states of phases 4 and 7, every register and the mask filled
+             at random, under a round's codes (13 resets, 6 closes, 2
+             resets then closes, the rest untouched): every word bit for
+             bit ``ref.slot_admit``'s, the untouched slots' rows and mask
+             as they were. Printed: ms by CUDA events (back to back: the
+             wrapper's host time), its device time by the profiler, the
+             plain version's ms, the batched torch-op writes it stands for
+             (``pl.clear_slots`` / ``pl.set_active`` over the round's
+             slots, ``eager_ms``), and its bound from the bytes it reads
+             and writes.
 8. fixed one-shot — ``apply(x)`` on 8 x 16000 through the int one-shot
              cascade (one launch, no one-stage launch) against the torch-op
              path: p and phi codes exactly equal; then where its time goes,
@@ -1569,6 +1588,22 @@ def check_step_counts(server, sched, launches: int, key: str) -> dict:
     return dict(counts, buckets=buckets)
 
 
+def check_admit_launches(server, sched, launches: int) -> dict:
+    """Gate: the admission kernel launched once per wave that carries
+    admissions (the first wave, after the regular sessions' opens, and
+    each wave after a round's lifecycle ops), as the server counts its
+    applies, over the slots those ops named."""
+    waves = 1 + sum(1 for ops, _ in sched[1:] if ops)
+    slots = server.capacity - 1 + sum(len(ops) for ops, _ in sched)
+    st = server.stats()
+    got = dict(launches=launches, applies=st["admission_applies"],
+               slots_admitted=st["slots_admitted"])
+    if got != dict(launches=waves, applies=waves, slots_admitted=slots):
+        raise AssertionError(f"admissions {got}: want {waves} slot_admit "
+                             f"launches over {slots} slots")
+    return got
+
+
 def serve_timing(pipe, audio, rounds: int = 24, packet: int = 160) -> dict:
     """feed() and the session step, captured against eager, in alternating
     pairs in one run (the order flips every pair; host clock, synchronized,
@@ -1775,6 +1810,7 @@ def phase_serve(audio):
                              f"{LAUNCHES['fir_mp_stream_octave']} times")
     counts = check_step_counts(server, sched, launches,
                                "fir_mp_stream_cascade")
+    admit = check_admit_launches(server, sched, LAUNCHES["slot_admit"])
     state, ps = serve_eager(pipe, sched, S)
     check_captured_vs_eager(server, results, state, ps, "float serve")
     p, _ = pipe.apply(torch.zeros(S, 0), server.state)   # pure readout
@@ -1796,6 +1832,7 @@ def phase_serve(audio):
         lambda: pipe.clf(phi, exact=False), "float")
     out = dict(phase="serve", streams=S, waves=server.steps_run,
                stream_kernel_launches=launches, step_counts=counts,
+               admissions=admit,
                captured_equals_eager=True, step_ms_median=step_ms,
                step_ms_mean=sum(secs) / len(secs) * 1e3,
                streams_per_s=S * len(secs) / sum(secs),
@@ -1805,7 +1842,7 @@ def phase_serve(audio):
                captured_parts_device_ms=step_parts(pipe, "float"),
                eager=breakdown)
     log(out)
-    return launches
+    return launches, admit["launches"]
 
 
 
@@ -2257,6 +2294,7 @@ def phase_fixed_serve(audio, cal):
                              f"{LAUNCHES['fir_mp_stream_octave_q']} times")
     counts = check_step_counts(server, sched, launches,
                                "fir_mp_stream_cascade_q")
+    admit = check_admit_launches(server, sched, LAUNCHES["slot_admit"])
     state_e, ps = serve_eager(pipe, sched, S)
     check_captured_vs_eager(server, results, state_e, ps, "fixed serve")
     state = server.state
@@ -2300,6 +2338,7 @@ def phase_fixed_serve(audio, cal):
              iters_lp=[o.iters_lp for o in octaves if o.lp_q is not None],
              iters_readout=[prog.clf.iters1, prog.clf.iters_n],
              stream_kernel_launches=launches, step_counts=counts,
+             admissions=admit,
              captured_equals_eager=True, step_ms_median=step_ms,
              step_ms_mean=sum(secs) / len(secs) * 1e3,
              streams_per_s=S * len(secs) / sum(secs),
@@ -2308,8 +2347,95 @@ def phase_fixed_serve(audio, cal):
              timing_pairs=serve_timing(pipe, audio),
              captured_parts_device_ms=step_parts(pipe, "fixed"),
              eager=breakdown))
-    return launches
+    return launches, admit["launches"]
 
+
+
+def phase_slot_admit(cal):
+    """The admission kernel against ``ref.slot_admit`` on the 256-slot
+    float and int32 states of phases 4 and 7 (the module docstring's
+    "slot admit"). Returns the kernel row."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.esc10_mp import make_pipeline
+    from repro_torch.core import pipeline as pl
+    from repro_torch.kernels import LAUNCHES, ref, reset_launches
+    from repro_torch.kernels.admission import OFF, RESET, slot_admit
+    S = 256
+    picked = np.random.default_rng(0).permutation(S)[:21]
+    codes_np = np.zeros(S, np.uint8)
+    codes_np[picked[:13]] = RESET                 # a round's fresh opens
+    codes_np[picked[13:19]] = OFF                 # closes
+    codes_np[picked[19:]] = RESET | OFF           # an open, then a close
+    codes = torch.from_numpy(codes_np).cuda()
+    keep = codes == 0
+    bits = lambda t: t.view(torch.int32) if t.dtype == torch.float32 \
+        else t.to(torch.int32)                                # noqa: E731
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    reset_launches()
+    works = {}
+    for numerics, pipe in (("float", make_pipeline()),
+                           ("fixed", fixed_pipeline(cal)[0])):
+        state = pipe.init_session(S)
+        for t in state.registers():
+            if t.dtype == torch.int32:
+                t.copy_(torch.randint(-2**31, 2**31 - 1, t.shape,
+                                      generator=gen, device="cuda",
+                                      dtype=torch.int32))
+            else:
+                t.copy_(torch.randn(t.shape, generator=gen, device="cuda"))
+        state.active.copy_(torch.rand(S, generator=gen, device="cuda") < 0.5)
+        got = pl.SessionState(*(tuple(x.clone() for x in f)
+                                if isinstance(f, tuple) else f.clone()
+                                for f in state))
+        want = pl.SessionState(*(tuple(x.clone() for x in f)
+                                 if isinstance(f, tuple) else f.clone()
+                                 for f in state))
+        slot_admit(got.registers(), got.active, codes)
+        ref.slot_admit(want.registers(), want.active, codes)
+        for k, (g, w, was) in enumerate(zip(got.tensors(), want.tensors(),
+                                            state.tensors())):
+            what = f"slot_admit ({numerics}) register {k}"
+            exact(bits(g), bits(w), what + " vs ref.slot_admit")
+            exact(bits(g)[keep], bits(was)[keep], what + ": untouched slots")
+        works[numerics] = got
+    if LAUNCHES["slot_admit"] != 2:
+        raise AssertionError(f"slot_admit launches {LAUNCHES['slot_admit']}"
+                             ", want 2")
+    st = works["float"]
+    regs = st.registers()
+    resets = [int(i) for i in np.flatnonzero(codes_np & RESET)]
+    on = [int(i) for i in np.flatnonzero(codes_np == RESET)]
+    off = [int(i) for i in np.flatnonzero(codes_np & OFF)]
+    run = lambda: slot_admit(regs, st.active, codes)          # noqa: E731
+
+    def eager():
+        pl.clear_slots(st, resets)
+        pl.set_active(st, on, True)
+        pl.set_active(st, off, False)
+
+    words = sum(t.numel() // S for t in regs)
+    nbytes = len(resets) * words * 4 + S + len(on) + len(off)
+    b_ms, b_by = bound_ms(0, nbytes)
+    prof = device_us(run, lambda k: "slot_admit" in k)
+    fx_st = works["fixed"]
+    row = dict(name="slot_admit",
+               at=f"S={S}, {len(regs)} registers ({words} words a slot), "
+                  f"float32 and int32; {len(on)} resets, "
+                  f"{len(off) - len(resets) + len(on)} closes, "
+                  f"{len(resets) - len(on)} resets then closes",
+               max_abs_err=0.0, ms=cuda_ms(run, 200),
+               **device_fields(prof, b_ms),
+               plain_ms=cuda_ms(lambda: ref.slot_admit(regs, st.active,
+                                                       codes), 20),
+               eager_ms=cuda_ms(eager, 50), bound_ms=b_ms, bound_by=b_by,
+               int_ms=cuda_ms(lambda: slot_admit(fx_st.registers(),
+                                                 fx_st.active, codes), 200),
+               bytes=nbytes, launches_here=2,
+               note="no TPU counterpart: the reference writes a slot's "
+                    "registers with jnp .at[] sets at each open and close")
+    log({"kernel_vs_plain": row})
+    return row
 
 
 # -- the serving tier: async pipeline, eviction, router, poison ---------------
@@ -2944,7 +3070,8 @@ def phase_deploy(card: str, acc_mp_float: float) -> tuple:
     serve(pipe, sched[:2], S)                              # warm-up
     reset_launches()
     server, _, secs = serve(pipe, sched, S)
-    launched("qat_serve", ["fir_mp_stream_cascade"])
+    launched("qat_serve", ["fir_mp_stream_cascade", "slot_admit"])
+    check_admit_launches(server, sched, LAUNCHES["slot_admit"])
     check_step_counts(server, sched, LAUNCHES["fir_mp_stream_cascade"],
                       "fir_mp_stream_cascade")
     p_served, _ = pipe.apply(torch.zeros(S, 0), server.state)
@@ -2977,7 +3104,8 @@ def phase_deploy(card: str, acc_mp_float: float) -> tuple:
     serve(fixed, fsched[:2], S)                            # warm-up
     reset_launches()
     fserver, _, _ = serve(fixed, fsched, S)
-    launched("fixed_serve", ["fir_mp_stream_cascade_q"])
+    launched("fixed_serve", ["fir_mp_stream_cascade_q", "slot_admit"])
+    check_admit_launches(fserver, fsched, LAUNCHES["slot_admit"])
     check_step_counts(fserver, fsched, LAUNCHES["fir_mp_stream_cascade_q"],
                       "fir_mp_stream_cascade_q")
     scale = prog.out_spec.scale
@@ -3626,6 +3754,9 @@ def phase_mesh(audio, cal, cfg, ref, card) -> dict:
                                   checkpoint_dir=str(tmp / numerics))
         launches[key] = LAUNCHES[key]
         counts = check_step_counts(meshed, sched, launches[key], key)
+        admit = check_admit_launches(meshed, sched, LAUNCHES["slot_admit"])
+        launches["slot_admit"] = launches.get("slot_admit", 0) \
+            + admit["launches"]
         for r, (g, w) in enumerate(zip(got, want)):
             same_results(g, w, f"{numerics} mesh serve, round {r}")
         same_rows(meshed, plain, [f"s{i:03d}" for i in range(S - 1)],
@@ -3642,7 +3773,7 @@ def phase_mesh(audio, cal, cfg, ref, card) -> dict:
                      "without one")
         out[numerics] = dict(
             waves=len(sched), step_counts=counts,
-            stream_kernel_launches=launches[key],
+            stream_kernel_launches=launches[key], admissions=admit,
             decisions_equal_unmeshed=True, parked_and_resumed=sid,
             feed_ms_median_mesh=statistics.median(secs) * 1e3,
             feed_ms_median_plain=statistics.median(secs_plain) * 1e3)
@@ -5287,7 +5418,7 @@ def main() -> int:
     bank_rows = phase_bank_kernels(fb, x1)
     cascade_row = phase_oneshot_cascade(fb, x1)
 
-    serve_launches = phase_serve(clips[:256, :50 * 160])
+    serve_launches, admit_launches = phase_serve(clips[:256, :50 * 160])
     phase_serving_tier(clips[:256, :10 * 160])
     oneshot_launches = phase_oneshot(x1)
 
@@ -5296,7 +5427,9 @@ def main() -> int:
     int_stream_row = phase_int_stream_kernel(prog, gen, clips)
     int_bank_row = phase_int_bank_kernel(prog, x1)
     int_cascade_row = phase_oneshot_cascade_q(prog, x1)
-    fixed_serve_launches = phase_fixed_serve(clips[:256, :50 * 160], cal)
+    fixed_serve_launches, fixed_admit_launches = phase_fixed_serve(
+        clips[:256, :50 * 160], cal)
+    admit_row = phase_slot_admit(cal)
     fixed_oneshot_launches = phase_fixed_oneshot(x1, cal)
 
     qwen = mp_cfg("qwen3-8b")
@@ -5389,16 +5522,23 @@ def main() -> int:
         dict(wf_row, route="cuda", source=src + "mp_waterfill.cu",
              replaces="src/repro/kernels/mp_waterfill.py:46",
              launches=wf_row["launches_here"], library_ms=None),
+        dict(admit_row, route="cuda", source=src + "slot_admit.cu",
+             replaces=None, launches=admit_launches,
+             fixed_path_launches=fixed_admit_launches,
+             mesh_path_launches=mesh_launches["slot_admit"],
+             deploy_path_launches=deploy["qat_serve"]["slot_admit"]
+             + deploy["fixed_serve"]["slot_admit"], library_ms=None),
     ] + [dict(r, route="cuda", source=src + "mp_linear.cu",
               replaces="src/repro/kernels/mp_linear.py:89", library_ms=None)
          for r in decode_rows]
     keys = ("name", "at", "route", "source", "replaces", "also_replaces",
             "launches", "main_path_launches", "mesh_path_launches",
             "train_zoo_path_launches", "deploy_path_launches",
+            "fixed_path_launches",
             "max_abs_err", "ms",
             "device_ms", "device_timed_by", "plain_ms", "bound_ms",
             "bound_by", "x_bound", "int_ms", "int_device_ms",
-            "int_bound_ms", "library_ms")
+            "int_bound_ms", "eager_ms", "library_ms", "note")
     log(f"total: {time.perf_counter() - t_start:.1f} s (build {build_s:.1f} s)")
     log(card)
     log({"kernels": [{k: r.get(k) for k in keys} for r in kernels]})

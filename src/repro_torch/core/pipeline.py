@@ -87,11 +87,16 @@ class SessionState(NamedTuple):
     def capacity(self) -> int:
         return self.acc.shape[0]
 
+    def registers(self) -> tuple:
+        """The registers a fresh session zeroes: every tensor but
+        ``active``, in field order (delays and consumed flattened)."""
+        return (*self.delays, *self.consumed, self.acc, self.amax,
+                self.count)
+
     def tensors(self) -> tuple:
         """Every register tensor, in field order (delays and consumed
         flattened)."""
-        return (*self.delays, *self.consumed, self.acc, self.amax,
-                self.count, self.active)
+        return (*self.registers(), self.active)
 
 
 class StreamingState(NamedTuple):
@@ -543,8 +548,7 @@ def clear_slots(state: SessionState, slots) -> SessionState:
     the state's tensors are written and the same state is returned.
     ``active`` is left alone — pair with :func:`set_active`."""
     idx = _index(slots, state.acc)
-    for t in (*state.delays, *state.consumed, state.acc, state.amax,
-              state.count):
+    for t in state.registers():
         t[idx] = 0
     return state
 

@@ -9,6 +9,7 @@ Layers, as in the reference's ``repro.kernels``:
   fir_mp.py     - one wrapper per FIR kernel: launch for CUDA tensors, the
                   plain version for CPU tensors
   mp_kernels.py - the same for the MP solve kernels
+  admission.py  - the same for the serving tier's slot admissions
   ops.py        - public wrappers: leading dims, the session step's octave
                   cascade, ``mp_linear`` as an autograd Function
   ref.py        - the plain PyTorch versions
@@ -37,6 +38,8 @@ Kernels:
                  pass for dx and dw, from the levels that mp_linear's
                  kernel writes in a training forward
   mp_waterfill - row-wise reverse water-filling z = MP(L, gamma)
+  slot_admit   - a served wave's slot admissions (registers zeroed, the
+                 admission mask written) in one launch before its step
 """
 
 from repro_torch.kernels._wrap import LAUNCHES, reset_launches  # noqa: F401

@@ -31,7 +31,8 @@ __all__ = ["SOURCES", "build_all", "load", "lib_path", "nvcc_path",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fir_mp_stream", "fir_mp_bank", "fir_mp_stream_q",
-           "fir_mp_bank_q", "mp_linear", "mp_linear_bwd", "mp_waterfill")
+           "fir_mp_bank_q", "mp_linear", "mp_linear_bwd", "mp_waterfill",
+           "slot_admit")
 FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -50,6 +51,7 @@ SIGNATURES = {
     "mp_linear_bwd": ("mp_linear_bwd_launch", [_P] * 7 + [_I] * 6 + [_P]),
     "mp_waterfill": ("mp_waterfill_launch",
                      [_P] * 2 + [_I] * 2 + [_F] + [_I] * 3 + [_P]),
+    "slot_admit": ("slot_admit_launch", [_P, _P, _I, _P, _I, _P]),
 }
 # further entry points: symbol -> (source, argument types)
 EXTRA_SYMBOLS = {"mp_linear_plan": ("mp_linear", [_I] * 5 + [_P]),

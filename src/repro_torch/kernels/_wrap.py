@@ -20,7 +20,8 @@ LAUNCHES = {"fir_mp_stream_cascade": 0, "fir_mp_stream_octave": 0,
             "fir_mp_oneshot_cascade_q": 0, "fir_mp_bank_q": 0,
             "fir_mp_stream_cascade_q_f32": 0, "fir_mp_stream_octave_q_f32": 0,
             "fir_mp_oneshot_cascade_q_f32": 0, "fir_mp_bank_q_f32": 0,
-            "mp_linear": 0, "mp_linear_bwd": 0, "mp_waterfill": 0}
+            "mp_linear": 0, "mp_linear_bwd": 0, "mp_waterfill": 0,
+            "slot_admit": 0}
 
 
 _CAPTURED: dict = {}

@@ -32,7 +32,7 @@ __all__ = ["BANK_TILE", "DEFAULT_ITERS", "fir_mp_bank",
            "mp_linear", "mp_linear_bwd", "mp_exact_masks",
            "mp_linear_with_levels", "mp_linear_levels",
            "mp_linear_bwd_from_levels",
-           "mp_linear_near_level"]
+           "mp_linear_near_level", "slot_admit"]
 
 DEFAULT_ITERS = 26   # bisection steps of the bank and MP solve kernels
 BANK_TILE = 256      # positions per CTA of the bank kernel
@@ -633,3 +633,23 @@ def mp_linear_near_level(x: torch.Tensor, w: torch.Tensor, z: torch.Tensor,
             gap = torch.minimum((t - zj).abs(), (-t - zj).abs()).amin(-1)
             out[rs, os_, j] = gap <= tol * (1.0 + zj[..., 0].abs())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the serving tier's slot admissions
+# ---------------------------------------------------------------------------
+
+
+def slot_admit(regs, active: torch.Tensor, codes: torch.Tensor) -> None:
+    """The admission codes' writes, IN PLACE, as the server's eager slot
+    writes made them: the rows of the slots whose code has the reset bit
+    (``codes & 2``) zeroed in every register of ``regs`` (each (S, ...)),
+    then ``active`` (S,) set to ``not (code & 1)`` wherever a code is
+    given (1: close, 2: open, 3: an open and a close)."""
+    reset = torch.nonzero(codes & 2).flatten()
+    for t in regs:
+        t[reset] = 0
+    given = codes != 0
+    for value, pick in ((True, given & (codes & 1 == 0)),
+                        (False, codes & 1 == 1)):
+        active[torch.nonzero(pick).flatten()] = value

@@ -5,7 +5,14 @@ capacity S on the pipeline's device. ``open()`` pins a session to a free
 slot (evicting the least-recently-fed idle session to the checkpoint store
 when full; a parked session resumes bit for bit), ``feed()`` absorbs
 chunks for any subset of resident sessions, and ``close()`` / ``evict()``
-release the slot. Per wave, every pending segment is padded into one
+release the slot. ``open`` and ``close`` do not touch the card: each
+leaves an admission code for its slot on the host (:mod:`kernels.admission`:
+close clears the slot's mask, a fresh open zeroes its registers and sets
+it, a later call on a slot overrides or adds to an earlier one), and the
+next wave stages the codes beside its chunk and applies them all in one
+``slot_admit`` launch before its step. Whatever reads or writes the
+registers outside a wave (``state``, parking, a restore) applies the
+pending codes first. Per wave, every pending segment is padded into one
 (S, L_bucket) batch with per-slot valid counts; absent slots ride along
 inertly. Packet lengths pad up to the next power of two in
 ``[min_chunk, max_chunk]`` (longer packets split), so the step sees at
@@ -73,6 +80,7 @@ from repro_torch.core import pipeline as pl
 from repro_torch.core.pipeline import InFilterPipeline, SessionState
 from repro_torch.distributed import sharding as sh
 from repro_torch.kernels._wrap import add_launches, take_captured
+from repro_torch.kernels.admission import OFF, RESET, slot_admit
 from repro_torch.serving.session import (Decision, FeedRequest, FeedResult,
                                          FeedTicket, Session)
 
@@ -270,18 +278,23 @@ def make_batched_step(pipeline: InFilterPipeline) -> BatchedStep:
 class _StageBuffer:
     """One host staging buffer of a bucket's pair (pinned on the card).
     ``inflight`` is the event recorded after the last wave that read it:
-    it must complete before the rows are rewritten."""
+    it must complete before the rows are rewritten. ``admit`` holds the
+    admission codes of a wave that carries any, written whole over the
+    rank's slots by that wave (no other wave reads it)."""
 
-    __slots__ = ("batch", "valid", "batch_np", "valid_np", "dirty",
-                 "inflight")
+    __slots__ = ("batch", "valid", "admit", "batch_np", "valid_np",
+                 "admit_np", "dirty", "inflight")
 
     def __init__(self, capacity: int, length: int, pin: bool):
         self.batch = torch.zeros((capacity, length), dtype=torch.float32,
                                  pin_memory=pin)
         self.valid = torch.zeros((capacity,), dtype=torch.int32,
                                  pin_memory=pin)
+        self.admit = torch.zeros((capacity,), dtype=torch.uint8,
+                                 pin_memory=pin)
         self.batch_np = self.batch.numpy()
         self.valid_np = self.valid.numpy()
+        self.admit_np = self.admit.numpy()
         self.dirty: list = []          # slots written by the last wave
         self.inflight = None
 
@@ -394,6 +407,14 @@ class StreamServer:
                 tuple(t[lo:hi].clone() for t in f) if isinstance(f, tuple)
                 else f[lo:hi].clone() for f in self._state))
             self._lead = not any(mesh.get_coordinate())
+        # admission codes of this rank's slots not yet applied (any
+        # non-zero code is pending)
+        self._codes = np.zeros((self._n,), np.uint8)
+        self._admit_dev = torch.zeros((self._n,), dtype=torch.uint8,
+                                      device=self._state.acc.device) \
+            if self._cuda else None    # their copy on the card
+        self.admission_applies = 0     # slot_admit calls
+        self.slots_admitted = 0        # slots they wrote
         self._batched = step_fn if step_fn is not None \
             else make_batched_step(pipeline)
         self._batched.bind(self._state)
@@ -438,6 +459,9 @@ class StreamServer:
 
     @property
     def state(self) -> SessionState:
+        """The slot-batched registers (this rank's, under a mesh), with
+        every admission applied."""
+        self._admit_now()
         return self._state
 
     def session(self, session_id: str) -> Session:
@@ -471,6 +495,7 @@ class StreamServer:
         """The slot-batched state as ``DTensor`` views of every rank's
         slots, placed by ``sharding.session_specs`` (the mesh's state;
         without a mesh, ``state``)."""
+        self._admit_now()
         if self._mesh is None:
             return self._state
         from torch.distributed.tensor import DTensor
@@ -494,6 +519,7 @@ class StreamServer:
 
     def _take_slot(self, slot: int) -> SessionState:
         """One slot's registers (copies), from the rank that holds it."""
+        self._admit_now()
         i = self._local(slot)
         if self._n_shards == 1:
             return pl.take_slot(self._state, i)
@@ -535,6 +561,8 @@ class StreamServer:
             "coalesce_watermark": self.coalesce_watermark,
             "coalesce_deadline": self.coalesce_deadline,
             "waits": self.waits,
+            "admission_applies": self.admission_applies,
+            "slots_admitted": self.slots_admitted,
         }
 
     # -- admission ------------------------------------------------------------
@@ -560,22 +588,21 @@ class StreamServer:
                 sess = Session(id=session_id, slot=slot, opened_at=now,
                                last_fed=now, max_history=self._max_history)
                 i = self._local(slot)
-                if i is not None:
-                    with tracing.span("server.slot_write"):
-                        pl.clear_slots(self._state, [i])
                 name = self._ckpt_name(session_id)
                 if self._manager is not None \
                         and self._manager.has_named(name):
+                    # a pending reset of the slot must not wipe the row
+                    self._admit_now()
                     with tracing.span("server.restore"):
                         row, meta = self._manager.restore_named(
                             name, pl.take_slot(self._state, 0))
                         if i is not None:
                             pl.put_slot(self._state, i, row)
+                            pl.set_active(self._state, [i], True)
                     if meta:
                         sess.load_meta(meta)
-                if i is not None:
-                    with tracing.span("server.slot_write"):
-                        pl.set_active(self._state, [i], True)
+                elif i is not None:
+                    self._codes[i] = RESET
             except Exception:
                 self._free.append(slot)  # a failed admission keeps no slot
                 raise
@@ -601,8 +628,7 @@ class StreamServer:
                 self._sync()
             i = self._local(sess.slot)
             if i is not None:
-                with tracing.span("server.slot_write"):
-                    pl.set_active(self._state, [i], False)
+                self._codes[i] |= OFF
             self._free.append(sess.slot)
             return sess
 
@@ -624,6 +650,27 @@ class StreamServer:
             self._manager.save_named(self._ckpt_name(sess.id), row,
                                      meta=sess.meta())
         self._sync()
+
+    def _admit_now(self) -> None:
+        """Apply the pending admission codes before the registers are read
+        or written outside a wave (not on a poisoned server, whose
+        registers no one may trust)."""
+        if self._poisoned is None and self._codes.any():
+            with tracing.span("server.slot_write"):
+                self._apply_admissions(torch.from_numpy(self._codes))
+
+    def _apply_admissions(self, codes: torch.Tensor) -> None:
+        """Write the pending admission codes, given as this rank's (n,)
+        row on the host, into the registers: one ``slot_admit`` launch
+        on the card after a copy that does not block the host (a pageable
+        row is copied before the copy returns), torch ops on the CPU."""
+        if self._cuda:
+            self._admit_dev.copy_(codes, non_blocking=True)
+            codes = self._admit_dev
+        slot_admit(self._state.registers(), self._state.active, codes)
+        self.admission_applies += 1
+        self.slots_admitted += int(np.count_nonzero(self._codes))
+        self._codes[:] = 0
 
     def _check_poisoned(self) -> None:
         if self._poisoned is not None:
@@ -874,6 +921,10 @@ class StreamServer:
                     lo, hi = self._lo, self._lo + self._n
                     chunk_dev.copy_(buf.batch[lo:hi], non_blocking=True)
                     valid_dev.copy_(buf.valid[lo:hi], non_blocking=True)
+                    if self._codes.any():
+                        with tracing.span("server.slot_write"):
+                            buf.admit_np[lo:hi] = self._codes
+                            self._apply_admissions(buf.admit[lo:hi])
                     _, p = self._step(self.pipeline, self._state, chunk_dev,
                                       valid_dev)
             except Exception as e:

@@ -437,7 +437,7 @@ def test_lifecycle_errors_match_reference(tmp_path):
 
 # the port's own counters, which the reference does not keep
 PORT_STATS = {"device", "bucket_valid_samples", "bucket_padded_samples",
-              "waits"}
+              "waits", "admission_applies", "slots_admitted"}
 
 
 def test_stats_keys_match_reference():

@@ -132,7 +132,8 @@ def test_spans_nest_and_share_the_tickets_key():
             "server.wave": "server.dispatch",
             "server.stage": "server.wave", "server.launch": "server.wave",
             "server.copy_out": "server.wave", "server.resolve": None,
-            "server.slot_write": {"server.open", "server.close"}}
+            # the wave's one apply; a restore applies what is pending
+            "server.slot_write": {"server.launch", "server.open"}}
     seen = set()
     for s in rec["spans"]:
         w = want.get(s["name"], "unlisted")
